@@ -3,17 +3,34 @@
 
     python3 chip_smoke.py
 
-Drives ``repro_torch.solve(inst, "tabu_multiwalk")`` at the paper's instance
-size (250 tasks, 600 data blocks, 10 cores; 8 walks, top-K 10) through the
-hand-written schedule-DP kernel, and holds that kernel against its plain
-PyTorch version on the card.  Phases, one JSON line each:
+Drives the port's two paths through their hand-written kernels and holds
+every kernel against its plain PyTorch version on the card:
 
-  env        torch / CUDA versions, the card's name and power limit
-  build      nvcc builds every kernel from the sources in this checkout
-  kernels    each kernel against its plain version, bit for bit
-  main_path  the solve on the card, against the port's NumPy backend, certified,
-             with the host time of each phase of the search round
-  timing     kernel, plain version, bound and host engine at the main path's shape
+* the scheduler: ``repro_torch.solve(inst, "tabu_multiwalk")`` at the paper's
+  instance size (250 tasks, 600 data blocks, 10 cores; 8 walks, top-K 10)
+  through the schedule-DP kernel (K1);
+* model serving: recurrentgemma-2b at its published width (26 layers, d 2560,
+  vocab 256000), random bf16 parameters from seed 0, batch 4, 4096-token
+  prompts (twice the attention window), 32 greedy tokens, through the flash
+  attention kernel (K2) and the RG-LRU scan kernel (K3).
+
+Phases, one JSON line each:
+
+  env            torch / CUDA versions, the card's name and power limit
+  build          nvcc builds every kernel from the sources in this checkout
+  kernels        K1 against its plain version, bit for bit
+  model_kernels  K2 (f32 2e-5, bf16 2e-2, LSE 1e-5) and K3 (bit for bit)
+                 against their plain versions, at the reference's test shapes,
+                 ragged ones and the serving shapes
+  main_path      the solve on the card, against the port's NumPy backend,
+                 certified, with the host time of each phase of the search round
+  model_serve    the full-width serve (launch counts asserted), the card's
+                 kernel time by class over a profiled prefill and 8 decode
+                 steps, and the serve held teacher-forced against the same
+                 model on the plain versions
+  timing         K1, plain version, bound and host engine at the main path's shape
+  model_timing   K2 and K3 at the serving shapes: kernel, plain version, bound,
+                 and for K2 PyTorch's scaled_dot_product_attention
 
 then a ``{"kernels": [...]}`` line, the card's ``nvidia-smi`` line, and last
 ``{"ok": true, "device": {...}}``.  Any failure raises: the exit code is
@@ -22,6 +39,7 @@ non-zero and the last line is not printed.  Without a GPU it exits non-zero.
 """
 from __future__ import annotations
 
+import contextlib
 import json
 import statistics
 import subprocess
@@ -32,9 +50,10 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
-# published peaks of one H100 SXM (NVIDIA data sheet, dense, non-tensor-core)
+# published peaks of one H100 SXM (NVIDIA data sheet, dense): float32 and
+# float64 outside the tensor cores, bfloat16 in them
 HBM_BYTES_PER_S = 3.35e12
-PEAK_FLOPS = {"float32": 67e12, "float64": 34e12}
+PEAK_FLOPS = {"float32": 67e12, "float64": 34e12, "bfloat16": 989e12}
 
 EDGE_SIZES = (31, 32, 33, 63, 64, 65, 250)
 
@@ -381,6 +400,405 @@ def phase_timing(device, rows: int):
     return out
 
 
+# --------------------------------------------------------------------------- #
+# model path: K2 (flash attention) and K3 (RG-LRU scan)                        #
+# --------------------------------------------------------------------------- #
+ARCH = "recurrentgemma-2b"
+SERVE_BATCH, SERVE_PROMPT, SERVE_GEN = 4, 4096, 32
+# (b, sq, skv, h, kvh, d, causal, window, q_offset): the six shapes of
+# tests/test_kernels.py, ragged ones, and the serving shape
+FLASH_SHAPES = (
+    (2, 256, 256, 4, 2, 64, True, None, 0),
+    (1, 128, 128, 8, 8, 128, False, None, 0),
+    (2, 128, 512, 4, 1, 64, True, 128, 0),
+    (1, 256, 512, 4, 4, 64, True, None, 256),
+    (1, 384, 384, 6, 2, 32, True, None, 0),
+    (2, 256, 256, 2, 1, 64, True, 64, 0),
+    (1, 100, 1000, 2, 1, 32, False, None, 0),
+    (1, 100, 1000, 2, 1, 32, True, 300, 900),
+    (2, 77, 77, 10, 1, 256, True, 48, 0),
+)
+FLASH_SERVE = (SERVE_BATCH, SERVE_PROMPT, SERVE_PROMPT, 10, 1, 256, True, 2048, 0)
+FLASH_TOL = {"float32": 2e-5, "bfloat16": 2e-2}       # tests/test_kernels.py
+# served vs plain-version logits, as a share of max |logit|: about ten times
+# the error of a correct bf16 path (3.8e-4 at every step on an H100)
+TEACHER_FORCED_LIMIT = 4e-3
+# (b, t, d, h0): the reference's test shapes, T = 1, ragged T, the serving shapes
+RGLRU_SHAPES = ((2, 512, 64, True), (1, 256, 128, True), (3, 128, 32, False),
+                (2, 1, 96, True), (3, 1000, 200, False), (3, 1000, 200, True),
+                (SERVE_BATCH, 1, 2560, True), (SERVE_BATCH, SERVE_PROMPT, 2560, True))
+
+
+def randn(gen, shape, device, dtype=None):
+    import torch
+
+    z = torch.randn(shape, generator=gen, device=device, dtype=torch.float32)
+    return z if dtype is None else z.to(dtype)
+
+
+def flash_operands(shape, dtype, device, seed=0):
+    import torch
+
+    b, sq, skv, h, kvh, d, causal, window, q_offset = shape
+    gen = torch.Generator(device=device).manual_seed(seed)
+    q = randn(gen, (b, sq, h, d), device, dtype)
+    k = randn(gen, (b, skv, kvh, d), device, dtype)
+    v = randn(gen, (b, skv, kvh, d), device, dtype)
+    return q, k, v, dict(causal=causal, window=window, q_offset=q_offset)
+
+
+def _within(got, want, tol: float) -> tuple[bool, float]:
+    import torch
+
+    g, w = got.to(torch.float64), want.to(torch.float64)
+    err = (g - w).abs()
+    return bool((err <= tol + tol * w.abs()).all()), float(err.max()) if err.numel() else 0.0
+
+
+def flash_pairs(sq: int, skv: int, causal: bool, window, q_offset: int) -> int:
+    """Unmasked (q, k) pairs of one (batch, head): the work this data needs."""
+    import numpy as np
+
+    pos = q_offset + np.arange(sq, dtype=np.int64)
+    hi = np.minimum(pos, skv - 1) if causal else np.full(sq, skv - 1)
+    lo = np.maximum(pos - window + 1, 0) if window is not None else np.zeros(sq, np.int64)
+    return int(np.maximum(hi - lo + 1, 0).sum())
+
+
+def flash_bound(q, k, v, causal, window, q_offset, with_lse=False) -> dict:
+    """Least time for K2's work: q, k, v read and the output (and LSE) written
+    once over the memory rate, against 4 D operations per unmasked pair (2 D
+    for q.k, 2 D for p.v) over the peak rate of the input type."""
+    b, sq, h, d = q.shape
+    skv = k.shape[1]
+    pairs = flash_pairs(sq, skv, causal, window, q_offset) * b * h
+    ops = 4 * d * pairs
+    nbytes = (2 * q.numel() + k.numel() + v.numel()) * q.element_size() \
+        + (b * sq * h * 4 if with_lse else 0)
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / PEAK_FLOPS[str(q.dtype).split(".")[-1]] * 1e3
+    return {"bytes": nbytes, "operations": ops, "pairs": pairs, "bytes_ms": t_bytes,
+            "ops_ms": t_ops, "bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+
+
+def rglru_bound(a, h0) -> dict:
+    """Least time for K3's scan: a and x~ read, y written, h0 read, all fp32,
+    against one multiply and one add per element at the fp32 rate."""
+    nbytes = 3 * a.numel() * 4 + (h0.numel() * 4 if h0 is not None else 0)
+    ops = 2 * a.numel()
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / PEAK_FLOPS["float32"] * 1e3
+    return {"bytes": nbytes, "operations": ops, "bytes_ms": t_bytes, "ops_ms": t_ops,
+            "bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+
+
+def rglru_operands(shape, dtype, device, seed=0):
+    import torch
+
+    b, t, d, with_h0 = shape
+    gen = torch.Generator(device=device).manual_seed(seed)
+    x = randn(gen, (b, t, d), device, dtype)
+    a_param = 0.1 * randn(gen, (d,), device)
+    ig = torch.sigmoid(randn(gen, (b, t, d), device)).to(dtype)
+    ag = torch.sigmoid(randn(gen, (b, t, d), device)).to(dtype)
+    h0 = randn(gen, (b, d), device) if with_h0 else None
+    return x, a_param, ig, ag, h0
+
+
+def phase_model_kernels(device):
+    """K2 and K3 against their plain versions on the card."""
+    import torch
+
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import rglru as rg
+
+    worst = {"float32": 0.0, "bfloat16": 0.0}
+    worst_lse = 0.0
+    n_flash = 0
+    for i, shape in enumerate(FLASH_SHAPES + (FLASH_SERVE,)):
+        for name, dtype in (("float32", torch.float32), ("bfloat16", torch.bfloat16)):
+            q, k, v, kw = flash_operands(shape, dtype, device, seed=i)
+            with_lse = name == "float32"
+            before = fa.flash_attention.launches
+            got = fa.flash_attention(q, k, v, return_lse=with_lse, **kw)
+            torch.cuda.synchronize()
+            if fa.flash_attention.launches != before + 1:
+                raise AssertionError("flash_attention did not launch its kernel")
+            want = fa.flash_attention_torch(q, k, v, return_lse=with_lse, **kw)
+            if with_lse:
+                (got, lse), (want, want_lse) = got, want
+                ok, err = _within(lse, want_lse, 1e-5)
+                worst_lse = max(worst_lse, err)
+                if not ok:
+                    raise AssertionError(f"flash_attention lse differs: {shape} err {err}")
+            ok, err = _within(got, want, FLASH_TOL[name])
+            worst[name] = max(worst[name], err)
+            if not ok:
+                raise AssertionError(f"flash_attention differs from its plain version: "
+                                     f"{shape} {name} max_abs_err {err}")
+            n_flash += 1
+    worst_rg = 0.0
+    for i, shape in enumerate(RGLRU_SHAPES):
+        for dtype in (torch.float32, torch.bfloat16):
+            x, a_param, ig, ag, h0 = rglru_operands(shape, dtype, device, seed=i)
+            before = rg.rglru_scan.launches
+            y, h = rg.rglru_scan(x, a_param, ig, ag, h0)
+            torch.cuda.synchronize()
+            if rg.rglru_scan.launches != before + 1:
+                raise AssertionError("rglru_scan did not launch its kernel")
+            want_y, want_h = rg.rglru_scan_torch(x, a_param, ig, ag, h0)
+            worst_rg = max(worst_rg, _within(y, want_y, 0.0)[1], _within(h, want_h, 0.0)[1])
+            if not (torch.equal(y, want_y) and torch.equal(h, want_h)):
+                raise AssertionError(f"rglru_scan differs from its plain version: {shape} {dtype}")
+    say("model_kernels", flash_checks=n_flash, flash_max_abs_err=worst,
+        flash_lse_max_abs_err=worst_lse,
+        flash_tolerance={"float32": 2e-5, "bfloat16": 2e-2, "lse": 1e-5},
+        flash_shapes=[list(s) for s in FLASH_SHAPES + (FLASH_SERVE,)],
+        rglru_checks=2 * len(RGLRU_SHAPES), rglru_max_abs_err=worst_rg,
+        rglru_tolerance="0 (torch.equal), float32 and bfloat16 inputs",
+        rglru_shapes=[list(s) for s in RGLRU_SHAPES])
+    return {"flash_attention": max(worst.values()), "flash_f32": worst["float32"],
+            "rglru_scan": worst_rg}
+
+
+@contextlib.contextmanager
+def plain_kernels():
+    """The model path with K2 and K3 replaced by their plain versions (for
+    the comparison only: the port itself has no such route)."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import rglru as rg
+
+    orig = ops.flash_attention, ops.rglru_scan
+    ops.flash_attention, ops.rglru_scan = fa.flash_attention_torch, rg.rglru_scan_torch
+    try:
+        yield
+    finally:
+        ops.flash_attention, ops.rglru_scan = orig
+
+
+def teacher_forced_logits(cfg, model, prompts, ids, device):
+    """Prefill logits and each decode step's logits, feeding the served ids."""
+    from repro_torch.models import arch_decode_step
+    from repro_torch.runtime import make_prefill_step
+
+    plen, gen = prompts.shape[1], ids.shape[1]
+    logits, cache = make_prefill_step(cfg, max_len=plen + gen, device=device)(
+        model, {"tokens": prompts})
+    out = [logits.float()]
+    for i in range(gen - 1):
+        logits, cache = arch_decode_step(cfg, model, cache, ids[:, i:i + 1], plen + i)
+        out.append(logits.float())
+    return out
+
+
+def rel_err(got, want) -> float:
+    return float((got - want).abs().max() / want.abs().max())
+
+
+def _kernel_class(name: str) -> str:
+    if "flash_fwd_kernel" in name:
+        return "K2 flash_attention"
+    if "rglru_scan_kernel" in name:
+        return "K3 rglru_scan"
+    low = name.lower()
+    if any(t in low for t in ("gemm", "xmma", "cutlass", "nvjet", "matmul", "splitk")):
+        return "matmul (cuBLAS)"
+    return "elementwise / reduction / copy"
+
+
+def device_breakdown(fn) -> dict:
+    """Run ``fn`` once under ``torch.profiler`` and sum the card's kernel time
+    by class; busy share = kernel time / wall time of the window."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    by_class: dict = {}
+    n_kernels = 0
+    for e in prof.key_averages():
+        if not str(e.device_type).endswith("CUDA"):
+            continue
+        us = getattr(e, "self_device_time_total", None)
+        if us is None:
+            us = getattr(e, "self_cuda_time_total", 0)
+        c = by_class.setdefault(_kernel_class(e.key), {"ms": 0.0, "launches": 0})
+        c["ms"] += us / 1e3
+        c["launches"] += e.count
+        n_kernels += e.count
+    busy = sum(c["ms"] for c in by_class.values())
+    return {"wall_ms": wall_ms, "device_busy_ms": busy,
+            "device_idle_share": 1.0 - busy / wall_ms if wall_ms > 0 else None,
+            "kernels": n_kernels,
+            "by_class": dict(sorted(by_class.items(), key=lambda kv: -kv[1]["ms"]))}
+
+
+def phase_model_serve(device):
+    """The full-width serve through K2 and K3, then the comparisons."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import rglru as rg
+    from repro_torch.launch.model_serve import serve
+    from repro_torch.models import arch_init_params
+    from repro_torch.runtime import make_prefill_step, make_serve_step, next_token
+
+    cfg = get_config(ARCH)
+    t0 = time.perf_counter()
+    gen = torch.Generator(device=device).manual_seed(0)
+    model = arch_init_params(cfg, gen, device=device)
+    prompts = torch.randint(1, cfg.vocab_size, (SERVE_BATCH, SERVE_PROMPT), generator=gen,
+                            device=device)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = sum(p.numel() for p in model.parameters())
+
+    # first serve: library handles, lazy module loads and the allocator's
+    # first growth land here; it is reported, the second one is the reading
+    first = serve(cfg, model, prompts, 2, device=device)
+    torch.cuda.reset_peak_memory_stats(device)
+    fa.flash_attention.launches = rg.rglru_scan.launches = 0
+    res = serve(cfg, model, prompts, SERVE_GEN, device=device)
+    launches = {"flash_attention": fa.flash_attention.launches,
+                "rglru_scan": rg.rglru_scan.launches}
+    peak = torch.cuda.max_memory_allocated(device)
+    n_attn, n_rec = cfg.kinds.count("attn_local"), cfg.kinds.count("rec")
+    want = {"flash_attention": n_attn, "rglru_scan": n_rec * SERVE_GEN}
+    if launches != want:
+        raise AssertionError(f"main-path launches {launches}, expected {want}")
+    if res.ids.shape != (SERVE_BATCH, SERVE_GEN) or not (
+            (res.ids >= 0) & (res.ids < cfg.vocab_size)).all():
+        raise AssertionError(f"served ids out of range or misshapen: {res.ids.shape}")
+
+    # where the card's time goes: one prefill, then 8 decode steps, profiled
+    prefill = make_prefill_step(cfg, max_len=SERVE_PROMPT + SERVE_GEN, device=device)
+    step = make_serve_step(cfg, device=device)
+    held = {}
+
+    def do_prefill():
+        held["logits"], held["cache"] = prefill(model, {"tokens": prompts})
+
+    def do_decode():
+        tok, cache = next_token(cfg, held["logits"])[:, None], held["cache"]
+        for i in range(8):
+            tok, cache = step(model, cache, tok, SERVE_PROMPT + i)
+
+    profile = {"prefill": device_breakdown(do_prefill), "decode_8_steps": device_breakdown(do_decode)}
+    del held
+
+    # teacher-forced against the same model on the plain versions
+    ids = torch.from_numpy(res.ids).to(device)
+    kern = teacher_forced_logits(cfg, model, prompts, ids, device)
+    with plain_kernels():
+        before = (fa.flash_attention.launches, rg.rglru_scan.launches)
+        plain = teacher_forced_logits(cfg, model, prompts, ids, device)
+        if (fa.flash_attention.launches, rg.rglru_scan.launches) != before:
+            raise AssertionError("the plain-version run launched a kernel")
+    errs = [rel_err(a, b) for a, b in zip(kern, plain)]
+    for i, (a, b) in enumerate(zip(kern, plain)):
+        if not bool(torch.isfinite(a).all()):
+            raise AssertionError(f"non-finite logits at step {i}")
+    if max(errs) > TEACHER_FORCED_LIMIT:
+        raise AssertionError(f"served logits differ from the plain versions' by "
+                             f"{max(errs):.3g} of max |logit| (limit {TEACHER_FORCED_LIMIT})")
+    served_again = torch.stack([a[:, :cfg.vocab_size].argmax(-1) for a in kern], 1).cpu()
+    plain_greedy = torch.stack([b[:, :cfg.vocab_size].argmax(-1) for b in plain], 1).cpu()
+    del kern, plain, model
+    torch.cuda.empty_cache()
+
+    say("model_serve", arch=ARCH, layers=cfg.n_layers, d_model=cfg.d_model,
+        vocab=cfg.vocab_size, params=n_params, dtype=cfg.dtype, batch=SERVE_BATCH,
+        prompt_len=SERVE_PROMPT, gen=SERVE_GEN, window=cfg.attn_window,
+        launches=launches, expected_launches=want,
+        prefill_ms=res.prefill_s * 1e3, decode_ms_per_step=res.decode_ms_per_step,
+        first_serve_prefill_ms=first.prefill_s * 1e3,
+        decode_steps=res.steps, tok_per_s=res.tokens_per_s,
+        max_memory_allocated_bytes=peak, init_s=init_s,
+        teacher_forced_rel_err=errs, teacher_forced_limit=TEACHER_FORCED_LIMIT,
+        served_ids_reproduced_teacher_forced=bool((served_again == torch.from_numpy(res.ids)).all()),
+        greedy_tokens_same_on_plain_versions=int((plain_greedy == torch.from_numpy(res.ids)).sum()),
+        sample_ids=res.ids[0, :16].tolist(), device_profile=profile,
+        note="prefill_ms: prompt forward + first token, synchronised, in the second "
+             "serve of the process (first_serve_prefill_ms: the first, with set-up); "
+             "decode: 31 steps of one token each; max_memory_allocated over the second "
+             "serve; rel_err = max |diff| / max |logit| per step; device_profile: "
+             "torch.profiler kernel time by class over one prefill and over 8 decode "
+             "steps (wall includes the profiler's own host cost)")
+    return launches
+
+
+def sdpa_backend(q, k, v, mask) -> str:
+    import torch
+
+    choose = getattr(torch, "_fused_sdp_choice", None)
+    if choose is None:
+        return "unknown"
+    from torch.nn.attention import SDPBackend
+
+    code = int(choose(q, k, v, mask, 0.0, False))
+    names = {int(b): n for n, b in SDPBackend.__members__.items()}
+    return names.get(code, f"code {code}")
+
+
+def phase_model_timing(device):
+    """K2 and K3 at the serving shapes: kernel, plain version, bound, library."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import rglru as rg
+
+    q, k, v, kw = flash_operands(FLASH_SERVE, torch.bfloat16, device, seed=7)
+    f_ms = cuda_median_ms(lambda: fa.flash_attention(q, k, v, **kw), reps=20, warmup=3)
+    f_plain = cuda_median_ms(lambda: fa.flash_attention_torch(q, k, v, **kw), reps=3, warmup=1)
+    f_bound = flash_bound(q, k, v, **kw)
+    # yardstick only: the port never calls it
+    s, h = q.shape[1], q.shape[2]
+    pos = torch.arange(s, device=device)
+    band = (pos[None, :] <= pos[:, None]) & (pos[None, :] > pos[:, None] - kw["window"])
+    qt = q.transpose(1, 2)
+    kt = k.transpose(1, 2).expand(-1, h, -1, -1).contiguous()
+    vt = v.transpose(1, 2).expand(-1, h, -1, -1).contiguous()
+    lib_ms = cuda_median_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=band),
+                            reps=20, warmup=3)
+    lib_out = F.scaled_dot_product_attention(qt, kt, vt, attn_mask=band).transpose(1, 2)
+    lib_err = float((lib_out.float() - fa.flash_attention(q, k, v, **kw).float()).abs().max())
+    backend = sdpa_backend(qt, kt, vt, band)
+    del qt, kt, vt, lib_out
+
+    x, a_param, ig, ag, h0 = rglru_operands((SERVE_BATCH, SERVE_PROMPT, 2560, True),
+                                            torch.bfloat16, device, seed=8)
+    a, xb = rg.rglru_gates(x, a_param, ig, ag)
+    r_ms = cuda_median_ms(lambda: rg._launch_cuda(a, xb, h0), reps=20, warmup=3)
+    r_plain = cuda_median_ms(lambda: rg.scan_torch(a, xb, h0), reps=3, warmup=1)
+    r_wrapper = cuda_median_ms(lambda: rg.rglru_scan(x, a_param, ig, ag, h0), reps=20, warmup=3)
+    r_bound = rglru_bound(a, h0)
+    d_a, d_xb = a[:, :1].contiguous(), xb[:, :1].contiguous()
+    r_decode = cuda_median_ms(lambda: rg._launch_cuda(d_a, d_xb, h0), reps=50, warmup=5)
+    out = {
+        "flash_attention": {"ms": f_ms, "plain_ms": f_plain, **f_bound, "library_ms": lib_ms,
+                            "library": f"scaled_dot_product_attention ({backend}), kv heads "
+                                       "expanded and band mask built outside the timing",
+                            "library_max_abs_diff": lib_err, "shape": list(FLASH_SERVE)},
+        "rglru_scan": {"ms": r_ms, "plain_ms": r_plain, **r_bound, "library_ms": None,
+                       "wrapper_ms_with_gates": r_wrapper, "decode_step_ms": r_decode,
+                       "shape": [SERVE_BATCH, SERVE_PROMPT, 2560]},
+    }
+    say("model_timing", **out,
+        note="ms: median of 20 launches (plain version: 3) timed with CUDA events after "
+             "warm-up, inputs resident on the card; rglru ms is the scan kernel alone "
+             "(the gate math is PyTorch and is in wrapper_ms_with_gates)")
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -403,17 +821,25 @@ def main() -> int:
         cuda=torch.version.cuda, numpy=np.__version__, card=smi,
         device_count=torch.cuda.device_count())
 
+    # float32 products of the plain versions stay float32 (no TF32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
     t0 = time.perf_counter()
+    _build.build()                      # one nvcc per source, all at once
     for name in _build.KERNEL_SOURCES:
         _build.load(name)
     say("build", kernels=sorted(_build.KERNEL_SOURCES), flags=list(_build.NVCC_FLAGS),
         seconds=time.perf_counter() - t0, build_dir=str(_build.build_dir()))
 
     worst = phase_kernels(device)
+    model_err = phase_model_kernels(device)
     launches, max_rows = phase_main_path()
+    model_launches = phase_model_serve(device)
     timing = phase_timing(device, rows=max_rows)
+    mtime = phase_model_timing(device)
 
     fwd = timing["forward"]
+    fl, rg = mtime["flash_attention"], mtime["rglru_scan"]
     print(json.dumps({"kernels": [{
         "name": "schedule_dp", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/schedule_dp.cu",
@@ -427,6 +853,26 @@ def main() -> int:
         "tails_ms": timing["tails"]["ms"], "tails_plain_ms": timing["tails"]["plain_ms"],
         "tails_bound_ms": timing["tails"]["bound_ms"],
         "tails_chain_ms": timing["tails"]["chain_ms"],
+    }, {
+        "name": "flash_attention", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
+        "replaces": "src/repro/kernels/flash_attention.py:99",
+        "launches": model_launches["flash_attention"],
+        "max_abs_err": model_err["flash_attention"],
+        "max_abs_err_f32": model_err["flash_f32"],
+        "ms": fl["ms"], "plain_ms": fl["plain_ms"],
+        "bound_ms": fl["bound_ms"], "bound_by": fl["bound_by"],
+        "library_ms": fl["library_ms"], "library": fl["library"],
+        "shape": fl["shape"], "dtype": "bfloat16",
+    }, {
+        "name": "rglru_scan", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/rglru.cu",
+        "replaces": "src/repro/kernels/rglru.py:41",
+        "launches": model_launches["rglru_scan"], "max_abs_err": model_err["rglru_scan"],
+        "ms": rg["ms"], "plain_ms": rg["plain_ms"],
+        "bound_ms": rg["bound_ms"], "bound_by": rg["bound_by"], "library_ms": None,
+        "shape": rg["shape"], "dtype": "float32 scan (bfloat16 model)",
+        "decode_step_ms": rg["decode_step_ms"],
     }], "seconds": time.perf_counter() - t_start}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -9,10 +9,18 @@ any object with the same attributes is a valid input.
 
 A solution's per-processor order (a list of lists) travels as a CSR pair:
 ``proc_seq_indptr (n_procs + 1,)`` and ``proc_seq_idx (n_tasks,)``.
+
+A model's parameters travel as the reference's nested parameter tree of
+arrays: heterogeneous stacks as ``periods/slot_j/...`` stacked on a leading
+axis of pattern periods plus unrolled ``tail_XXX`` layers, uniform stacks as
+``layers/...`` stacked on a leading axis of layers, otherwise
+``layer_XXX``; ``tok_emb`` and ``ln_f_w`` at the top.  The port's state dict
+names layer ``i`` ``layers.{i}.<path>`` (:mod:`repro_torch.models.decoder`).
 """
 from __future__ import annotations
 
 import numpy as np
+import torch
 
 from .core.mdfg import Instance
 from .core.solution import Solution
@@ -24,6 +32,8 @@ __all__ = [
     "instance_to_arrays",
     "solution_from_arrays",
     "solution_to_arrays",
+    "model_params_from_arrays",
+    "model_params_to_arrays",
 ]
 
 # the constructor fields; the pred/succ CSR closure is re-derived from them
@@ -83,3 +93,73 @@ def solution_to_arrays(sol: Solution) -> dict:
     return {"assign": np.array(sol.assign, copy=True),
             "mem": np.array(sol.mem, copy=True),
             "proc_seq_indptr": indptr, "proc_seq_idx": idx}
+
+
+def _layer_sources(cfg):
+    """For each layer index: the path of its subtree in the reference's
+    parameter tree and its index on the stacked axis (None if unstacked)."""
+    if cfg.uniform and cfg.scan_layers:
+        return [(("layers",), i) for i in range(cfg.n_layers)]
+    if cfg.period_scan:
+        per = len(cfg.layer_pattern)
+        out = [(("periods", f"slot_{j}"), p) for p in range(cfg.n_periods) for j in range(per)]
+        return out + [((f"tail_{j:03d}",), None) for j in range(len(cfg.tail_kinds))]
+    return [((f"layer_{i:03d}",), None) for i in range(cfg.n_layers)]
+
+
+def _flatten(tree: dict, prefix: str = "") -> dict:
+    out = {}
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            out.update(_flatten(v, f"{prefix}{k}."))
+        else:
+            out[f"{prefix}{k}"] = v
+    return out
+
+
+def model_params_from_arrays(cfg, tree: dict) -> dict:
+    """The reference's parameter tree of a decoder (arrays) -> the port's state
+    dict (CPU tensors, copies, in the arrays' type); load it with
+    ``Decoder.load_state_dict``, which casts to each parameter's type."""
+    sd = _flatten({k: v for k, v in tree.items()
+                   if k not in ("layers", "periods") and not k.startswith(("tail_", "layer_"))})
+    for i, (path, idx) in enumerate(_layer_sources(cfg)):
+        sub = tree
+        for key in path:
+            sub = sub[key]
+        for name, arr in _flatten(sub).items():
+            sd[f"layers.{i}.{name}"] = arr if idx is None else np.asarray(arr)[idx]
+    return {k: torch.from_numpy(np.array(v, copy=True)) for k, v in sd.items()}
+
+
+def model_params_to_arrays(cfg, state_dict: dict) -> dict:
+    """The inverse of :func:`model_params_from_arrays`: the port's state dict
+    -> the reference's parameter tree, as float32 NumPy arrays."""
+    def arr(t):
+        return t.detach().float().cpu().numpy()
+
+    layer_of = {}
+    tree: dict = {}
+    for name, t in state_dict.items():
+        if name.startswith("layers."):
+            _, i, rest = name.split(".", 2)
+            layer_of.setdefault(int(i), {})[rest] = arr(t)
+        else:
+            tree[name] = arr(t)
+    sources = _layer_sources(cfg)
+    stacked: dict = {}
+    for i, (path, idx) in enumerate(sources):
+        for rest, a in layer_of[i].items():
+            if idx is None:
+                node = tree
+                for key in (*path, *rest.split(".")[:-1]):
+                    node = node.setdefault(key, {})
+                node[rest.split(".")[-1]] = a
+            else:
+                stacked.setdefault((path, rest), {})[idx] = a
+    for (path, rest), by_idx in stacked.items():
+        node = tree
+        for key in (*path, *rest.split(".")[:-1]):
+            node = node.setdefault(key, {})
+        node[rest.split(".")[-1]] = np.stack([by_idx[j] for j in sorted(by_idx)])
+    return tree

@@ -3,9 +3,10 @@
 Each kernel is one ``csrc/*.cu`` file with a plain C interface.  ``nvcc``
 compiles it for ``sm_90a`` into ``build/`` at the repository root (or
 ``$REPRO_TORCH_BUILD_DIR``), named after a hash of the source and the flags
-so an edited source rebuilds, and ``ctypes`` loads the result.  Nothing but
-the sources in this package goes into a build.  A build or load failure
-raises with the compiler's output; there is no fallback.
+so an edited source rebuilds, and ``ctypes`` loads the result.  :func:`build`
+starts one ``nvcc`` per missing library, all at once, and waits for them.
+Nothing but the sources in this package goes into a build.  A build or load
+failure raises with the compiler's output; there is no fallback.
 """
 from __future__ import annotations
 
@@ -16,7 +17,7 @@ import shutil
 import subprocess
 from pathlib import Path
 
-__all__ = ["NVCC_FLAGS", "KERNEL_SOURCES", "build_dir", "load"]
+__all__ = ["NVCC_FLAGS", "KERNEL_SOURCES", "build_dir", "build", "load"]
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 
@@ -28,6 +29,8 @@ NVCC_FLAGS = (
 
 KERNEL_SOURCES = {
     "schedule_dp": "schedule_dp.cu",
+    "flash_attention": "flash_attention.cu",
+    "rglru": "rglru.cu",
 }
 
 _loaded: dict[str, ctypes.CDLL] = {}
@@ -62,24 +65,40 @@ def _target(name: str) -> tuple[Path, Path]:
     return src, build_dir() / f"lib{name}_{h.hexdigest()[:16]}.so"
 
 
+def build(names=None) -> None:
+    """Build the libraries of ``names`` (default: every kernel) that are not
+    built yet: one ``nvcc`` process per source, all started together."""
+    procs = []
+    for name in (KERNEL_SOURCES if names is None else names):
+        src, out = _target(name)
+        if out.exists():
+            continue
+        out.parent.mkdir(parents=True, exist_ok=True)
+        tmp = out.with_suffix(f".{os.getpid()}.tmp.so")
+        procs.append((name, tmp, out, subprocess.Popen(
+            [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(src)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
+    failed = []
+    for name, tmp, out, proc in procs:
+        log, _ = proc.communicate()
+        if proc.returncode != 0 or not tmp.exists():
+            tmp.unlink(missing_ok=True)
+            failed.append(f"nvcc failed for {KERNEL_SOURCES[name]} "
+                          f"(exit {proc.returncode}):\n{log}")
+        else:
+            os.replace(tmp, out)  # atomic: a concurrent process sees all or nothing
+    if failed:
+        raise RuntimeError("\n".join(failed))
+
+
 def load(name: str) -> ctypes.CDLL:
     """The loaded library of kernel ``name``, built first if need be."""
     lib = _loaded.get(name)
     if lib is not None:
         return lib
-    src, out = _target(name)
+    _, out = _target(name)
     if not out.exists():
-        out.parent.mkdir(parents=True, exist_ok=True)
-        tmp = out.with_suffix(f".{os.getpid()}.tmp.so")
-        proc = subprocess.run(
-            [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(src)],
-            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-        if proc.returncode != 0 or not tmp.exists():
-            tmp.unlink(missing_ok=True)
-            raise RuntimeError(
-                f"nvcc failed for {KERNEL_SOURCES[name]} (exit {proc.returncode}):\n"
-                f"{proc.stdout}")
-        os.replace(tmp, out)  # atomic: a concurrent process sees all or nothing
+        build([name])
     try:
         lib = ctypes.CDLL(str(out))
     except OSError as e:

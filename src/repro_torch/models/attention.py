@@ -1,0 +1,90 @@
+"""Attention layers: MQA/GQA projections + RoPE + the flash kernel for the
+prompt, and single-token decode against a ring KV cache.
+
+One card holds the whole cache, so decode is the reference's single-shard
+branch (``_local_decode``); its sequence-sharded ``shard_map`` form belongs
+to the multi-device work.  Decode writes the new key and value into the cache
+in place (the reference returns an updated copy): the caller hands the cache
+on and never reads the old one, and a copy per layer per token would double
+the traffic of the step.
+"""
+from __future__ import annotations
+
+import torch
+
+from ..configs.base import ModelConfig
+from ..kernels import ops
+from .common import ParamDef, apply_rope
+
+__all__ = ["attn_defs", "attention", "decode_attention", "kv_cache_defs"]
+
+_NEG = -1e30
+
+
+def attn_defs(cfg: ModelConfig) -> dict[str, ParamDef]:
+    d, h, kvh, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
+    return {
+        "wq": ParamDef((d, h, hd)),
+        "wk": ParamDef((d, kvh, hd)),
+        "wv": ParamDef((d, kvh, hd)),
+        "wo": ParamDef((h, hd, d)),
+    }
+
+
+def _project_qkv(p, x):
+    """x: (B, S, E) -> q (B,S,H,HD), k/v (B,S,KVH,HD)."""
+    q = torch.einsum("bse,ehd->bshd", x, p.wq)
+    k = torch.einsum("bse,ehd->bshd", x, p.wk)
+    v = torch.einsum("bse,ehd->bshd", x, p.wv)
+    return q, k, v
+
+
+def attention(cfg: ModelConfig, p, x: torch.Tensor, *, positions: torch.Tensor,
+              causal: bool = True, window: int | None = None, return_kv: bool = False):
+    """Full-sequence attention (prefill): x (B, S, E) -> (B, S, E)
+    [+ the roped k and the v, (B, S, KVH, HD) each]."""
+    q, k, v = _project_qkv(p, x)
+    q = apply_rope(q, positions, cfg.rope_theta)
+    k = apply_rope(k, positions, cfg.rope_theta)
+    out = ops.flash_attention(q, k, v, causal=causal, window=window)
+    y = torch.einsum("bshd,hde->bse", out, p.wo)
+    return (y, (k, v)) if return_kv else y
+
+
+def kv_cache_defs(cfg: ModelConfig, batch: int, slots: int):
+    """Shapes and whether the entry is fp32 (else the working type)."""
+    shape = (batch, slots, cfg.n_kv_heads, cfg.resolved_head_dim)
+    return {"k": (shape, False), "v": (shape, False)}
+
+
+def decode_attention(cfg: ModelConfig, p, x: torch.Tensor, cache: dict, pos: int):
+    """One token against a ring cache of ``S_max`` slots: x (B, 1, E), cache
+    {"k","v"}: (B, S_max, KVH, HD), ``pos`` the token's absolute position.
+    The token goes to slot ``pos % S_max``; slots up to it are live, and every
+    slot is once the ring has wrapped (``pos >= S_max``).  Returns
+    ((B, 1, E), cache) with the cache updated in place."""
+    b = x.shape[0]
+    q, k_new, v_new = _project_qkv(p, x)
+    pos_t = torch.arange(pos, pos + 1, device=x.device)   # made on the card: no host wait
+    q = apply_rope(q, pos_t, cfg.rope_theta)
+    k_new = apply_rope(k_new, pos_t, cfg.rope_theta)
+    k_cache, v_cache = cache["k"], cache["v"]
+    _, s_max, kvh, hd = k_cache.shape
+    slot = pos % s_max
+    k_cache[:, slot] = k_new[:, 0]
+    v_cache[:, slot] = v_new[:, 0]
+
+    h = cfg.n_heads
+    qg = (q[:, 0] * hd ** -0.5).float().reshape(b, kvh, h // kvh, hd)
+    logits = torch.einsum("bcgd,bkcd->bcgk", qg, k_cache.float())
+    valid = torch.arange(s_max, device=x.device) <= slot
+    if pos >= s_max:
+        valid = torch.ones_like(valid)
+    logits = torch.where(valid, logits, _NEG)
+    m = logits.amax(dim=-1, keepdim=True)
+    e = torch.where(valid, torch.exp(logits - m), 0.0)
+    s = e.sum(dim=-1)
+    o = torch.einsum("bcgk,bkcd->bcgd", e, v_cache.float())
+    out = (o / s.clamp_min(1e-30)[..., None]).reshape(b, h, hd).to(x.dtype)
+    y = torch.einsum("bhd,hde->be", out, p.wo)
+    return y[:, None], cache

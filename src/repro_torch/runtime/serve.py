@@ -1,0 +1,57 @@
+"""Prefill and serve step factories (the reference's ``runtime.train`` minus
+training): the functions the serving launcher calls.
+
+PyTorch runs eagerly, so a factory only fixes the config, the device and the
+sampling temperature and returns a plain function.
+"""
+from __future__ import annotations
+
+import torch
+
+from .._device import resolve_device
+from ..configs.base import ModelConfig
+from ..models import arch_decode_step
+from ..models.decoder import prefill
+
+__all__ = ["make_prefill_step", "make_serve_step", "next_token"]
+
+_NEG = -1e30
+
+
+def next_token(cfg: ModelConfig, logits: torch.Tensor, temperature: float = 0.0,
+               generator: torch.Generator | None = None) -> torch.Tensor:
+    """(B, padded_vocab) logits -> (B,) int32 ids, never a padded-vocab id:
+    argmax at temperature 0, else a draw from ``generator``."""
+    lf = logits.float()
+    vocab_ids = torch.arange(lf.shape[-1], device=lf.device)
+    lf = torch.where(vocab_ids[None, :] < cfg.vocab_size, lf, _NEG)
+    if temperature == 0.0:
+        return torch.argmax(lf, dim=-1).to(torch.int32)
+    if generator is None:
+        raise ValueError("sampling at temperature > 0 needs an explicit torch.Generator")
+    probs = torch.softmax(lf / temperature, dim=-1)
+    return torch.multinomial(probs, 1, generator=generator)[:, 0].to(torch.int32)
+
+
+def make_prefill_step(cfg: ModelConfig, *, max_len: int | None = None,
+                      device: str | torch.device = "cuda"):
+    """Prefill: (model, batch) -> (last-position logits (B, V), decode cache)."""
+    dev = resolve_device(device)
+
+    def prefill_step(model, batch):
+        return prefill(cfg, model, batch["tokens"].to(dev), max_len=max_len)
+
+    return prefill_step
+
+
+def make_serve_step(cfg: ModelConfig, *, temperature: float = 0.0,
+                    device: str | torch.device = "cuda"):
+    """One decode step: (model, cache, tokens (B,1), pos, generator) ->
+    (next (B,1) int32, cache)."""
+    dev = resolve_device(device)
+
+    def serve_step(model, cache, tokens, pos: int, generator=None):
+        logits, new_cache = arch_decode_step(cfg, model, cache, tokens.to(dev), pos)
+        return next_token(cfg, logits, temperature, generator)[:, None], new_cache
+
+    return serve_step

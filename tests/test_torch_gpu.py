@@ -1,6 +1,9 @@
 """Tests of the port that need an NVIDIA GPU and ``nvcc``: the CUDA
-schedule-DP kernel against its plain PyTorch version, bit for bit, and the
-evaluator on the card against the NumPy engine.  They import the port only
+schedule-DP kernel against its plain PyTorch version, bit for bit, the
+evaluator on the card against the NumPy engine, the flash-attention kernel
+(2e-5 in float32, 2e-2 in bfloat16, LSE 1e-5) and the RG-LRU scan kernel (bit
+for bit) against their plain versions, and a smoke-size model served on the
+card against the CPU (same ids, logits within 1e-4).  They import the port only
 (no JAX, no reference package), skip with a reason where there is no GPU,
 and run on the card with::
 
@@ -113,3 +116,122 @@ def test_evaluator_on_the_card_equals_numpy_engine(cuda_device):
     for name in ("start", "finish", "level", "slack", "critical", "peaks"):
         assert np.array_equal(getattr(ev, name)[f], getattr(ref, name)[f]), name
     assert np.array_equal(ev.q, ref.q) and np.array_equal(ev.mem_ok, ref.mem_ok)
+
+
+# --------------------------------------------------------------------------- #
+# model path: K2 (flash attention), K3 (RG-LRU scan)                          #
+# --------------------------------------------------------------------------- #
+FLASH_CASES = [  # (b, sq, skv, h, kvh, d, causal, window, q_offset)
+    (2, 256, 256, 4, 2, 64, True, None, 0),
+    (2, 128, 512, 4, 1, 64, True, 128, 0),
+    (1, 256, 512, 4, 4, 64, True, None, 256),
+    (1, 128, 128, 8, 8, 128, False, None, 0),
+    (1, 100, 1000, 2, 1, 32, True, 300, 900),
+    (2, 77, 77, 10, 1, 256, True, 48, 0),
+]
+
+
+def _flash_inputs(case, dtype, device):
+    b, sq, skv, h, kvh, d, causal, window, qoff = case
+    g = torch.Generator(device=device).manual_seed(sq + skv)
+    mk = lambda *shape: torch.randn(shape, generator=g, device=device).to(dtype)  # noqa: E731
+    return (mk(b, sq, h, d), mk(b, skv, kvh, d), mk(b, skv, kvh, d),
+            dict(causal=causal, window=window, q_offset=qoff))
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 2e-5), (torch.bfloat16, 2e-2)])
+@pytest.mark.parametrize("case", FLASH_CASES)
+def test_flash_kernel_matches_plain_version(cuda_device, case, dtype, tol):
+    from repro_torch.kernels import flash_attention as fa
+
+    q, k, v, kw = _flash_inputs(case, dtype, cuda_device)
+    before = fa.flash_attention.launches
+    out, lse = fa.flash_attention(q, k, v, return_lse=True, **kw)
+    torch.cuda.synchronize()
+    assert fa.flash_attention.launches == before + 1
+    want, want_lse = fa.flash_attention_torch(q, k, v, return_lse=True, **kw)
+    torch.testing.assert_close(out.float(), want.float(), rtol=tol, atol=tol)
+    torch.testing.assert_close(lse, want_lse, rtol=1e-5, atol=1e-5)
+
+
+def test_flash_wrapper_raises_on_what_the_kernel_does_not_take(cuda_device):
+    from repro_torch.kernels import flash_attention as fa
+
+    q, k, v, _ = _flash_inputs(FLASH_CASES[0], torch.float32, cuda_device)
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        fa.flash_attention(q.half(), k.half(), v.half())
+    with pytest.raises(TypeError, match="q is"):
+        fa.flash_attention(q, k.bfloat16(), v)
+    with pytest.raises(ValueError, match="head_dim"):
+        big = torch.zeros((1, 4, 1, 512), device=cuda_device)
+        fa.flash_attention(big, big, big)
+    with pytest.raises(ValueError, match="unit stride"):
+        fa.flash_attention(q.transpose(1, 3).contiguous().transpose(1, 3), k, v)
+    with pytest.raises(ValueError, match="expected"):
+        fa.flash_attention(q, k.cpu(), v)
+
+
+@pytest.mark.parametrize("b,t,d,with_h0", [(2, 512, 64, True), (3, 128, 32, False),
+                                            (2, 1, 96, True), (3, 1000, 200, True)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_rglru_kernel_is_bit_equal_to_plain_version(cuda_device, b, t, d, with_h0, dtype):
+    from repro_torch.kernels import rglru as rg
+
+    g = torch.Generator(device=cuda_device).manual_seed(t + d)
+    mk = lambda *shape: torch.randn(shape, generator=g, device=cuda_device)  # noqa: E731
+    x, ig, ag = mk(b, t, d).to(dtype), mk(b, t, d).sigmoid().to(dtype), \
+        mk(b, t, d).sigmoid().to(dtype)
+    a_param, h0 = 0.1 * mk(d), (mk(b, d) if with_h0 else None)
+    before = rg.rglru_scan.launches
+    y, h = rg.rglru_scan(x, a_param, ig, ag, h0)
+    torch.cuda.synchronize()
+    assert rg.rglru_scan.launches == before + 1
+    want_y, want_h = rg.rglru_scan_torch(x, a_param, ig, ag, h0)
+    assert torch.equal(y, want_y) and torch.equal(h, want_h)     # tolerance 0
+
+
+def test_smoke_model_served_on_the_card_matches_the_cpu(cuda_device):
+    import dataclasses
+
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import rglru as rg
+    from repro_torch.launch.model_serve import serve
+    from repro_torch.models import Decoder, arch_init_params
+
+    cfg = dataclasses.replace(get_smoke_config("recurrentgemma-2b"), n_layers=8)
+    model = arch_init_params(cfg, torch.Generator(device=cuda_device).manual_seed(3),
+                             device=cuda_device)
+    cpu_model = Decoder(cfg, device="cpu")
+    cpu_model.load_state_dict({k: v.cpu() for k, v in model.state_dict().items()})
+    prompts = torch.randint(1, cfg.vocab_size, (2, 80), generator=torch.Generator().manual_seed(0))
+    before = (fa.flash_attention.launches, rg.rglru_scan.launches)
+    res = serve(cfg, model, prompts.to(cuda_device), 6, device=cuda_device)
+    assert (fa.flash_attention.launches - before[0], rg.rglru_scan.launches - before[1]) == \
+        (2, 6 * 6)       # 2 attention layers once; 6 rec layers at the prefill + 5 steps
+    ref = serve(cfg, cpu_model, prompts, 6, device="cpu")
+    assert np.array_equal(res.ids, ref.ids)
+    # the logits themselves, teacher-forced with the served ids past the ring
+    # wrap (window 64 < 80 + 6): within 1e-4 of max |logit| (float32)
+    ids = torch.from_numpy(res.ids)
+    on_card = _teacher_forced(cfg, model, prompts.to(cuda_device), ids.to(cuda_device),
+                              cuda_device)
+    on_cpu = _teacher_forced(cfg, cpu_model, prompts, ids, "cpu")
+    for i, (got, want) in enumerate(zip(on_card, on_cpu)):
+        err = float((got.cpu() - want).abs().max() / want.abs().max())
+        assert err <= 1e-4, f"step {i}: card vs CPU {err:.3g} of max |logit|"
+
+
+def _teacher_forced(cfg, model, prompts, ids, device):
+    """Prefill logits, then each decode step's logits, feeding ``ids``."""
+    from repro_torch.models import arch_decode_step
+    from repro_torch.runtime import make_prefill_step
+
+    plen, gen = prompts.shape[1], ids.shape[1]
+    logits, cache = make_prefill_step(cfg, max_len=plen + gen, device=device)(
+        model, {"tokens": prompts})
+    out = [logits.float()]
+    for i in range(gen - 1):
+        logits, cache = arch_decode_step(cfg, model, cache, ids[:, i:i + 1], plen + i)
+        out.append(logits.float())
+    return out

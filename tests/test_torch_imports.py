@@ -11,12 +11,18 @@ PORT = ROOT / "src" / "repro_torch"
 _PROBE = """
 import sys
 import repro_torch
+import repro_torch.kernels.ops
+import repro_torch.launch.model_serve
+import repro_torch.models
 from repro_torch import solve, Budget
 from repro_torch.core import random_instance
 inst = random_instance(0, n_tasks=24, n_data=50)
 rep = solve(inst, "tabu_multiwalk", walks=2, budget=Budget(max_iters=3),
             torch_device="cpu")
 assert rep.makespan > 0
+ids = repro_torch.launch.model_serve.serve_main(
+    ["--smoke", "--device", "cpu", "--batch", "2", "--prompt-len", "70", "--gen", "3"])
+assert ids.shape == (2, 3)
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith("jax.") or m == "jaxlib"
              or m == "repro" or m.startswith("repro."))
@@ -24,7 +30,7 @@ print("LEAKED=" + ",".join(bad))
 """
 
 
-def test_import_and_solve_leave_jax_and_repro_unloaded():
+def test_import_solve_and_serve_leave_jax_and_repro_unloaded():
     out = subprocess.run(
         [sys.executable, "-c", _PROBE], capture_output=True, text=True,
         env={"PYTHONPATH": str(ROOT / "src"), "PATH": "/usr/bin:/bin"},
@@ -35,7 +41,9 @@ def test_import_and_solve_leave_jax_and_repro_unloaded():
 
 _FORBIDDEN = re.compile(
     r"^\s*(import\s+jax\b|from\s+jax\b|import\s+repro\b(?!_)|from\s+repro\b(?!_)"
-    r"|from\s+repro\.)", re.M)
+    r"|from\s+repro\.)"
+    # a module named by string (importlib.import_module, __import__, f-strings)
+    r"|[\"'](jax|jaxlib|repro)(\.|[\"'])", re.M)
 
 
 def _sources():
@@ -55,6 +63,11 @@ def test_forbidden_pattern_spares_the_port_itself():
     assert _FORBIDDEN.search("from repro.core import x\n")
     assert _FORBIDDEN.search("    import jax.numpy as jnp\n")
     assert _FORBIDDEN.search("import repro\n")
+    assert _FORBIDDEN.search('mod = importlib.import_module(f"repro.configs.{name}")\n')
+    assert _FORBIDDEN.search("importlib.import_module('jax')\n")
+    assert _FORBIDDEN.search('x = __import__("repro")\n')
+    assert _FORBIDDEN.search('importlib.import_module(f"{__package__}.x")\n') is None
+    assert _FORBIDDEN.search('"repro_torch.core"\n') is None
 
 
 def test_public_surface_matches_reference():
