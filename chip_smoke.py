@@ -12,25 +12,34 @@ every kernel against its plain PyTorch version on the card:
 * model serving: recurrentgemma-2b at its published width (26 layers, d 2560,
   vocab 256000), random bf16 parameters from seed 0, batch 4, 4096-token
   prompts (twice the attention window), 32 greedy tokens, through the flash
-  attention kernel (K2) and the RG-LRU scan kernel (K3).
+  attention kernel (K2) and the RG-LRU scan kernel (K3);
+* model serving: mamba2-780m at its published width and depth (48 SSD layers,
+  d 1536, 48 heads of 64, state 128, vocab 50280), the same batch, prompts
+  and tokens, through the Mamba-2 SSD kernel (K4) in every layer, at the
+  prefill and at every decode step.
 
 Phases, one JSON line each:
 
   env            torch / CUDA versions, the card's name and power limit
   build          nvcc builds every kernel from the sources in this checkout
   kernels        K1 against its plain version, bit for bit
-  model_kernels  K2 (f32 2e-5, bf16 2e-2, LSE 1e-5) and K3 (bit for bit)
-                 against their plain versions, at the reference's test shapes,
-                 ragged ones and the serving shapes
+  model_kernels  K2 (f32 2e-5, bf16 2e-2, LSE 1e-5), K3 (bit for bit) and K4
+                 (f32 1e-4; bf16 x/B/C: y 2e-2, h_last 1e-4) against their
+                 plain versions, at the reference's test shapes, ragged ones,
+                 T = 1 and the serving shapes
   main_path      the solve on the card, against the port's NumPy backend,
                  certified, with the host time of each phase of the search round
-  model_serve    the full-width serve (launch counts asserted), the card's
-                 kernel time by class over a profiled prefill and 8 decode
-                 steps, and the serve held teacher-forced against the same
-                 model on the plain versions
+  model_serve    per arch (recurrentgemma-2b, then mamba2-780m): the
+                 full-width serve (launch counts of every model kernel
+                 asserted), the card's kernel time by class over a profiled
+                 prefill and 8 decode steps, and the serve held teacher-forced
+                 against the same model on the plain versions; for
+                 mamba2-780m also the same check in float32, and the plain
+                 version against itself at another chunk length (the
+                 rounding noise of a correct bf16 path)
   timing         K1, plain version, bound and host engine at the main path's shape
-  model_timing   K2 and K3 at the serving shapes: kernel, plain version, bound,
-                 and for K2 PyTorch's scaled_dot_product_attention
+  model_timing   K2, K3 and K4 at the serving shapes: kernel, plain version,
+                 bound, and for K2 PyTorch's scaled_dot_product_attention
 
 then a ``{"kernels": [...]}`` line, the card's ``nvidia-smi`` line, and last
 ``{"ok": true, "device": {...}}``.  Any failure raises: the exit code is
@@ -40,6 +49,7 @@ non-zero and the last line is not printed.  Without a GPU it exits non-zero.
 from __future__ import annotations
 
 import contextlib
+import functools
 import json
 import statistics
 import subprocess
@@ -302,6 +312,32 @@ def cuda_median_ms(fn, reps: int, warmup: int) -> float:
     return statistics.median(times)
 
 
+def profiled_device_ms(fn, kernel: str, reps: int) -> float:
+    """Mean device time of the kernels whose name holds ``kernel`` over
+    ``reps`` calls of ``fn``, from torch.profiler.  For a launch of a few
+    microseconds, CUDA events around one call time the wrapper's host work.
+    The profiler may miss the first few records of a window (46 of 50 were
+    seen once on an H100), so the mean is over the launches it saw."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    total_us, n = 0.0, 0
+    for e in prof.key_averages():
+        if kernel in e.key:
+            us = getattr(e, "self_device_time_total", None)
+            total_us += us if us is not None else getattr(e, "self_cuda_time_total", 0)
+            n += e.count
+    if not reps // 2 <= n <= reps:
+        raise AssertionError(f"the profiler saw {n} launches of {kernel}, expected {reps}")
+    return total_us / n / 1e3
+
+
 def sweep_bound(graph, dur, mpred, msucc, finish, n_done, tails: bool) -> dict:
     """Least time for this call's work: bytes each read/written once over the
     memory rate, against the max/add operations this data needs over the
@@ -420,13 +456,36 @@ FLASH_SHAPES = (
 )
 FLASH_SERVE = (SERVE_BATCH, SERVE_PROMPT, SERVE_PROMPT, 10, 1, 256, True, 2048, 0)
 FLASH_TOL = {"float32": 2e-5, "bfloat16": 2e-2}       # tests/test_kernels.py
-# served vs plain-version logits, as a share of max |logit|: about ten times
-# the error of a correct bf16 path (3.8e-4 at every step on an H100)
-TEACHER_FORCED_LIMIT = 4e-3
 # (b, t, d, h0): the reference's test shapes, T = 1, ragged T, the serving shapes
 RGLRU_SHAPES = ((2, 512, 64, True), (1, 256, 128, True), (3, 128, 32, False),
                 (2, 1, 96, True), (3, 1000, 200, False), (3, 1000, 200, True),
                 (SERVE_BATCH, 1, 2560, True), (SERVE_BATCH, SERVE_PROMPT, 2560, True))
+MAMBA_ARCH = "mamba2-780m"
+# (b, t, h, p, g, n): the four shapes of tests/test_kernels.py::test_ssd_sweep,
+# two ragged T, one decode step and the prefill at the serving width
+SSD_SERVE = (SERVE_BATCH, SERVE_PROMPT, 48, 64, 1, 128)
+SSD_SHAPES = ((2, 256, 4, 32, 2, 64), (1, 256, 4, 64, 1, 128), (2, 128, 8, 16, 8, 32),
+              (1, 512, 2, 32, 1, 64), (2, 300, 4, 32, 2, 64), (1, 1000, 8, 64, 1, 128),
+              (SERVE_BATCH, 1, 48, 64, 1, 128), SSD_SERVE)
+# y: max |diff| / max |y| (tests/test_kernels.py for float32; bf16 x/B/C round y
+# to bf16, one unit in the last place is 2^-8); h_last stays fp32: 1e-4
+SSD_TOL = {"float32": 1e-4, "bfloat16": 2e-2}
+SSD_H_TOL = 1e-4
+# recurrentgemma-2b's served vs plain-version logits, as a share of max
+# |logit|: about ten times the 3.8e-4 a correct bf16 path reads on an H100 at
+# every step
+TEACHER_FORCED_LIMIT = 4e-3
+# mamba2-780m in bf16: the random 48-layer model amplifies bf16 rounding (a
+# correct path reads 1.9e-2 to 3.4e-2 on an H100), so its limit is measured in
+# the same run: the plain version against itself at another chunk length, the
+# same function summed in another order, and the served logits must lie within
+# YARDSTICK_FACTOR times that reading's worst step
+YARDSTICK_CHUNK = 32
+YARDSTICK_FACTOR = 2.0
+# the mamba2-780m check again in float32 at full width and depth (random
+# weights from seed 0 in float32): about ten times the 5e-6 a correct path
+# reads (1e-6 to 5e-6 per step, as the plain version against itself at chunk 32)
+FLOAT32_TEACHER_FORCED_LIMIT = 5e-5
 
 
 def randn(gen, shape, device, dtype=None):
@@ -494,6 +553,62 @@ def rglru_bound(a, h0) -> dict:
             "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
 
 
+def ssd_operations(t: int, p: int, n: int, chunk: int) -> tuple[int, int]:
+    """Operations of the chunked form over ``t`` steps of one (batch, head),
+    split as (C B^T, the rest): per chunk of q steps 2 q^2 N for C B^T, 2 q^2 P
+    for M X, 2 q N P for (C exp L) h^T and 2 q N P for the state update."""
+    cb = rest = 0
+    for c0 in range(0, t, chunk):
+        q = min(chunk, t - c0)
+        cb += 2 * q * q * n
+        rest += 2 * q * q * p + 4 * q * n * p
+    return cb, rest
+
+
+def ssd_bound(x, b_mat, d_skip, h0, chunk: int) -> dict:
+    """Least time for K4's work at ``chunk`` steps per chunk (the kernel's):
+    x, dt, B, C, a_log, d_skip and h0 read, y and h_last written once over the
+    memory rate, against the least operations the chunked form needs: C B^T
+    once per (batch, group) at the rate of B's type (products of bf16 are
+    exact in fp32), the rest per (batch, head) at the fp32 rate.
+    ``kernel_operations`` counts what K4 does (C B^T per head, at ``chunk``);
+    ``tpu_operations`` the TPU kernel's count (per head, chunk 128)."""
+    b, t, h, p = x.shape
+    g, n = b_mat.shape[2:]
+    cb, rest = ssd_operations(t, p, n, chunk)
+    cb_ops, rest_ops = b * g * cb, b * h * rest
+    nbytes = 2 * x.numel() * x.element_size() + b * t * h * 4 \
+        + 2 * b_mat.numel() * b_mat.element_size() + h * 4 \
+        + (h * 4 if d_skip is not None else 0) + (h0.numel() * 4 if h0 is not None else 0) \
+        + b * h * p * n * 4
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = (cb_ops / PEAK_FLOPS[str(b_mat.dtype).split(".")[-1]]
+             + rest_ops / PEAK_FLOPS["float32"]) * 1e3
+    return {"bytes": nbytes, "operations": cb_ops + rest_ops, "cb_operations": cb_ops,
+            "kernel_operations": b * h * (cb + rest),
+            "tpu_operations": b * h * sum(ssd_operations(t, p, n, 128)),
+            "chunk": chunk, "bytes_ms": t_bytes, "ops_ms": t_ops,
+            "bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+
+
+def ssd_operands(shape, dtype, device, with_extras=True, seed=0):
+    """x, B, C in ``dtype``; dt = softplus(normal) > 0, a_log, d_skip, h0 fp32
+    (the last two None without ``with_extras``)."""
+    import torch
+
+    b, t, h, p, g, n = shape
+    gen = torch.Generator(device=device).manual_seed(seed)
+    x = randn(gen, (b, t, h, p), device, dtype)
+    dt = torch.nn.functional.softplus(randn(gen, (b, t, h), device))
+    a_log = 0.5 * randn(gen, (h,), device)
+    bm = (0.3 * randn(gen, (b, t, g, n), device)).to(dtype)
+    cm = (0.3 * randn(gen, (b, t, g, n), device)).to(dtype)
+    d_skip = randn(gen, (h,), device) if with_extras else None
+    h0 = 0.1 * randn(gen, (b, h, p, n), device) if with_extras else None
+    return x, dt, a_log, bm, cm, d_skip, h0
+
+
 def rglru_operands(shape, dtype, device, seed=0):
     import torch
 
@@ -508,11 +623,12 @@ def rglru_operands(shape, dtype, device, seed=0):
 
 
 def phase_model_kernels(device):
-    """K2 and K3 against their plain versions on the card."""
+    """K2, K3 and K4 against their plain versions on the card."""
     import torch
 
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import rglru as rg
+    from repro_torch.kernels import ssd
 
     worst = {"float32": 0.0, "bfloat16": 0.0}
     worst_lse = 0.0
@@ -552,31 +668,139 @@ def phase_model_kernels(device):
             worst_rg = max(worst_rg, _within(y, want_y, 0.0)[1], _within(h, want_h, 0.0)[1])
             if not (torch.equal(y, want_y) and torch.equal(h, want_h)):
                 raise AssertionError(f"rglru_scan differs from its plain version: {shape} {dtype}")
+    ssd_err = {"float32": 0.0, "bfloat16": 0.0}
+    ssd_rel = {"float32": 0.0, "bfloat16": 0.0}
+    ssd_h_err = 0.0
+    n_ssd = 0
+    for i, shape in enumerate(SSD_SHAPES):
+        for name, dtype in (("float32", torch.float32), ("bfloat16", torch.bfloat16)):
+            for with_extras in (True, False):
+                args = ssd_operands(shape, dtype, device, with_extras, seed=100 + i)
+                before = ssd.ssd_chunked.launches
+                y, h = ssd.ssd_chunked(*args)
+                torch.cuda.synchronize()
+                if ssd.ssd_chunked.launches != before + 1:
+                    raise AssertionError("ssd_chunked did not launch its kernel")
+                want_y, want_h = ssd.ssd_chunked_torch(*args)
+                if y.dtype != dtype or h.dtype != torch.float32:
+                    raise AssertionError(f"ssd_chunked returned {y.dtype} / {h.dtype}")
+                diff = float((y.float() - want_y.float()).abs().max())
+                rel = diff / float(want_y.float().abs().max())
+                ok_h, err_h = _within(h, want_h, SSD_H_TOL)
+                ssd_err[name] = max(ssd_err[name], diff)
+                ssd_rel[name] = max(ssd_rel[name], rel)
+                ssd_h_err = max(ssd_h_err, err_h)
+                if not (rel < SSD_TOL[name] and ok_h and bool(torch.isfinite(y).all())):
+                    raise AssertionError(
+                        f"ssd_chunked differs from its plain version: {shape} {name} "
+                        f"h0/d_skip={with_extras}: y {rel:.3g} of max |y|, h_last {err_h:.3g}")
+                n_ssd += 1
     say("model_kernels", flash_checks=n_flash, flash_max_abs_err=worst,
         flash_lse_max_abs_err=worst_lse,
         flash_tolerance={"float32": 2e-5, "bfloat16": 2e-2, "lse": 1e-5},
         flash_shapes=[list(s) for s in FLASH_SHAPES + (FLASH_SERVE,)],
         rglru_checks=2 * len(RGLRU_SHAPES), rglru_max_abs_err=worst_rg,
         rglru_tolerance="0 (torch.equal), float32 and bfloat16 inputs",
-        rglru_shapes=[list(s) for s in RGLRU_SHAPES])
+        rglru_shapes=[list(s) for s in RGLRU_SHAPES],
+        ssd_checks=n_ssd, ssd_max_abs_err=ssd_err, ssd_max_rel_err=ssd_rel,
+        ssd_h_last_max_abs_err=ssd_h_err,
+        ssd_tolerance={"y": SSD_TOL, "h_last": SSD_H_TOL,
+                       "measure": "y: max |diff| / max |y|; h_last: |diff| <= tol (1 + |h|)"},
+        ssd_shapes=[list(s) for s in SSD_SHAPES])
     return {"flash_attention": max(worst.values()), "flash_f32": worst["float32"],
-            "rglru_scan": worst_rg}
+            "rglru_scan": worst_rg, "ssd_chunked": max(max(ssd_err.values()), ssd_h_err)}
+
+
+def model_kernel_wrappers() -> dict:
+    """The model path's kernel wrappers by name; each counts its launches."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import rglru as rg
+    from repro_torch.kernels import ssd
+
+    return {"flash_attention": fa.flash_attention, "rglru_scan": rg.rglru_scan,
+            "ssd_chunked": ssd.ssd_chunked}
+
+
+def expected_launches(cfg, gen: int) -> dict:
+    """Kernel launches of one serve of ``gen`` tokens: K2 once per attention
+    layer (prefill only; decode reads the ring in PyTorch), K3 and K4 once per
+    recurrent / SSM layer at the prefill and at each of the gen - 1 steps."""
+    return {"flash_attention": cfg.kinds.count("attn_local"),
+            "rglru_scan": cfg.kinds.count("rec") * gen,
+            "ssd_chunked": cfg.kinds.count("ssm") * gen}
 
 
 @contextlib.contextmanager
-def plain_kernels():
-    """The model path with K2 and K3 replaced by their plain versions (for
-    the comparison only: the port itself has no such route)."""
+def plain_kernels(ssd_chunk: int | None = None):
+    """The model path with K2, K3 and K4 replaced by their plain versions (for
+    the comparison only: the port itself has no such route); the plain SSD
+    runs at ``ssd_chunk`` steps per chunk if given, else at the kernel's."""
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import ops
     from repro_torch.kernels import rglru as rg
+    from repro_torch.kernels import ssd
 
-    orig = ops.flash_attention, ops.rglru_scan
-    ops.flash_attention, ops.rglru_scan = fa.flash_attention_torch, rg.rglru_scan_torch
+    plain_ssd = ssd.ssd_chunked_torch if ssd_chunk is None else \
+        functools.partial(ssd.ssd_chunked_torch, chunk=ssd_chunk)
+    orig = ops.flash_attention, ops.rglru_scan, ops.ssd_chunked
+    ops.flash_attention, ops.rglru_scan, ops.ssd_chunked = \
+        fa.flash_attention_torch, rg.rglru_scan_torch, plain_ssd
     try:
         yield
     finally:
-        ops.flash_attention, ops.rglru_scan = orig
+        ops.flash_attention, ops.rglru_scan, ops.ssd_chunked = orig
+
+
+def check_fixed_limit(cfg, model, prompts, ids, device, errs, plain) -> dict:
+    """recurrentgemma-2b: every step within ``TEACHER_FORCED_LIMIT``."""
+    if not max(errs) <= TEACHER_FORCED_LIMIT:
+        raise AssertionError(f"{cfg.arch_id}: served logits differ from the plain versions' by "
+                             f"{max(errs):.3g} of max |logit| (limit {TEACHER_FORCED_LIMIT})")
+    return {"teacher_forced_limit": TEACHER_FORCED_LIMIT}
+
+
+def check_against_yardstick(cfg, model, prompts, ids, device, errs, plain) -> dict:
+    """mamba2-780m: every bf16 step within ``YARDSTICK_FACTOR`` times the worst
+    step of the plain versions against themselves with the SSD at
+    ``YARDSTICK_CHUNK``, then the float32 check."""
+    with plain_kernels(ssd_chunk=YARDSTICK_CHUNK):
+        other = teacher_forced_logits(cfg, model, prompts, ids, device)
+    yardstick = [rel_err(a, b) for a, b in zip(other, plain)]
+    del other
+    limit = YARDSTICK_FACTOR * max(yardstick)
+    if not max(errs) <= limit:
+        raise AssertionError(f"{cfg.arch_id}: served logits differ from the plain versions' by "
+                             f"{max(errs):.3g} of max |logit|, more than {YARDSTICK_FACTOR} x "
+                             f"the plain versions' own {max(yardstick):.3g} at chunk "
+                             f"{YARDSTICK_CHUNK}")
+    return {"teacher_forced_limit": limit,
+            "plain_vs_plain_other_chunk_rel_err": yardstick,
+            **float32_teacher_forced(cfg, prompts, ids, device)}
+
+
+def float32_teacher_forced(cfg, prompts, ids, device) -> dict:
+    """The full-width model in float32 (random weights from seed 0), teacher-
+    forced with the served ids through the kernels and through the plain
+    versions; raises past ``FLOAT32_TEACHER_FORCED_LIMIT``."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.models import arch_init_params
+
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    model = arch_init_params(cfg32, torch.Generator(device=device).manual_seed(0), device=device)
+    kern = teacher_forced_logits(cfg32, model, prompts, ids, device)
+    with plain_kernels():
+        plain = teacher_forced_logits(cfg32, model, prompts, ids, device)
+    errs = [rel_err(a, b) for a, b in zip(kern, plain)]
+    del model, kern, plain
+    torch.cuda.empty_cache()
+    limit = FLOAT32_TEACHER_FORCED_LIMIT
+    if not max(errs) <= limit:
+        raise AssertionError(f"{cfg.arch_id} in float32: served logits differ from the plain "
+                             f"versions' by {max(errs):.3g} of max |logit| (limit {limit})")
+    return {"float32_teacher_forced_rel_err": errs, "float32_teacher_forced_limit": limit}
 
 
 def teacher_forced_logits(cfg, model, prompts, ids, device):
@@ -603,6 +827,8 @@ def _kernel_class(name: str) -> str:
         return "K2 flash_attention"
     if "rglru_scan_kernel" in name:
         return "K3 rglru_scan"
+    if "ssd_chunk_kernel" in name:
+        return "K4 ssd_chunked"
     low = name.lower()
     if any(t in low for t in ("gemm", "xmma", "cutlass", "nvjet", "matmul", "splitk")):
         return "matmul (cuBLAS)"
@@ -640,18 +866,20 @@ def device_breakdown(fn) -> dict:
             "by_class": dict(sorted(by_class.items(), key=lambda kv: -kv[1]["ms"]))}
 
 
-def phase_model_serve(device):
-    """The full-width serve through K2 and K3, then the comparisons."""
+def phase_model_serve(device, arch: str, check):
+    """The full-width serve of ``arch`` through its kernels, then the
+    comparison with the plain versions, held by ``check`` (which raises past
+    its limit and returns its readings).  Every model kernel's count is set to
+    0 just before the measured serve and read just after it."""
     import torch
 
     from repro_torch.configs import get_config
-    from repro_torch.kernels import flash_attention as fa
-    from repro_torch.kernels import rglru as rg
     from repro_torch.launch.model_serve import serve
     from repro_torch.models import arch_init_params
     from repro_torch.runtime import make_prefill_step, make_serve_step, next_token
 
-    cfg = get_config(ARCH)
+    cfg = get_config(arch)
+    wrappers = model_kernel_wrappers()
     t0 = time.perf_counter()
     gen = torch.Generator(device=device).manual_seed(0)
     model = arch_init_params(cfg, gen, device=device)
@@ -665,15 +893,14 @@ def phase_model_serve(device):
     # first growth land here; it is reported, the second one is the reading
     first = serve(cfg, model, prompts, 2, device=device)
     torch.cuda.reset_peak_memory_stats(device)
-    fa.flash_attention.launches = rg.rglru_scan.launches = 0
+    for fn in wrappers.values():
+        fn.launches = 0
     res = serve(cfg, model, prompts, SERVE_GEN, device=device)
-    launches = {"flash_attention": fa.flash_attention.launches,
-                "rglru_scan": rg.rglru_scan.launches}
+    launches = {name: fn.launches for name, fn in wrappers.items()}
     peak = torch.cuda.max_memory_allocated(device)
-    n_attn, n_rec = cfg.kinds.count("attn_local"), cfg.kinds.count("rec")
-    want = {"flash_attention": n_attn, "rglru_scan": n_rec * SERVE_GEN}
+    want = expected_launches(cfg, SERVE_GEN)
     if launches != want:
-        raise AssertionError(f"main-path launches {launches}, expected {want}")
+        raise AssertionError(f"{arch}: main-path launches {launches}, expected {want}")
     if res.ids.shape != (SERVE_BATCH, SERVE_GEN) or not (
             (res.ids >= 0) & (res.ids < cfg.vocab_size)).all():
         raise AssertionError(f"served ids out of range or misshapen: {res.ids.shape}")
@@ -698,23 +925,21 @@ def phase_model_serve(device):
     ids = torch.from_numpy(res.ids).to(device)
     kern = teacher_forced_logits(cfg, model, prompts, ids, device)
     with plain_kernels():
-        before = (fa.flash_attention.launches, rg.rglru_scan.launches)
+        before = {name: fn.launches for name, fn in wrappers.items()}
         plain = teacher_forced_logits(cfg, model, prompts, ids, device)
-        if (fa.flash_attention.launches, rg.rglru_scan.launches) != before:
+        if {name: fn.launches for name, fn in wrappers.items()} != before:
             raise AssertionError("the plain-version run launched a kernel")
     errs = [rel_err(a, b) for a, b in zip(kern, plain)]
     for i, (a, b) in enumerate(zip(kern, plain)):
         if not bool(torch.isfinite(a).all()):
             raise AssertionError(f"non-finite logits at step {i}")
-    if max(errs) > TEACHER_FORCED_LIMIT:
-        raise AssertionError(f"served logits differ from the plain versions' by "
-                             f"{max(errs):.3g} of max |logit| (limit {TEACHER_FORCED_LIMIT})")
+    readings = check(cfg, model, prompts, ids, device, errs, plain)
     served_again = torch.stack([a[:, :cfg.vocab_size].argmax(-1) for a in kern], 1).cpu()
     plain_greedy = torch.stack([b[:, :cfg.vocab_size].argmax(-1) for b in plain], 1).cpu()
     del kern, plain, model
     torch.cuda.empty_cache()
 
-    say("model_serve", arch=ARCH, layers=cfg.n_layers, d_model=cfg.d_model,
+    say("model_serve", arch=arch, layers=cfg.n_layers, d_model=cfg.d_model,
         vocab=cfg.vocab_size, params=n_params, dtype=cfg.dtype, batch=SERVE_BATCH,
         prompt_len=SERVE_PROMPT, gen=SERVE_GEN, window=cfg.attn_window,
         launches=launches, expected_launches=want,
@@ -722,10 +947,10 @@ def phase_model_serve(device):
         first_serve_prefill_ms=first.prefill_s * 1e3,
         decode_steps=res.steps, tok_per_s=res.tokens_per_s,
         max_memory_allocated_bytes=peak, init_s=init_s,
-        teacher_forced_rel_err=errs, teacher_forced_limit=TEACHER_FORCED_LIMIT,
+        teacher_forced_rel_err=errs,
         served_ids_reproduced_teacher_forced=bool((served_again == torch.from_numpy(res.ids)).all()),
         greedy_tokens_same_on_plain_versions=int((plain_greedy == torch.from_numpy(res.ids)).sum()),
-        sample_ids=res.ids[0, :16].tolist(), device_profile=profile,
+        sample_ids=res.ids[0, :16].tolist(), device_profile=profile, **readings,
         note="prefill_ms: prompt forward + first token, synchronised, in the second "
              "serve of the process (first_serve_prefill_ms: the first, with set-up); "
              "decode: 31 steps of one token each; max_memory_allocated over the second "
@@ -749,12 +974,14 @@ def sdpa_backend(q, k, v, mask) -> str:
 
 
 def phase_model_timing(device):
-    """K2 and K3 at the serving shapes: kernel, plain version, bound, library."""
+    """K2, K3 and K4 at the serving shapes: kernel, plain version, bound,
+    library."""
     import torch
     import torch.nn.functional as F
 
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import rglru as rg
+    from repro_torch.kernels import ssd
 
     q, k, v, kw = flash_operands(FLASH_SERVE, torch.bfloat16, device, seed=7)
     f_ms = cuda_median_ms(lambda: fa.flash_attention(q, k, v, **kw), reps=20, warmup=3)
@@ -783,6 +1010,20 @@ def phase_model_timing(device):
     r_bound = rglru_bound(a, h0)
     d_a, d_xb = a[:, :1].contiguous(), xb[:, :1].contiguous()
     r_decode = cuda_median_ms(lambda: rg._launch_cuda(d_a, d_xb, h0), reps=50, warmup=5)
+    r_decode_dev = profiled_device_ms(lambda: rg._launch_cuda(d_a, d_xb, h0),
+                                      "rglru_scan_kernel", reps=50)
+    # K4 as the prefill calls it (bf16 x/B/C, d_skip, an fp32 h0) and as a
+    # decode step calls it (T = 1)
+    args = ssd_operands(SSD_SERVE, torch.bfloat16, device, True, seed=9)
+    s_ms = cuda_median_ms(lambda: ssd.ssd_chunked(*args), reps=20, warmup=3)
+    s_plain = cuda_median_ms(lambda: ssd.ssd_chunked_torch(*args), reps=3, warmup=1)
+    s_bound = ssd_bound(args[0], args[3], args[5], args[6], chunk=ssd.CHUNK)
+    del args
+    dec = ssd_operands((SERVE_BATCH, 1) + SSD_SERVE[2:], torch.bfloat16, device, True, seed=10)
+    s_dec = cuda_median_ms(lambda: ssd.ssd_chunked(*dec), reps=50, warmup=5)
+    s_dec_dev = profiled_device_ms(lambda: ssd.ssd_chunked(*dec), "ssd_chunk_kernel", reps=50)
+    s_dec_plain = cuda_median_ms(lambda: ssd.ssd_chunked_torch(*dec), reps=20, warmup=3)
+    s_dec_bound = ssd_bound(dec[0], dec[3], dec[5], dec[6], chunk=ssd.CHUNK)
     out = {
         "flash_attention": {"ms": f_ms, "plain_ms": f_plain, **f_bound, "library_ms": lib_ms,
                             "library": f"scaled_dot_product_attention ({backend}), kv heads "
@@ -790,13 +1031,54 @@ def phase_model_timing(device):
                             "library_max_abs_diff": lib_err, "shape": list(FLASH_SERVE)},
         "rglru_scan": {"ms": r_ms, "plain_ms": r_plain, **r_bound, "library_ms": None,
                        "wrapper_ms_with_gates": r_wrapper, "decode_step_ms": r_decode,
+                       "decode_step_device_ms": r_decode_dev,
                        "shape": [SERVE_BATCH, SERVE_PROMPT, 2560]},
+        "ssd_chunked": {"ms": s_ms, "plain_ms": s_plain, **s_bound, "library_ms": None,
+                        "achieved_tflops": s_bound["kernel_operations"] / s_ms * 1e-9,
+                        "decode_step_ms": s_dec, "decode_step_device_ms": s_dec_dev,
+                        "decode_step_plain_ms": s_dec_plain,
+                        "decode_step_bound_ms": s_dec_bound["bound_ms"],
+                        "decode_step_bound_by": s_dec_bound["bound_by"],
+                        "decode_step_bytes": s_dec_bound["bytes"],
+                        "shape": list(SSD_SERVE), "dtype": "bfloat16 x/B/C, fp32 dt/h0"},
     }
     say("model_timing", **out,
         note="ms: median of 20 launches (plain version: 3) timed with CUDA events after "
              "warm-up, inputs resident on the card; rglru ms is the scan kernel alone "
-             "(the gate math is PyTorch and is in wrapper_ms_with_gates)")
+             "(the gate math is PyTorch and is in wrapper_ms_with_gates); ssd ms is the "
+             "wrapper (one launch, d_skip fused); its bound counts the least operations "
+             "at the kernel's chunk (C B^T once per group, at the bf16 rate), "
+             "kernel_operations what K4 does (C B^T per head), achieved_tflops those "
+             "over ms, tpu_operations the TPU kernel's count (per head, chunk 128); "
+             "decode_step_ms is event-timed around one wrapper call (host work "
+             "included), decode_step_device_ms the kernel's own time from "
+             "torch.profiler, mean of 50")
     return out
+
+
+# every hand-written kernel: name, its source, the TPU kernel it replaces
+KERNELS = (
+    ("schedule_dp", "src/repro_torch/kernels/csrc/schedule_dp.cu",
+     "src/repro/kernels/schedule_dp.py:334"),
+    ("flash_attention", "src/repro_torch/kernels/csrc/flash_attention.cu",
+     "src/repro/kernels/flash_attention.py:99"),
+    ("rglru_scan", "src/repro_torch/kernels/csrc/rglru.cu", "src/repro/kernels/rglru.py:41"),
+    ("ssd_chunked", "src/repro_torch/kernels/csrc/ssd.cu", "src/repro/kernels/ssd.py:75"),
+)
+
+
+def kernel_entries(launches: dict, errs: dict, times: dict, extras: dict) -> list:
+    """The ``kernels`` line: one entry per kernel, launches from its main
+    path's run, its worst error against its plain version, and its times and
+    bound at the main path's shape (``times[name]`` holds ms, plain_ms,
+    bound_ms, bound_by and library_ms, which is None where no single PyTorch
+    call computes the function)."""
+    return [{"name": name, "route": "cuda", "source": source, "replaces": replaces,
+             "launches": launches[name], "max_abs_err": errs[name],
+             **{k: times[name].get(k) for k in ("ms", "plain_ms", "bound_ms", "bound_by",
+                                                "library_ms")},
+             **extras.get(name, {})}
+            for name, source, replaces in KERNELS]
 
 
 def main() -> int:
@@ -834,46 +1116,41 @@ def main() -> int:
     worst = phase_kernels(device)
     model_err = phase_model_kernels(device)
     launches, max_rows = phase_main_path()
-    model_launches = phase_model_serve(device)
+    model_launches = phase_model_serve(device, ARCH, check_fixed_limit)
+    mamba_launches = phase_model_serve(device, MAMBA_ARCH, check_against_yardstick)
     timing = phase_timing(device, rows=max_rows)
     mtime = phase_model_timing(device)
 
-    fwd = timing["forward"]
-    fl, rg = mtime["flash_attention"], mtime["rglru_scan"]
-    print(json.dumps({"kernels": [{
-        "name": "schedule_dp", "route": "cuda",
-        "source": "src/repro_torch/kernels/csrc/schedule_dp.cu",
-        "replaces": "src/repro/kernels/schedule_dp.py:334",
-        "launches": launches, "max_abs_err": worst,
-        "ms": fwd["ms"], "plain_ms": fwd["plain_ms"],
-        "bound_ms": fwd["bound_ms"], "bound_by": fwd["bound_by"],
-        "library_ms": None,
-        "chain_ms": fwd["chain_ms"], "shape": [max_rows, sdp.bucket(250)],
-        "dtype": "float64", "call": "forward only",
-        "tails_ms": timing["tails"]["ms"], "tails_plain_ms": timing["tails"]["plain_ms"],
-        "tails_bound_ms": timing["tails"]["bound_ms"],
-        "tails_chain_ms": timing["tails"]["chain_ms"],
-    }, {
-        "name": "flash_attention", "route": "cuda",
-        "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
-        "replaces": "src/repro/kernels/flash_attention.py:99",
-        "launches": model_launches["flash_attention"],
-        "max_abs_err": model_err["flash_attention"],
-        "max_abs_err_f32": model_err["flash_f32"],
-        "ms": fl["ms"], "plain_ms": fl["plain_ms"],
-        "bound_ms": fl["bound_ms"], "bound_by": fl["bound_by"],
-        "library_ms": fl["library_ms"], "library": fl["library"],
-        "shape": fl["shape"], "dtype": "bfloat16",
-    }, {
-        "name": "rglru_scan", "route": "cuda",
-        "source": "src/repro_torch/kernels/csrc/rglru.cu",
-        "replaces": "src/repro/kernels/rglru.py:41",
-        "launches": model_launches["rglru_scan"], "max_abs_err": model_err["rglru_scan"],
-        "ms": rg["ms"], "plain_ms": rg["plain_ms"],
-        "bound_ms": rg["bound_ms"], "bound_by": rg["bound_by"], "library_ms": None,
-        "shape": rg["shape"], "dtype": "float32 scan (bfloat16 model)",
-        "decode_step_ms": rg["decode_step_ms"],
-    }], "seconds": time.perf_counter() - t_start}), flush=True)
+    fwd, tails = timing["forward"], timing["tails"]
+    fl, rg, sd = mtime["flash_attention"], mtime["rglru_scan"], mtime["ssd_chunked"]
+    entries = kernel_entries(
+        launches={"schedule_dp": launches, "flash_attention": model_launches["flash_attention"],
+                  "rglru_scan": model_launches["rglru_scan"],
+                  "ssd_chunked": mamba_launches["ssd_chunked"]},
+        errs={"schedule_dp": worst, **model_err},
+        times={"schedule_dp": fwd, **mtime},
+        extras={
+            "schedule_dp": {"chain_ms": fwd["chain_ms"], "shape": [max_rows, sdp.bucket(250)],
+                            "dtype": "float64", "call": "forward only",
+                            "tails_ms": tails["ms"], "tails_plain_ms": tails["plain_ms"],
+                            "tails_bound_ms": tails["bound_ms"],
+                            "tails_chain_ms": tails["chain_ms"]},
+            "flash_attention": {"max_abs_err_f32": model_err["flash_f32"],
+                                "library": fl["library"], "shape": fl["shape"],
+                                "dtype": "bfloat16"},
+            "rglru_scan": {"shape": rg["shape"], "dtype": "float32 scan (bfloat16 model)",
+                           "decode_step_ms": rg["decode_step_ms"],
+                           "decode_step_device_ms": rg["decode_step_device_ms"]},
+            "ssd_chunked": {"shape": sd["shape"], "dtype": sd["dtype"],
+                            "operations": sd["operations"],
+                            "kernel_operations": sd["kernel_operations"],
+                            "tpu_operations": sd["tpu_operations"],
+                            "achieved_tflops": sd["achieved_tflops"],
+                            "decode_step_ms": sd["decode_step_ms"],
+                            "decode_step_device_ms": sd["decode_step_device_ms"],
+                            "decode_step_bound_ms": sd["decode_step_bound_ms"]},
+        })
+    print(json.dumps({"kernels": entries, "seconds": time.perf_counter() - t_start}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -2,8 +2,9 @@
 reduced smoke variants (same family, tiny dims) for CPU tests.
 
 All ten architecture names of the system are known here, but only those
-whose layer kinds the port runs today are registered; asking for another one
-raises a ``KeyError`` that names the slice it waits for.
+whose layer kinds the port runs today are registered (recurrentgemma-2b:
+rec + attn_local; mamba2-780m: ssm); asking for another one raises a
+``KeyError`` that names the slice it waits for.
 """
 from __future__ import annotations
 
@@ -25,11 +26,10 @@ ARCH_IDS = (
     "internvl2-26b",
 )
 
-# archs whose layer kinds (rec, attn_local) the port runs
-PORTED_ARCH_IDS = ("recurrentgemma-2b",)
+# archs whose layer kinds (rec, attn_local, ssm) the port runs
+PORTED_ARCH_IDS = ("recurrentgemma-2b", "mamba2-780m")
 
 _LATER = {
-    "mamba2-780m": "the mamba2-780m serving slice (SSM blocks and the SSD kernel)",
     "whisper-medium": "a later slice (encoder-decoder)",
     "mixtral-8x7b": "a later slice (MoE blocks)",
     "granite-moe-1b-a400m": "a later slice (MoE blocks)",

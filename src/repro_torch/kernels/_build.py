@@ -31,6 +31,7 @@ KERNEL_SOURCES = {
     "schedule_dp": "schedule_dp.cu",
     "flash_attention": "flash_attention.cu",
     "rglru": "rglru.cu",
+    "ssd": "ssd.cu",
 }
 
 _loaded: dict[str, ctypes.CDLL] = {}

@@ -11,5 +11,6 @@ from __future__ import annotations
 
 from .flash_attention import flash_attention
 from .rglru import rglru_scan
+from .ssd import ssd_chunked
 
-__all__ = ["flash_attention", "rglru_scan"]
+__all__ = ["flash_attention", "rglru_scan", "ssd_chunked"]

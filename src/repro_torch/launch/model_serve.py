@@ -5,6 +5,13 @@ with the caches.  Parameters and prompts are random, drawn from ``--seed``.
         --smoke --device cpu
     PYTHONPATH=src python -m repro_torch.launch.model_serve --arch recurrentgemma-2b \\
         --batch 4 --prompt-len 4096 --gen 32          # full width, on the GPU
+    PYTHONPATH=src python -m repro_torch.launch.model_serve --arch mamba2-780m \\
+        --smoke --device cpu
+    PYTHONPATH=src python -m repro_torch.launch.model_serve --arch mamba2-780m \\
+        --batch 4 --prompt-len 4096 --gen 32          # full width, on the GPU
+
+The archs it serves are ``configs.PORTED_ARCH_IDS`` (recurrentgemma-2b and
+mamba2-780m); another ``--arch`` raises a ``KeyError`` naming its slice.
 """
 from __future__ import annotations
 

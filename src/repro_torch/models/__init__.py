@@ -1,4 +1,5 @@
-"""Model facade of the port: one API over the decoder-only archs it runs.
+"""Model facade of the port: one API over the decoder-only archs it runs
+(recurrentgemma-2b and mamba2-780m, ``configs.PORTED_ARCH_IDS``).
 
 ``batch`` dicts carry ``tokens (B, S)``.  Parameters live in a
 :class:`~repro_torch.models.decoder.Decoder` module; every entry point takes

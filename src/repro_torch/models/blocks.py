@@ -1,15 +1,20 @@
-"""Non-attention blocks of the port: the dense GLU MLP and the RG-LRU
-recurrent block (Griffin / RecurrentGemma) with its decode state.  MoE and
-the Mamba-2 SSD block come with the slices that serve those archs."""
+"""Non-attention blocks of the port: the dense GLU MLP, the RG-LRU recurrent
+block (Griffin / RecurrentGemma) and the Mamba-2 SSD block, the last two with
+their decode state.  MoE comes with the slice that serves it."""
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 
 from ..configs.base import ModelConfig
 from ..kernels import ops
 from .common import ParamDef, activation, gelu_tanh
 
-__all__ = ["mlp_defs", "mlp", "rec_defs", "rec_block", "rec_decode", "rec_cache_defs"]
+__all__ = [
+    "mlp_defs", "mlp",
+    "rec_defs", "rec_block", "rec_decode", "rec_cache_defs",
+    "ssm_defs", "ssm_block", "ssm_decode", "ssm_cache_defs",
+]
 
 
 def mlp_defs(cfg: ModelConfig) -> dict[str, ParamDef]:
@@ -77,3 +82,59 @@ def rec_cache_defs(cfg: ModelConfig, batch: int):
 def rec_decode(cfg: ModelConfig, p, x: torch.Tensor, state: dict):
     """One token: the full block at T = 1, conv state included."""
     return rec_block(cfg, p, x, state)
+
+
+def ssm_defs(cfg: ModelConfig) -> dict[str, ParamDef]:
+    d, di = cfg.d_model, cfg.d_inner
+    g, n, nh = cfg.ssm_groups, cfg.ssm_state, cfg.n_ssm_heads
+    conv_ch = di + 2 * g * n
+    return {
+        "wz": ParamDef((d, di)),
+        "wx": ParamDef((d, di)),
+        "wB": ParamDef((d, g * n)),
+        "wC": ParamDef((d, g * n)),
+        "wdt": ParamDef((d, nh), scale=0.02),
+        "dt_bias": ParamDef((nh,), init="zeros", fp32=True),
+        "a_log": ParamDef((nh,), init="small", fp32=True),
+        "d_skip": ParamDef((nh,), init="ones", fp32=True),
+        "conv_w": ParamDef((cfg.conv1d_width, conv_ch), scale=0.1),
+        "conv_b": ParamDef((conv_ch,), init="zeros"),
+        "norm_w": ParamDef((di,), init="ones", fp32=True),
+        "wo": ParamDef((di, d)),
+    }
+
+
+def ssm_block(cfg: ModelConfig, p, x: torch.Tensor, state: dict | None = None):
+    """Mamba-2 block: in-projections (z, x, B, C, dt) -> causal conv + SiLU
+    over (x, B, C) -> SSD -> gated RMSNorm with z -> out-projection.  With
+    ``state`` ({"h": (B, H, P, N) fp32, "conv": (B, CW-1, conv_ch)}) also
+    returns the next state."""
+    b, t, _ = x.shape
+    di, g, n, nh, hp = cfg.d_inner, cfg.ssm_groups, cfg.ssm_state, cfg.n_ssm_heads, \
+        cfg.ssm_head_dim
+    z = x @ p.wz
+    xbc = torch.cat([x @ p.wx, x @ p.wB, x @ p.wC], dim=-1)
+    xbc, new_conv = _causal_conv(xbc, p.conv_w, p.conv_b, None if state is None else state["conv"])
+    xbc = F.silu(xbc)
+    xin, bmat, cmat = torch.split(xbc, [di, g * n, g * n], dim=-1)
+    dt = F.softplus((x @ p.wdt).float() + p.dt_bias)
+    y, h_last = ops.ssd_chunked(xin.reshape(b, t, nh, hp), dt, p.a_log,
+                                bmat.reshape(b, t, g, n), cmat.reshape(b, t, g, n), p.d_skip,
+                                None if state is None else state["h"])
+    # gated RMSNorm (mamba2), in fp32
+    yf = y.reshape(b, t, di).float() * F.silu(z.float())
+    yf = yf * torch.rsqrt(torch.mean(yf * yf, dim=-1, keepdim=True) + 1e-6) * p.norm_w
+    out = yf.to(x.dtype) @ p.wo
+    return out, (None if state is None else {"h": h_last, "conv": new_conv})
+
+
+def ssm_cache_defs(cfg: ModelConfig, batch: int):
+    """Shapes and whether the entry is fp32 (else the working type)."""
+    conv_ch = cfg.d_inner + 2 * cfg.ssm_groups * cfg.ssm_state
+    return {"h": ((batch, cfg.n_ssm_heads, cfg.ssm_head_dim, cfg.ssm_state), True),
+            "conv": ((batch, cfg.conv1d_width - 1, conv_ch), False)}
+
+
+def ssm_decode(cfg: ModelConfig, p, x: torch.Tensor, state: dict):
+    """One token: the full block at T = 1, conv state included."""
+    return ssm_block(cfg, p, x, state)

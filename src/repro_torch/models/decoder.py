@@ -1,12 +1,13 @@
 """The decoder-only LM of the port, as far as the ported layer kinds go:
 RecurrentGemma's pattern of RG-LRU blocks ("rec") and sliding-window
-attention ("attn_local"), each followed by a GLU MLP, with tied embeddings.
+attention ("attn_local"), each followed by a GLU MLP, and Mamba-2's stack of
+SSD blocks ("ssm"), which have no MLP; tied embeddings.
 
-The reference stacks whole pattern periods for ``lax.scan`` plus an unrolled
-tail; here the layers are one ``nn.ModuleList`` in order, and
-``repro_torch.convert`` maps between the two layouts.  The decode cache is a
+The reference stacks whole pattern periods (or, for a uniform stack, all
+layers) for ``lax.scan``; here the layers are one ``nn.ModuleList`` in order,
+and ``repro_torch.convert`` maps between the layouts.  The decode cache is a
 list with one dict per layer: a ring {"k", "v"} of ``min(max_len, window)``
-slots for attention, {"h" (fp32), "conv"} for a recurrent layer.
+slots for attention, {"h" (fp32), "conv"} for a recurrent or SSM layer.
 """
 from __future__ import annotations
 
@@ -33,12 +34,18 @@ __all__ = [
     "init_cache",
 ]
 
-KINDS = ("rec", "attn_local")
+KINDS = ("rec", "attn_local", "ssm")
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 
 
 def working_dtype(cfg: ModelConfig) -> torch.dtype:
     return _DTYPES[cfg.dtype]
+
+
+def has_mlp(cfg: ModelConfig, kind: str) -> bool:
+    """The reference's rule: a layer has an MLP unless it is an SSM layer or
+    the config has none."""
+    return cfg.d_ff > 0 and kind != "ssm"
 
 
 def check_supported(cfg: ModelConfig) -> None:
@@ -51,8 +58,8 @@ def check_supported(cfg: ModelConfig) -> None:
         "encoder_layers": cfg.encoder_layers, "n_experts": cfg.n_experts,
         "n_vis_tokens": cfg.n_vis_tokens, "qkv_bias": cfg.qkv_bias,
         "mlp_bias": cfg.mlp_bias, "untied embeddings": not cfg.tie_embeddings,
-        "non-GLU MLP": not cfg.glu, "MLP-less layers": cfg.d_ff <= 0,
-        "layernorm": cfg.norm != "rmsnorm", "no attention window": cfg.attn_window is None,
+        "non-GLU MLP": not cfg.glu, "layernorm": cfg.norm != "rmsnorm",
+        "no attention window": "attn_local" in cfg.kinds and cfg.attn_window is None,
     }
     bad = [k for k, v in unsupported.items() if v]
     if bad:
@@ -66,16 +73,21 @@ def _norm(cfg: ModelConfig) -> ParamDef:
 
 
 class Layer(DefModule):
-    """One layer: ln1 -> mixer (rec or attn) -> residual, ln2 -> mlp -> residual."""
+    """One layer: ln1 -> mixer (rec, attn or ssm) -> residual, then, where the
+    layer has one, ln2 -> mlp -> residual."""
 
     def __init__(self, cfg: ModelConfig, kind: str, dtype, device):
-        super().__init__({"ln1_w": _norm(cfg), "ln2_w": _norm(cfg)}, dtype, device)
+        mlp = has_mlp(cfg, kind)
+        norms = {"ln1_w": _norm(cfg), **({"ln2_w": _norm(cfg)} if mlp else {})}
+        super().__init__(norms, dtype, device)
         self.kind = kind
         if kind == "rec":
             self.rec = DefModule(blocks.rec_defs(cfg), dtype, device)
+        elif kind == "ssm":
+            self.ssm = DefModule(blocks.ssm_defs(cfg), dtype, device)
         else:
             self.attn = DefModule(attn_defs(cfg), dtype, device)
-        self.mlp = DefModule(blocks.mlp_defs(cfg), dtype, device)
+        self.mlp = DefModule(blocks.mlp_defs(cfg), dtype, device) if mlp else None
 
 
 class Decoder(DefModule):
@@ -132,10 +144,12 @@ def _layer(cfg: ModelConfig, layer: Layer, x: torch.Tensor, positions, max_len):
     else:
         state = None
         if max_len is not None:   # prefill starts from a zero state, as a decode would
-            state = _zeros(blocks.rec_cache_defs(cfg, x.shape[0]), x.dtype, x.device)
-        out, entry = blocks.rec_block(cfg, layer.rec, h, state)
+            state = _zeros(_STATE_DEFS[layer.kind](cfg, x.shape[0]), x.dtype, x.device)
+        block = blocks.rec_block if layer.kind == "rec" else blocks.ssm_block
+        out, entry = block(cfg, getattr(layer, layer.kind), h, state)
     x = x + out
-    x = x + blocks.mlp(cfg, layer.mlp, rms_norm(x, layer.ln2_w))
+    if layer.mlp is not None:
+        x = x + blocks.mlp(cfg, layer.mlp, rms_norm(x, layer.ln2_w))
     return x, entry
 
 
@@ -176,10 +190,13 @@ def decode_step(cfg: ModelConfig, model: Decoder, cache: list, tokens: torch.Ten
         h = rms_norm(x, layer.ln1_w)
         if layer.kind == "attn_local":
             out, entry = decode_attention(cfg, layer.attn, h, entry, pos)
-        else:
+        elif layer.kind == "rec":
             out, entry = blocks.rec_decode(cfg, layer.rec, h, entry)
+        else:
+            out, entry = blocks.ssm_decode(cfg, layer.ssm, h, entry)
         x = x + out
-        x = x + blocks.mlp(cfg, layer.mlp, rms_norm(x, layer.ln2_w))
+        if layer.mlp is not None:
+            x = x + blocks.mlp(cfg, layer.mlp, rms_norm(x, layer.ln2_w))
         new_cache.append(entry)
     return _logits(cfg, model, x)[:, 0], new_cache
 
@@ -188,8 +205,12 @@ def cache_defs(cfg: ModelConfig, batch: int, max_len: int) -> list[dict]:
     """Per layer, name -> (shape, fp32?) of the decode cache (attention layers
     get rings of ``min(max_len, window)`` slots)."""
     return [kv_cache_defs(cfg, batch, min(max_len, cfg.attn_window))
-            if kind == "attn_local" else blocks.rec_cache_defs(cfg, batch)
+            if kind == "attn_local" else _STATE_DEFS[kind](cfg, batch)
             for kind in cfg.kinds]
+
+
+# the decode state of the recurrent kinds: name -> (shape, fp32?)
+_STATE_DEFS = {"rec": blocks.rec_cache_defs, "ssm": blocks.ssm_cache_defs}
 
 
 def _zeros(defs: dict, dtype, device) -> dict:

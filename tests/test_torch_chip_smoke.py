@@ -1,6 +1,7 @@
 """The plumbing of ``chip_smoke.py`` that needs no GPU: its refusal to run
-without one, the candidate batches it builds, the byte/operation bound it
-computes and the host-phase timers it wraps around the search round."""
+without one, the candidate batches it builds, the byte/operation bounds it
+computes (K1 to K4), the host-phase timers it wraps around the search round,
+the launch counts it expects of each served arch, and its ``kernels`` line."""
 import importlib.util
 import pathlib
 import subprocess
@@ -164,18 +165,24 @@ def test_plain_kernels_swap_the_ops_and_restore_them(smoke):
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import ops
     from repro_torch.kernels import rglru as rg
+    from repro_torch.kernels import ssd
 
-    before = (ops.flash_attention, ops.rglru_scan)
+    before = (ops.flash_attention, ops.rglru_scan, ops.ssd_chunked)
     q = torch.randn((1, 9, 2, 8), generator=torch.Generator().manual_seed(0))
     x = torch.randn((1, 5, 4), generator=torch.Generator().manual_seed(1))
+    sargs = smoke.ssd_operands((1, 70, 2, 8, 1, 8), torch.float32, torch.device("cpu"))
     with smoke.plain_kernels():
-        assert (ops.flash_attention, ops.rglru_scan) != before
+        assert all(a is not b for a, b in zip(
+            (ops.flash_attention, ops.rglru_scan, ops.ssd_chunked), before))
         assert torch.equal(ops.flash_attention(q, q[:, :, :1], q[:, :, :1], window=3),
                            fa.flash_attention_torch(q, q[:, :, :1], q[:, :, :1], window=3))
         y, h = ops.rglru_scan(x, torch.zeros(4), x.sigmoid(), x.sigmoid())
         want = rg.rglru_scan_torch(x, torch.zeros(4), x.sigmoid(), x.sigmoid())
         assert torch.equal(y, want[0]) and torch.equal(h, want[1])
-    assert (ops.flash_attention, ops.rglru_scan) == before
+        assert ops.ssd_chunked is ssd.ssd_chunked_torch
+        y, h = ops.ssd_chunked(*sargs)
+        assert y.shape == (1, 70, 2, 8) and h.shape == (1, 2, 8, 8)
+    assert (ops.flash_attention, ops.rglru_scan, ops.ssd_chunked) == before
 
 
 def test_teacher_forcing_reproduces_the_served_tokens(smoke):
@@ -204,13 +211,169 @@ def test_operands_have_the_asked_shapes_and_types(smoke):
     x, ap, ig, ag, h0 = smoke.rglru_operands((3, 10, 20, False), torch.float32, cpu)
     assert x.shape == ig.shape == ag.shape == (3, 10, 20) and ap.shape == (20,) and h0 is None
     assert ((ig > 0) & (ig < 1)).all()
+    x, dt, a_log, bm, cm, d, h0 = smoke.ssd_operands((2, 9, 4, 16, 2, 8), torch.bfloat16, cpu)
+    assert x.shape == (2, 9, 4, 16) and dt.shape == (2, 9, 4) and a_log.shape == d.shape == (4,)
+    assert bm.shape == cm.shape == (2, 9, 2, 8) and h0.shape == (2, 4, 16, 8)
+    assert x.dtype == bm.dtype == cm.dtype == torch.bfloat16
+    assert dt.dtype == h0.dtype == torch.float32 and (dt > 0).all()
+    assert smoke.ssd_operands((2, 9, 4, 16, 2, 8), torch.float32, cpu, False)[5:] == (None, None)
 
 
 @pytest.mark.parametrize("name,cls", [
     ("void (anonymous namespace)::flash_fwd_kernel<__nv_bfloat16, 256>(Params)", "K2"),
     ("(anonymous namespace)::rglru_scan_kernel(float const*, float const*)", "K3"),
+    ("void (anonymous namespace)::ssd_chunk_kernel<__nv_bfloat16>(Params)", "K4"),
     ("sm90_xmma_gemm_bf16bf16_bf16f32_f32_tn_n_tilesize128x128x64", "matmul"),
     ("nvjet_tst_128x256_64x4_1x2_h_bz_coopA_NTT", "matmul"),
     ("void at::native::vectorized_elementwise_kernel<4, ...>", "elementwise")])
 def test_profile_classes_name_the_kernels(smoke, name, cls):
     assert smoke._kernel_class(name).startswith(cls)
+
+
+def test_ssd_bound_at_the_serving_shape(smoke):
+    """At the kernel's chunk 64: C B^T once per (batch, group), 4 x 1 x 64
+    chunks x 2 q^2 N at the bf16 rate, and 4 x 48 heads x 64 chunks x
+    (2 q^2 P + 4 q N P) at the fp32 rate: 32.5 GFLOP, ~0.48 ms.  K4 takes
+    C B^T per head (45.1 GFLOP); the TPU kernel's count, per head at chunk
+    128, is 64.4 GFLOP.  x and y in bf16, dt, B, C, h0, h_last: ~225 MB."""
+    meta = torch.device("meta")
+    x = torch.empty((4, 4096, 48, 64), dtype=torch.bfloat16, device=meta)
+    bm = torch.empty((4, 4096, 1, 128), dtype=torch.bfloat16, device=meta)
+    d, h0 = torch.empty(48, device=meta), torch.empty((4, 48, 64, 128), device=meta)
+    bound = smoke.ssd_bound(x, bm, d, h0, chunk=64)
+    cb = 4 * 1 * 64 * 2 * 64 * 64 * 128
+    rest = 4 * 48 * 64 * (2 * 64 * 64 * 64 + 4 * 64 * 128 * 64)
+    assert bound["cb_operations"] == cb == 268_435_456
+    assert bound["operations"] == cb + rest == 32_480_690_176
+    assert bound["kernel_operations"] == rest + 48 * cb == 45_097_156_608
+    per_chunk_128 = 2 * 128 * 128 * 128 + 3 * 2 * 128 * 128 * 64
+    assert bound["tpu_operations"] == 4 * 48 * 32 * per_chunk_128 == 64_424_509_440
+    assert bound["bytes"] == (2 * x.numel() * 2 + 4 * 4096 * 48 * 4 + 2 * bm.numel() * 2
+                              + 2 * 48 * 4 + 2 * h0.numel() * 4) == 225_444_224
+    assert bound["bound_by"] == "operations"
+    assert bound["bound_ms"] == (cb / 989e12 + rest / 67e12) * 1e3
+    assert round(bound["bound_ms"], 3) == 0.481
+    # in float32 the C B^T product runs at the fp32 rate too
+    bound32 = smoke.ssd_bound(x.float(), bm.float(), d, h0, chunk=64)
+    assert bound32["bound_ms"] == bound32["operations"] / 67e12 * 1e3
+
+
+def test_ssd_bound_of_a_decode_step_is_the_state(smoke):
+    meta = torch.device("meta")
+    x = torch.empty((4, 1, 48, 64), dtype=torch.bfloat16, device=meta)
+    bm = torch.empty((4, 1, 1, 128), dtype=torch.bfloat16, device=meta)
+    h0 = torch.empty((4, 48, 64, 128), device=meta)
+    bound = smoke.ssd_bound(x, bm, torch.empty(48, device=meta), h0, chunk=64)
+    assert bound["bound_by"] == "bytes"
+    # h0 and h_last (12.6 MB) and one step of x, y, dt, B, C, a_log, d_skip
+    assert bound["bytes"] == 2 * h0.numel() * 4 + 2 * x.numel() * 2 + 4 * 48 * 4 \
+        + 2 * bm.numel() * 2 + 2 * 48 * 4 == 12_635_264
+    assert abs(bound["bound_ms"] - 0.00377) < 1e-5
+    ragged = smoke.ssd_bound(torch.empty((1, 300, 2, 8), device=meta),
+                             torch.empty((1, 300, 1, 4), device=meta), None, None, chunk=64)
+    qs = (64, 64, 64, 64, 44)
+    cb, rest = sum(2 * q * q * 4 for q in qs), sum(2 * q * q * 8 + 4 * q * 4 * 8 for q in qs)
+    assert (ragged["cb_operations"], ragged["operations"]) == (cb, cb + 2 * rest)
+    assert ragged["kernel_operations"] == 2 * (cb + rest)
+    per = [2 * q * q * 4 + 2 * q * q * 8 + 4 * q * 4 * 8 for q in (128, 128, 44)]
+    assert ragged["tpu_operations"] == 2 * sum(per)
+
+
+@pytest.mark.parametrize("arch,want", [
+    ("recurrentgemma-2b", {"flash_attention": 8, "rglru_scan": 18 * 32, "ssd_chunked": 0}),
+    ("mamba2-780m", {"flash_attention": 0, "rglru_scan": 0, "ssd_chunked": 48 * 32})])
+def test_expected_launches_of_each_served_arch(smoke, arch, want):
+    from repro_torch.configs import get_config
+
+    assert smoke.expected_launches(get_config(arch), smoke.SERVE_GEN) == want
+    assert set(smoke.model_kernel_wrappers()) == set(want)
+
+
+def test_kernels_line_lists_every_kernel_with_its_keys(smoke):
+    names = [k[0] for k in smoke.KERNELS]
+    assert names == ["schedule_dp", "flash_attention", "rglru_scan", "ssd_chunked"]
+    times = {n: {"ms": 1.0 + i, "plain_ms": 2.0, "bound_ms": 0.5, "bound_by": "bytes",
+                 "library_ms": None} for i, n in enumerate(names)}
+    entries = smoke.kernel_entries(
+        launches=dict(zip(names, (30, 8, 576, 1536))), errs=dict.fromkeys(names, 0.0),
+        times=times, extras={"ssd_chunked": {"decode_step_ms": 0.01}})
+    assert [e["name"] for e in entries] == names
+    keys = {"name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
+            "plain_ms", "bound_ms", "bound_by", "library_ms"}
+    for e in entries:
+        assert keys <= set(e) and e["route"] == "cuda"
+        assert (ROOT / e["source"]).is_file()
+        path, line = e["replaces"].split(":")
+        src = (ROOT / path).read_text().splitlines()
+        assert src[int(line) - 1].startswith("def "), e["replaces"]
+        assert "pallas_call" in (ROOT / path).read_text()
+    k4 = entries[3]
+    assert k4["replaces"] == "src/repro/kernels/ssd.py:75" and k4["launches"] == 1536
+    assert k4["library_ms"] is None and k4["decode_step_ms"] == 0.01
+    assert k4["source"] == "src/repro_torch/kernels/csrc/ssd.cu"
+
+
+def test_teacher_forcing_reproduces_the_served_mamba2_tokens(smoke):
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.launch.model_serve import serve
+    from repro_torch.models import arch_init_params
+
+    cfg = get_smoke_config("mamba2-780m")
+    model = arch_init_params(cfg, torch.Generator().manual_seed(4), device="cpu")
+    prompts = torch.randint(1, cfg.vocab_size, (2, 70), generator=torch.Generator().manual_seed(5))
+    res = serve(cfg, model, prompts, 5, device="cpu")
+    logits = smoke.teacher_forced_logits(cfg, model, prompts, torch.from_numpy(res.ids), "cpu")
+    greedy = torch.stack([lg[:, :cfg.vocab_size].argmax(-1) for lg in logits], 1)
+    assert np.array_equal(greedy.numpy(), res.ids)
+
+
+def test_plain_ssd_chunk_sums_in_another_order_and_restores(smoke):
+    from repro_torch.kernels import ops, ssd
+
+    args = smoke.ssd_operands((1, 100, 2, 8, 1, 8), torch.float32, torch.device("cpu"))
+    y64, h64 = ssd.ssd_chunked_torch(*args)
+    with smoke.plain_kernels(ssd_chunk=smoke.YARDSTICK_CHUNK):
+        y32, h32 = ops.ssd_chunked(*args)
+    assert ops.ssd_chunked is ssd.ssd_chunked and ssd.CHUNK == 64
+    assert not torch.equal(y32, y64)
+    torch.testing.assert_close(y32, y64, rtol=1e-5, atol=1e-5)
+    torch.testing.assert_close(h32, h64, rtol=1e-5, atol=1e-5)
+
+
+def test_float32_teacher_forced_check_on_the_cpu(smoke):
+    """On the CPU the kernels' route is the plain versions: the reading is 0."""
+    from repro_torch.configs import get_smoke_config
+
+    cfg = get_smoke_config("mamba2-780m")
+    prompts = torch.randint(1, cfg.vocab_size, (2, 40), generator=torch.Generator().manual_seed(6))
+    ids = torch.randint(1, cfg.vocab_size, (2, 3), generator=torch.Generator().manual_seed(7))
+    out = smoke.float32_teacher_forced(cfg, prompts, ids, torch.device("cpu"))
+    assert out["float32_teacher_forced_rel_err"] == [0.0, 0.0, 0.0]
+    assert out["float32_teacher_forced_limit"] == smoke.FLOAT32_TEACHER_FORCED_LIMIT
+
+
+def test_checks_hold_the_served_logits_to_their_limits(smoke):
+    """The bf16 mamba2 limit is measured in the run: twice the plain versions'
+    worst step against themselves at chunk 32 (here on the smoke model, whose
+    two chunk lengths differ in float32 rounding only)."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models import arch_init_params
+
+    cpu = torch.device("cpu")
+    cfg = get_smoke_config("mamba2-780m")
+    model = arch_init_params(cfg, torch.Generator().manual_seed(8), device="cpu")
+    prompts = torch.randint(1, cfg.vocab_size, (2, 70), generator=torch.Generator().manual_seed(9))
+    ids = torch.randint(1, cfg.vocab_size, (2, 3), generator=torch.Generator().manual_seed(10))
+    plain = smoke.teacher_forced_logits(cfg, model, prompts, ids, cpu)
+    out = smoke.check_against_yardstick(cfg, model, prompts, ids, cpu, [0.0] * 3, plain)
+    yardstick = out["plain_vs_plain_other_chunk_rel_err"]
+    assert len(yardstick) == 3 and 0.0 < max(yardstick) < 1e-5
+    assert out["teacher_forced_limit"] == smoke.YARDSTICK_FACTOR * max(yardstick)
+    assert out["float32_teacher_forced_rel_err"] == [0.0] * 3
+    with pytest.raises(AssertionError, match="more than"):
+        smoke.check_against_yardstick(cfg, model, prompts, ids, cpu,
+                                      [0.0, 2.5 * max(yardstick), 0.0], plain)
+    assert smoke.check_fixed_limit(cfg, model, prompts, ids, cpu, [3e-3], plain) == {
+        "teacher_forced_limit": smoke.TEACHER_FORCED_LIMIT}
+    with pytest.raises(AssertionError, match="limit"):
+        smoke.check_fixed_limit(cfg, model, prompts, ids, cpu, [5e-3], plain)

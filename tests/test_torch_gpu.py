@@ -1,9 +1,11 @@
 """Tests of the port that need an NVIDIA GPU and ``nvcc``: the CUDA
 schedule-DP kernel against its plain PyTorch version, bit for bit, the
 evaluator on the card against the NumPy engine, the flash-attention kernel
-(2e-5 in float32, 2e-2 in bfloat16, LSE 1e-5) and the RG-LRU scan kernel (bit
-for bit) against their plain versions, and a smoke-size model served on the
-card against the CPU (same ids, logits within 1e-4).  They import the port only
+(2e-5 in float32, 2e-2 in bfloat16, LSE 1e-5), the RG-LRU scan kernel (bit
+for bit) and the Mamba-2 SSD kernel (1e-4 relative in float32; y 2e-2
+relative, h_last 1e-4 with bfloat16 x/B/C) against their plain versions, and
+smoke-size recurrentgemma-2b and mamba2-780m models served on the card
+against the CPU (same ids, logits within 1e-4).  They import the port only
 (no JAX, no reference package), skip with a reason where there is no GPU,
 and run on the card with::
 
@@ -213,6 +215,111 @@ def test_smoke_model_served_on_the_card_matches_the_cpu(cuda_device):
     assert np.array_equal(res.ids, ref.ids)
     # the logits themselves, teacher-forced with the served ids past the ring
     # wrap (window 64 < 80 + 6): within 1e-4 of max |logit| (float32)
+    ids = torch.from_numpy(res.ids)
+    on_card = _teacher_forced(cfg, model, prompts.to(cuda_device), ids.to(cuda_device),
+                              cuda_device)
+    on_cpu = _teacher_forced(cfg, cpu_model, prompts, ids, "cpu")
+    for i, (got, want) in enumerate(zip(on_card, on_cpu)):
+        err = float((got.cpu() - want).abs().max() / want.abs().max())
+        assert err <= 1e-4, f"step {i}: card vs CPU {err:.3g} of max |logit|"
+
+
+# (b, t, h, p, g, n): the four shapes of tests/test_kernels.py::test_ssd_sweep,
+# ragged T, one decode step at the serving width, a smoke-model decode step
+SSD_CASES = [
+    (2, 256, 4, 32, 2, 64), (1, 256, 4, 64, 1, 128), (2, 128, 8, 16, 8, 32),
+    (1, 512, 2, 32, 1, 64), (2, 300, 4, 16, 2, 32), (1, 1000, 2, 64, 1, 128),
+    (4, 1, 48, 64, 1, 128), (2, 1, 16, 16, 1, 16),
+]
+
+
+def ssd_inputs(case, dtype, device, with_extras, seed=0):
+    b, t, h, p, g, n = case
+    gen = torch.Generator(device=device).manual_seed(seed)
+    mk = lambda *shape: torch.randn(shape, generator=gen, device=device)  # noqa: E731
+    x = mk(b, t, h, p).to(dtype)
+    dt = torch.nn.functional.softplus(mk(b, t, h))
+    a_log = 0.5 * mk(h)
+    bm, cm = (0.3 * mk(b, t, g, n)).to(dtype), (0.3 * mk(b, t, g, n)).to(dtype)
+    d_skip = mk(h) if with_extras else None
+    h0 = 0.1 * mk(b, h, p, n) if with_extras else None
+    return x, dt, a_log, bm, cm, d_skip, h0
+
+
+def _rel(got, want):
+    return float((got.float() - want.float()).abs().max() / want.float().abs().max())
+
+
+@pytest.mark.parametrize("with_extras", [True, False])
+@pytest.mark.parametrize("dtype,y_tol", [(torch.float32, 1e-4), (torch.bfloat16, 2e-2)])
+@pytest.mark.parametrize("case", SSD_CASES)
+def test_ssd_kernel_matches_plain_version(cuda_device, case, dtype, y_tol, with_extras):
+    from repro_torch.kernels import ssd
+
+    args = ssd_inputs(case, dtype, cuda_device, with_extras, seed=sum(case))
+    before = ssd.ssd_chunked.launches
+    y, h = ssd.ssd_chunked(*args)
+    torch.cuda.synchronize()
+    assert ssd.ssd_chunked.launches == before + 1
+    want_y, want_h = ssd.ssd_chunked_torch(*args)
+    assert y.dtype == dtype and h.dtype == torch.float32
+    assert _rel(y, want_y) < y_tol
+    assert _rel(h, want_h) < 1e-4
+
+
+def test_ssd_kernel_takes_strided_views_like_the_model_hands_it(cuda_device):
+    """x, B and C as views into one (B, T, H*P + 2 N) tensor, as ssm_block
+    splits them, give what contiguous copies give."""
+    from repro_torch.kernels import ssd
+
+    b, t, h, p, n = 2, 130, 4, 16, 32
+    gen = torch.Generator(device=cuda_device).manual_seed(1)
+    xbc = torch.randn((b, t, h * p + 2 * n), generator=gen, device=cuda_device)
+    x, bm, cm = torch.split(xbc, [h * p, n, n], dim=-1)
+    x, bm, cm = x.reshape(b, t, h, p), bm.reshape(b, t, 1, n), cm.reshape(b, t, 1, n)
+    dt = torch.rand((b, t, h), generator=gen, device=cuda_device)
+    a_log = torch.zeros(h, device=cuda_device)
+    y, hl = ssd.ssd_chunked(x, dt, a_log, bm, cm)
+    y2, hl2 = ssd.ssd_chunked(x.contiguous(), dt, a_log, bm.contiguous(), cm.contiguous())
+    torch.cuda.synchronize()
+    assert torch.equal(y, y2) and torch.equal(hl, hl2)
+
+
+def test_ssd_wrapper_raises_on_what_the_kernel_does_not_take(cuda_device):
+    from repro_torch.kernels import ssd
+
+    x, dt, a_log, bm, cm, d_skip, h0 = ssd_inputs((1, 8, 2, 16, 1, 16), torch.float32,
+                                                  cuda_device, True)
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        ssd.ssd_chunked(x.half(), dt, a_log, bm.half(), cm.half())
+    with pytest.raises(TypeError, match="b_mat is"):
+        ssd.ssd_chunked(x, dt, a_log, bm.bfloat16(), cm)
+    with pytest.raises(TypeError, match="dt in float32"):
+        ssd.ssd_chunked(x, dt.bfloat16(), a_log, bm, cm)
+    with pytest.raises(ValueError, match="head_dim"):
+        big = torch.zeros((1, 8, 1, 128), device=cuda_device)
+        ssd.ssd_chunked(big, dt[:, :, :1], a_log[:1], bm, cm)
+    with pytest.raises(ValueError, match="x is on"):
+        ssd.ssd_chunked(x, dt.cpu(), a_log, bm, cm)
+
+
+def test_mamba2_smoke_model_served_on_the_card_matches_the_cpu(cuda_device):
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.kernels import ssd
+    from repro_torch.launch.model_serve import serve
+    from repro_torch.models import Decoder, arch_init_params
+
+    cfg = get_smoke_config("mamba2-780m")
+    model = arch_init_params(cfg, torch.Generator(device=cuda_device).manual_seed(3),
+                             device=cuda_device)
+    cpu_model = Decoder(cfg, device="cpu")
+    cpu_model.load_state_dict({k: v.cpu() for k, v in model.state_dict().items()})
+    prompts = torch.randint(1, cfg.vocab_size, (2, 150), generator=torch.Generator().manual_seed(0))
+    before = ssd.ssd_chunked.launches
+    res = serve(cfg, model, prompts.to(cuda_device), 6, device=cuda_device)
+    assert ssd.ssd_chunked.launches - before == cfg.n_layers * 6   # prefill + 5 steps
+    ref = serve(cfg, cpu_model, prompts, 6, device="cpu")
+    assert np.array_equal(res.ids, ref.ids)
     ids = torch.from_numpy(res.ids)
     on_card = _teacher_forced(cfg, model, prompts.to(cuda_device), ids.to(cuda_device),
                               cuda_device)

@@ -12,8 +12,10 @@ _PROBE = """
 import sys
 import repro_torch
 import repro_torch.kernels.ops
+import repro_torch.kernels.ssd
 import repro_torch.launch.model_serve
 import repro_torch.models
+import repro_torch.models.blocks
 from repro_torch import solve, Budget
 from repro_torch.core import random_instance
 inst = random_instance(0, n_tasks=24, n_data=50)
@@ -22,6 +24,10 @@ rep = solve(inst, "tabu_multiwalk", walks=2, budget=Budget(max_iters=3),
 assert rep.makespan > 0
 ids = repro_torch.launch.model_serve.serve_main(
     ["--smoke", "--device", "cpu", "--batch", "2", "--prompt-len", "70", "--gen", "3"])
+assert ids.shape == (2, 3)
+ids = repro_torch.launch.model_serve.serve_main(
+    ["--arch", "mamba2-780m", "--smoke", "--device", "cpu", "--batch", "2",
+     "--prompt-len", "70", "--gen", "3"])
 assert ids.shape == (2, 3)
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith("jax.") or m == "jaxlib"

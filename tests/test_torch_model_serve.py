@@ -71,7 +71,7 @@ def test_config_matches_reference_field_by_field():
         ref_get_smoke_config(ARCH))
 
 
-@pytest.mark.parametrize("arch", ["qwen2.5-14b", "mamba2-780m", "no-such-arch"])
+@pytest.mark.parametrize("arch", ["qwen2.5-14b", "mixtral-8x7b", "no-such-arch"])
 def test_other_archs_raise_a_clear_key_error(arch):
     with pytest.raises(KeyError, match="not ported|unknown arch"):
         get_config(arch)
