@@ -1,12 +1,15 @@
 """Builds the package's CUDA sources into shared libraries at first use.
 
-Each kernel is one ``csrc/*.cu`` file with a plain C interface.  ``nvcc``
-compiles it for ``sm_90a`` into ``build/`` at the repository root (or
-``$REPRO_TORCH_BUILD_DIR``), named after a hash of the source and the flags
-so an edited source rebuilds, and ``ctypes`` loads the result.  :func:`build`
-starts one ``nvcc`` per missing library, all at once, and waits for them.
-Nothing but the sources in this package goes into a build.  A build or load
-failure raises with the compiler's output; there is no fallback.
+Each kernel is one ``csrc/*.cu`` file with a plain C interface (the
+``csrc/*.cuh`` headers are shared).  ``nvcc`` compiles it for ``sm_90a`` into
+``build/`` at the repository root (or ``$REPRO_TORCH_BUILD_DIR``), named after
+a hash of the source, the headers and the flags so an edited source rebuilds,
+and ``ctypes`` loads the result.  :func:`build` starts one ``nvcc`` per
+missing library, all at once, and waits for them.  The compiler's output of a
+successful build (``ptxas -v``: registers, shared memory and spills of every
+kernel) is kept beside the library; :func:`build_log` returns it.  Nothing but
+the sources in this package goes into a build.  A build or load failure raises
+with the compiler's output; there is no fallback.
 """
 from __future__ import annotations
 
@@ -17,14 +20,14 @@ import shutil
 import subprocess
 from pathlib import Path
 
-__all__ = ["NVCC_FLAGS", "KERNEL_SOURCES", "build_dir", "build", "load"]
+__all__ = ["NVCC_FLAGS", "KERNEL_SOURCES", "build_dir", "build", "build_log", "load"]
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 
 # no --use_fast_math: the kernels keep IEEE inf/NaN semantics
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v",
 )
 
 KERNEL_SOURCES = {
@@ -62,6 +65,8 @@ def _target(name: str) -> tuple[Path, Path]:
     src = CSRC / KERNEL_SOURCES[name]
     h = hashlib.sha256()
     h.update(src.read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
     return src, build_dir() / f"lib{name}_{h.hexdigest()[:16]}.so"
 
@@ -87,9 +92,19 @@ def build(names=None) -> None:
             failed.append(f"nvcc failed for {KERNEL_SOURCES[name]} "
                           f"(exit {proc.returncode}):\n{log}")
         else:
+            out.with_suffix(".log").write_text(log)
             os.replace(tmp, out)  # atomic: a concurrent process sees all or nothing
     if failed:
         raise RuntimeError("\n".join(failed))
+
+
+def build_log(name: str) -> str:
+    """The compiler's output of the build of kernel ``name`` (built first if
+    need be)."""
+    _, out = _target(name)
+    if not out.exists():
+        build([name])
+    return out.with_suffix(".log").read_text()
 
 
 def load(name: str) -> ctypes.CDLL:

@@ -1,11 +1,13 @@
 """Blockwise online-softmax attention: the CUDA kernel and its plain version.
 
 * :func:`flash_attention` — the wrapper.  For CUDA tensors it launches the
-  hand-written kernel ``csrc/flash_attention.cu`` (one thread block per
-  (batch, head, 64-row q tile), a loop over the kv tiles that the causal mask
-  and the window leave visible, fp32 running max / sum / accumulator) and
-  counts the launch in ``flash_attention.launches``; a tensor the kernel does
-  not take raises.  For CPU tensors it runs the plain version.
+  hand-written ``csrc/flash_attention.cu`` (a loop over the kv tiles that the
+  causal mask and the window leave visible, fp32 running max / sum /
+  accumulator) and counts the launch in ``flash_attention.launches``; a tensor
+  the kernel does not take raises.  bf16 runs on the tensor cores (a block per
+  128 (position, head) rows of one kv group, bf16 ``mma.sync`` products, P
+  rounded to bf16 before P V); float32 on the CUDA cores (a block per (batch,
+  head, 64 q rows), fp32 FMAs).  For CPU tensors it runs the plain version.
 * :func:`flash_attention_torch` — the plain PyTorch version of the same
   function: dense masked scores in fp32, a few q rows at a time.
 

@@ -12,10 +12,14 @@ with the fp32 state ``h (P, N)`` carried from chunk to chunk; head ``h``
 reads B/C group ``h // (H / G)``.  ``d_skip * x`` is added in fp32 and ``y``
 is rounded to ``x``'s type once.
 
-* :func:`ssd_chunked` — the wrapper.  For CUDA tensors it launches
-  ``csrc/ssd.cu`` (one thread block per (batch, head) walking its chunks in
-  order, the state in shared memory) and counts the launch in
-  ``ssd_chunked.launches``; a tensor the kernel does not take raises.  For CPU
+* :func:`ssd_chunked` — the wrapper.  For CUDA tensors it launches one of the
+  two kernels of ``csrc/ssd.cu`` and counts the launch in
+  ``ssd_chunked.launches``; a tensor the kernels do not take raises.  bf16
+  x/B/C with ``T >= TENSOR_CORE_MIN_T`` (a prefill) take the tensor-core
+  kernel (a block per (batch, head, 32 head_dim columns) walking its chunks in
+  order, the state in fp32 registers, the products as bf16 ``mma.sync``);
+  float32, and a bf16 decode step (``T = 1``), take the CUDA-core kernel (a
+  block per (batch, head), fp32 FMAs, the state in shared memory).  For CPU
   tensors it runs the plain version.
 * :func:`ssd_chunked_torch` — the plain PyTorch version: the same chunked
   algorithm as a loop over chunks.  The last chunk may be short; T = 1 is one
@@ -29,12 +33,22 @@ import ctypes
 
 import torch
 
-__all__ = ["CHUNK", "MAX_HEAD_DIM", "MAX_STATE", "ssd_chunked", "ssd_chunked_torch"]
+__all__ = ["CHUNK", "MAX_HEAD_DIM", "MAX_STATE", "TENSOR_CORE_MIN_T", "on_tensor_cores",
+           "ssd_chunked", "ssd_chunked_torch"]
 
 CHUNK = 64          # time steps per chunk, the kernel's and the plain version's
 MAX_HEAD_DIM = 64   # P: the kernel's register tiles cover 64 columns
 MAX_STATE = 128     # N: shared-memory rows of B, C and the state
-_FN_BY_DTYPE = {torch.float32: "ssd_chunked_f32", torch.bfloat16: "ssd_chunked_bf16"}
+# bf16 x/B/C with at least this many steps take the tensor-core kernel; a
+# decode step (T = 1) is host-bound and keeps the CUDA-core kernel
+TENSOR_CORE_MIN_T = 2
+_DTYPES = (torch.float32, torch.bfloat16)
+
+
+def on_tensor_cores(dtype: torch.dtype, t: int) -> bool:
+    """Whether a launch with x/B/C in ``dtype`` over ``t`` steps runs on the
+    tensor cores (bf16 products, fp32 sums) or on the CUDA cores (fp32)."""
+    return dtype == torch.bfloat16 and t >= TENSOR_CORE_MIN_T
 
 
 def _check(x, dt, a_log, b_mat, c_mat, d_skip, h0):
@@ -103,10 +117,12 @@ def ssd_chunked_torch(x, dt, a_log, b_mat, c_mat, d_skip=None, h0=None, chunk: i
     return y.reshape(b, t, h, p).to(x.dtype), state.reshape(b, h, p, n)
 
 
-def _c_fn(dtype: torch.dtype):
+def _c_fn(dtype: torch.dtype, t: int):
     from . import _build
 
-    fn = getattr(_build.load("ssd"), _FN_BY_DTYPE[dtype])
+    name = "ssd_chunked_bf16_mma" if on_tensor_cores(dtype, t) else \
+        {torch.float32: "ssd_chunked_f32", torch.bfloat16: "ssd_chunked_bf16"}[dtype]
+    fn = getattr(_build.load("ssd"), name)
     p, ll, i = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
     fn.argtypes = [p] * 9 + [ll] * 9 + [i] * 6 + [p]
     fn.restype = ctypes.c_int
@@ -119,7 +135,7 @@ def _unit_last(t: torch.Tensor) -> torch.Tensor:
 
 def _launch_cuda(x, dt, a_log, b_mat, c_mat, d_skip, h0, shape):
     b, t, h, p, g, n = shape
-    if x.dtype not in _FN_BY_DTYPE:
+    if x.dtype not in _DTYPES:
         raise TypeError(f"the SSD kernel takes x in float32 or bfloat16, got {x.dtype}")
     for name, v in (("b_mat", b_mat), ("c_mat", c_mat)):
         if v.dtype != x.dtype:
@@ -140,7 +156,7 @@ def _launch_cuda(x, dt, a_log, b_mat, c_mat, d_skip, h0, shape):
     y = torch.empty((b, t, h, p), dtype=x.dtype, device=dev)
     h_last = torch.empty((b, h, p, n), dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
-        err = _c_fn(x.dtype)(
+        err = _c_fn(x.dtype, t)(
             x.data_ptr(), dt.data_ptr(), a_log.data_ptr(), b_mat.data_ptr(), c_mat.data_ptr(),
             None if d_skip is None else d_skip.data_ptr(),
             None if h0 is None else h0.data_ptr(), y.data_ptr(), h_last.data_ptr(),

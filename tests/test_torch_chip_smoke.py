@@ -221,8 +221,11 @@ def test_operands_have_the_asked_shapes_and_types(smoke):
 
 @pytest.mark.parametrize("name,cls", [
     ("void (anonymous namespace)::flash_fwd_kernel<__nv_bfloat16, 256>(Params)", "K2"),
+    ("void (anonymous namespace)::flash_fwd_kernel<256>(Params)", "K2"),
+    ("void (anonymous namespace)::tc::flash_fwd_mma_kernel<256>(Params, int)", "K2"),
     ("(anonymous namespace)::rglru_scan_kernel(float const*, float const*)", "K3"),
     ("void (anonymous namespace)::ssd_chunk_kernel<__nv_bfloat16>(Params)", "K4"),
+    ("(anonymous namespace)::tc::ssd_chunk_mma_kernel(Params, int)", "K4"),
     ("sm90_xmma_gemm_bf16bf16_bf16f32_f32_tn_n_tilesize128x128x64", "matmul"),
     ("nvjet_tst_128x256_64x4_1x2_h_bz_coopA_NTT", "matmul"),
     ("void at::native::vectorized_elementwise_kernel<4, ...>", "elementwise")])
@@ -232,10 +235,12 @@ def test_profile_classes_name_the_kernels(smoke, name, cls):
 
 def test_ssd_bound_at_the_serving_shape(smoke):
     """At the kernel's chunk 64: C B^T once per (batch, group), 4 x 1 x 64
-    chunks x 2 q^2 N at the bf16 rate, and 4 x 48 heads x 64 chunks x
-    (2 q^2 P + 4 q N P) at the fp32 rate: 32.5 GFLOP, ~0.48 ms.  K4 takes
-    C B^T per head (45.1 GFLOP); the TPU kernel's count, per head at chunk
-    128, is 64.4 GFLOP.  x and y in bf16, dt, B, C, h0, h_last: ~225 MB."""
+    chunks x 2 q^2 N, and 4 x 48 heads x 64 chunks x (2 q^2 P + 4 q N P):
+    32.5 GFLOP, which the bf16 prefill runs on the tensor cores, so its bound
+    is the bytes' (x and y in bf16, dt, B, C, h0, h_last: ~225 MB, 0.067 ms).
+    At the fp32 rate (C B^T at the bf16 rate, the rest at 67 TFLOP/s) the same
+    work takes ~0.48 ms.  The chunked form with C B^T per head is 45.1 GFLOP;
+    the TPU kernel's count, per head at chunk 128, is 64.4 GFLOP."""
     meta = torch.device("meta")
     x = torch.empty((4, 4096, 48, 64), dtype=torch.bfloat16, device=meta)
     bm = torch.empty((4, 4096, 1, 128), dtype=torch.bfloat16, device=meta)
@@ -250,12 +255,46 @@ def test_ssd_bound_at_the_serving_shape(smoke):
     assert bound["tpu_operations"] == 4 * 48 * 32 * per_chunk_128 == 64_424_509_440
     assert bound["bytes"] == (2 * x.numel() * 2 + 4 * 4096 * 48 * 4 + 2 * bm.numel() * 2
                               + 2 * 48 * 4 + 2 * h0.numel() * 4) == 225_444_224
-    assert bound["bound_by"] == "operations"
-    assert bound["bound_ms"] == (cb / 989e12 + rest / 67e12) * 1e3
-    assert round(bound["bound_ms"], 3) == 0.481
-    # in float32 the C B^T product runs at the fp32 rate too
+    assert bound["precision"] == "bf16 tensor cores"
+    assert bound["bound_by"] == "bytes" and bound["bound_ms"] == bound["bytes"] / 3.35e12 * 1e3
+    assert bound["ops_ms"] == (cb + rest) / 989e12 * 1e3
+    assert bound["fp32_rate_bound_by"] == "operations"
+    assert bound["fp32_rate_bound_ms"] == (cb / 989e12 + rest / 67e12) * 1e3
+    assert round(bound["fp32_rate_bound_ms"], 3) == 0.481
+    # in float32 every product runs at the fp32 rate, C B^T too
     bound32 = smoke.ssd_bound(x.float(), bm.float(), d, h0, chunk=64)
+    assert bound32["precision"] == "fp32 CUDA cores"
     assert bound32["bound_ms"] == bound32["operations"] / 67e12 * 1e3
+    assert bound32["fp32_rate_bound_ms"] == bound32["bound_ms"]
+
+
+@pytest.mark.parametrize("t,precision", [(1, "fp32 CUDA cores"), (2, "bf16 tensor cores"),
+                                         (4096, "bf16 tensor cores")])
+def test_ssd_bound_follows_the_kernels_precision(smoke, t, precision):
+    """bf16 x/B/C over T >= 2 steps take the tensor-core kernel, whose bound
+    counts every product at the bf16 rate; a bf16 decode step (T = 1) keeps
+    the CUDA-core kernel and the fp32-rate count.  At the serving shape the
+    bf16-rate bound is set by bytes (0.067 ms) and the fp32-rate figure
+    (0.481 ms, set by operations) is still reported beside it."""
+    from repro_torch.kernels import ssd
+
+    meta = torch.device("meta")
+    x = torch.empty((4, t, 48, 64), dtype=torch.bfloat16, device=meta)
+    bm = torch.empty((4, t, 1, 128), dtype=torch.bfloat16, device=meta)
+    d, h0 = torch.empty(48, device=meta), torch.empty((4, 48, 64, 128), device=meta)
+    bound = smoke.ssd_bound(x, bm, d, h0, chunk=ssd.CHUNK)
+    assert bound["precision"] == precision
+    assert ssd.on_tensor_cores(torch.bfloat16, t) == (precision == "bf16 tensor cores")
+    assert not ssd.on_tensor_cores(torch.float32, t)
+    if precision == "fp32 CUDA cores":
+        assert bound["bound_ms"] == bound["fp32_rate_bound_ms"]
+    else:
+        assert bound["ops_ms"] == bound["operations"] / 989e12 * 1e3
+        assert bound["ops_ms"] <= bound["fp32_rate_ops_ms"]
+    if t == 4096:
+        assert bound["bound_by"] == "bytes" and round(bound["bound_ms"], 3) == 0.067
+        assert bound["fp32_rate_bound_by"] == "operations"
+        assert round(bound["fp32_rate_bound_ms"], 3) == 0.481
 
 
 def test_ssd_bound_of_a_decode_step_is_the_state(smoke):
@@ -287,6 +326,37 @@ def test_expected_launches_of_each_served_arch(smoke, arch, want):
 
     assert smoke.expected_launches(get_config(arch), smoke.SERVE_GEN) == want
     assert set(smoke.model_kernel_wrappers()) == set(want)
+
+
+PTXAS_LOG = """\
+ptxas info    : 0 bytes gmem
+ptxas info    : Compiling entry function '_ZN51_GLOBAL__N__e7510225_18_flash_attention_cu_6928a1a22tc20flash_fwd_mma_kernelILi256EEEvNS_6ParamsEi' for 'sm_90a'
+ptxas info    : Function properties for _ZN51_GLOBAL__N__e7510225_18_flash_attention_cu_6928a1a22tc20flash_fwd_mma_kernelILi256EEEvNS_6ParamsEi
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 232 registers, used 1 barriers
+ptxas info    : Compiling entry function '_ZN38_GLOBAL__N__025e8cd1_6_ssd_cu_fcb81b1a16ssd_chunk_kernelI13__nv_bfloat16EEvNS_6ParamsE' for 'sm_90a'
+ptxas info    : Function properties for _ZN38_GLOBAL__N__025e8cd1_6_ssd_cu_fcb81b1a16ssd_chunk_kernelI13__nv_bfloat16EEvNS_6ParamsE
+    40 bytes stack frame, 36 bytes spill stores, 60 bytes spill loads
+ptxas info    : Used 128 registers, used 1 barriers, 16 bytes smem
+ptxas info    : Compiling entry function '_ZN51_GLOBAL__N__e7510225_18_flash_attention_cu_6928a1a216flash_fwd_kernelILi64EEEvNS_6ParamsE' for 'sm_90a'
+ptxas info    : Used 109 registers, used 1 barriers
+"""
+
+
+def test_ptxas_report_reads_each_kernel_function(smoke):
+    report = smoke.ptxas_report(PTXAS_LOG)
+    assert [f["kernel"] for f in report] == [
+        "_ZN51_GLOBAL__N__e7510225_18_flash_attention_cu_6928a1a22tc20flash_fwd_mma_kernel"
+        "ILi256EEEvNS_6ParamsEi",
+        "_ZN38_GLOBAL__N__025e8cd1_6_ssd_cu_fcb81b1a16ssd_chunk_kernelI13__nv_bfloat16EEvNS_"
+        "6ParamsE",
+        "_ZN51_GLOBAL__N__e7510225_18_flash_attention_cu_6928a1a216flash_fwd_kernelILi64EEEvNS_"
+        "6ParamsE"]
+    assert report[0] == {"kernel": report[0]["kernel"], "registers": 232, "stack": 0,
+                         "spill_stores": 0, "spill_loads": 0, "static_smem": 0}
+    assert (report[1]["registers"], report[1]["stack"], report[1]["spill_stores"],
+            report[1]["spill_loads"], report[1]["static_smem"]) == (128, 40, 36, 60, 16)
+    assert report[2]["registers"] == 109 and report[2]["spill_loads"] == 0
 
 
 def test_kernels_line_lists_every_kernel_with_its_keys(smoke):

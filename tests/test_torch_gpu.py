@@ -1,9 +1,11 @@
 """Tests of the port that need an NVIDIA GPU and ``nvcc``: the CUDA
 schedule-DP kernel against its plain PyTorch version, bit for bit, the
 evaluator on the card against the NumPy engine, the flash-attention kernel
-(2e-5 in float32, 2e-2 in bfloat16, LSE 1e-5), the RG-LRU scan kernel (bit
-for bit) and the Mamba-2 SSD kernel (1e-4 relative in float32; y 2e-2
-relative, h_last 1e-4 with bfloat16 x/B/C) against their plain versions, and
+(2e-5 in float32, 2e-2 in bfloat16, LSE 1e-5; bfloat16 on the tensor cores,
+float32 on the CUDA cores), the RG-LRU scan kernel (bit for bit) and the
+Mamba-2 SSD kernel (1e-4 relative in float32; y 2e-2 relative, h_last 1e-4
+with bfloat16 x/B/C, a prefill on the tensor cores) against their plain
+versions, which kernel each input takes (the entry point its wrapper resolves), and
 smoke-size recurrentgemma-2b and mamba2-780m models served on the card
 against the CPU (same ids, logits within 1e-4).  They import the port only
 (no JAX, no reference package), skip with a reason where there is no GPU,
@@ -11,6 +13,8 @@ and run on the card with::
 
     PYTHONPATH=src python -m pytest -m gpu tests/test_torch_gpu.py
 """
+import re
+
 import numpy as np
 import pytest
 import torch
@@ -156,6 +160,106 @@ def test_flash_kernel_matches_plain_version(cuda_device, case, dtype, tol):
     torch.testing.assert_close(lse, want_lse, rtol=1e-5, atol=1e-5)
 
 
+# bf16 on the tensor cores: a ragged head_dim (72, 40: zero-padded to 80, 48),
+# groups of 2 and 10 q heads per kv head, the serving head_dim with MQA
+FLASH_BF16_CASES = [
+    (2, 200, 200, 4, 2, 72, True, None, 0),
+    (2, 130, 130, 4, 2, 64, True, 64, 0),
+    (1, 333, 333, 10, 1, 72, True, 100, 0),
+    (2, 150, 150, 4, 2, 40, False, None, 0),
+    (1, 512, 512, 10, 1, 256, True, 256, 0),
+]
+
+
+@pytest.mark.parametrize("case", FLASH_BF16_CASES)
+def test_flash_bf16_kernel_matches_plain_version(cuda_device, case):
+    from repro_torch.kernels import flash_attention as fa
+
+    q, k, v, kw = _flash_inputs(case, torch.bfloat16, cuda_device)
+    before = fa.flash_attention.launches
+    out, lse = fa.flash_attention(q, k, v, return_lse=True, **kw)
+    torch.cuda.synchronize()
+    assert fa.flash_attention.launches == before + 1
+    want, want_lse = fa.flash_attention_torch(q, k, v, return_lse=True, **kw)
+    assert out.dtype == torch.bfloat16 and lse.dtype == torch.float32
+    torch.testing.assert_close(out.float(), want.float(), rtol=2e-2, atol=2e-2)
+    torch.testing.assert_close(lse, want_lse, rtol=1e-5, atol=1e-5)
+
+
+def test_flash_bf16_rows_without_a_visible_key_give_zeros(cuda_device):
+    """q_offset -10 with the causal mask: the first 10 positions see no key."""
+    from repro_torch.kernels import flash_attention as fa
+
+    q, k, v, _ = _flash_inputs((1, 64, 64, 4, 2, 64, True, None, 0), torch.bfloat16, cuda_device)
+    out, lse = fa.flash_attention(q, k, v, causal=True, q_offset=-10, return_lse=True)
+    torch.cuda.synchronize()
+    want, want_lse = fa.flash_attention_torch(q, k, v, causal=True, q_offset=-10,
+                                              return_lse=True)
+    assert not out[:, :10].any() and bool((lse[:, :10] == -1e30).all())
+    torch.testing.assert_close(out.float(), want.float(), rtol=2e-2, atol=2e-2)
+    torch.testing.assert_close(lse, want_lse, rtol=1e-5, atol=1e-5)
+
+
+def test_flash_bf16_takes_rows_that_are_not_16_byte_aligned(cuda_device):
+    """q one element into a wider tensor (its rows start 2 bytes off a 16-byte
+    boundary) and k with an odd row stride: the kernel loads such rows
+    element by element and gives what contiguous copies give."""
+    from repro_torch.kernels import flash_attention as fa
+
+    g = torch.Generator(device=cuda_device).manual_seed(5)
+    wide = torch.randn((2, 130, 4, 65), generator=g, device=cuda_device).bfloat16()
+    q = wide[..., 1:]
+    k = torch.randn((2, 130, 2, 67), generator=g, device=cuda_device).bfloat16()[..., :64]
+    v = torch.randn((2, 130, 2, 64), generator=g, device=cuda_device).bfloat16()
+    out = fa.flash_attention(q, k, v, causal=True, window=50)
+    again = fa.flash_attention(q.contiguous(), k.contiguous(), v, causal=True, window=50)
+    torch.cuda.synchronize()
+    assert torch.equal(out, again)
+    want = fa.flash_attention_torch(q, k, v, causal=True, window=50)
+    torch.testing.assert_close(out.float(), want.float(), rtol=2e-2, atol=2e-2)
+
+
+def _entry_points(monkeypatch, module) -> list:
+    """Names of the C entry points the wrapper in ``module`` resolves from now
+    on (the profiler's kernel names are not used: on the card it has stopped
+    recording for the rest of a process)."""
+    seen, orig = [], module._c_fn
+
+    def spy(*args):
+        fn = orig(*args)
+        seen.append(fn.__name__)
+        return fn
+
+    monkeypatch.setattr(module, "_c_fn", spy)
+    return seen
+
+
+def _entry_kernels(name: str) -> list:
+    """Mangled names of the kernel functions in the library of ``name``."""
+    from repro_torch.kernels import _build
+
+    return re.findall(r"Compiling entry function '([^']+)'", _build.build_log(name))
+
+
+@pytest.mark.parametrize("dtype,entry", [(torch.bfloat16, "flash_attention_fwd_bf16"),
+                                         (torch.float32, "flash_attention_fwd_f32")])
+def test_flash_takes_the_tensor_cores_in_bf16_only(cuda_device, monkeypatch, dtype, entry):
+    """bf16 goes to the entry point whose only kernels are the tensor-core ones
+    (the library holds no bf16 instance of the CUDA-core kernel); float32 to
+    the CUDA-core kernel."""
+    from repro_torch.kernels import flash_attention as fa
+
+    seen = _entry_points(monkeypatch, fa)
+    q, k, v, kw = _flash_inputs(FLASH_CASES[0], dtype, cuda_device)
+    fa.flash_attention(q, k, v, **kw)
+    torch.cuda.synchronize()
+    assert seen == [entry]
+    kernels = _entry_kernels("flash_attention")
+    assert sum("flash_fwd_mma_kernel" in k for k in kernels) == 3          # d <= 64, 128, 256
+    assert sum("flash_fwd_kernelI" in k for k in kernels) == 3
+    assert len(kernels) == 6
+
+
 def test_flash_wrapper_raises_on_what_the_kernel_does_not_take(cuda_device):
     from repro_torch.kernels import flash_attention as fa
 
@@ -283,6 +387,82 @@ def test_ssd_kernel_takes_strided_views_like_the_model_hands_it(cuda_device):
     y2, hl2 = ssd.ssd_chunked(x.contiguous(), dt, a_log, bm.contiguous(), cm.contiguous())
     torch.cuda.synchronize()
     assert torch.equal(y, y2) and torch.equal(hl, hl2)
+
+
+# bf16 prefills on the tensor cores: T just below, at and above a chunk (64)
+# and two; head_dim 16, 32 and 64 against the kernel's 32-column slices;
+# G > 1; a state N that is not a multiple of 16 (zero-padded)
+SSD_BF16_CASES = [
+    (2, 63, 4, 32, 2, 64), (2, 64, 4, 32, 2, 64), (2, 65, 4, 32, 2, 64), (2, 129, 4, 32, 1, 128),
+    (2, 2, 4, 64, 1, 128), (1, 200, 4, 16, 1, 128), (1, 200, 8, 64, 4, 64),
+    (1, 130, 4, 48, 2, 40),
+]
+
+
+@pytest.mark.parametrize("with_extras", [True, False])
+@pytest.mark.parametrize("case", SSD_BF16_CASES)
+def test_ssd_bf16_prefill_matches_plain_version(cuda_device, case, with_extras):
+    from repro_torch.kernels import ssd
+
+    args = ssd_inputs(case, torch.bfloat16, cuda_device, with_extras, seed=sum(case))
+    before = ssd.ssd_chunked.launches
+    y, h = ssd.ssd_chunked(*args)
+    torch.cuda.synchronize()
+    assert ssd.ssd_chunked.launches == before + 1
+    want_y, want_h = ssd.ssd_chunked_torch(*args)
+    assert y.dtype == torch.bfloat16 and h.dtype == torch.float32
+    assert bool(torch.isfinite(y.float()).all())
+    assert _rel(y, want_y) < 2e-2
+    assert bool(((h - want_h).abs() <= 1e-4 * (1 + want_h.abs())).all())
+
+
+def test_ssd_bf16_takes_the_models_strided_views(cuda_device):
+    """bf16 x, B and C as views into one (B, T, H*P + 2 N) tensor, as ssm_block
+    splits the conv output (16-byte aligned rows), and one view that is not
+    16-byte aligned (loaded element by element): each gives what contiguous
+    copies give, and all are within the plain version's tolerance."""
+    from repro_torch.kernels import ssd
+
+    b, t, h, p, n = 2, 300, 8, 64, 128
+    gen = torch.Generator(device=cuda_device).manual_seed(1)
+    xbc = torch.randn((b, t, h * p + 2 * n), generator=gen, device=cuda_device).bfloat16()
+    x, bm, cm = torch.split(xbc, [h * p, n, n], dim=-1)
+    x, bm, cm = x.reshape(b, t, h, p), bm.reshape(b, t, 1, n), cm.reshape(b, t, 1, n)
+    dt = torch.rand((b, t, h), generator=gen, device=cuda_device)
+    a_log = torch.zeros(h, device=cuda_device)
+    y, hl = ssd.ssd_chunked(x, dt, a_log, bm, cm)
+    y2, hl2 = ssd.ssd_chunked(x.contiguous(), dt, a_log, bm.contiguous(), cm.contiguous())
+    off = torch.randn((b, t, h, p + 1), generator=gen, device=cuda_device).bfloat16()[..., 1:]
+    y3, hl3 = ssd.ssd_chunked(off, dt, a_log, bm, cm)
+    y4, hl4 = ssd.ssd_chunked(off.contiguous(), dt, a_log, bm, cm)
+    torch.cuda.synchronize()
+    assert torch.equal(y, y2) and torch.equal(hl, hl2)
+    assert torch.equal(y3, y4) and torch.equal(hl3, hl4)
+    for got_y, got_h, xx in ((y, hl, x), (y3, hl3, off)):
+        want_y, want_h = ssd.ssd_chunked_torch(xx, dt, a_log, bm, cm)
+        assert _rel(got_y, want_y) < 2e-2
+        assert bool(((got_h - want_h).abs() <= 1e-4 * (1 + want_h.abs())).all())
+
+
+@pytest.mark.parametrize("dtype,t,entry", [
+    (torch.bfloat16, 1, "ssd_chunked_bf16"), (torch.bfloat16, 2, "ssd_chunked_bf16_mma"),
+    (torch.bfloat16, 300, "ssd_chunked_bf16_mma"), (torch.float32, 300, "ssd_chunked_f32")])
+def test_ssd_route_follows_type_and_length(cuda_device, monkeypatch, dtype, t, entry):
+    """bf16 with T >= TENSOR_CORE_MIN_T takes the tensor-core entry point; a
+    bf16 decode step and float32 take the CUDA-core kernel."""
+    from repro_torch.kernels import ssd
+
+    assert ssd.on_tensor_cores(dtype, t) == entry.endswith("_mma")
+    seen = _entry_points(monkeypatch, ssd)
+    args = ssd_inputs((2, t, 4, 64, 1, 128), dtype, cuda_device, True, seed=t)
+    y, h = ssd.ssd_chunked(*args)
+    torch.cuda.synchronize()
+    assert seen == [entry]
+    kernels = _entry_kernels("ssd")
+    assert sum("ssd_chunk_mma_kernel" in k for k in kernels) == 1 and len(kernels) == 3
+    want_y, want_h = ssd.ssd_chunked_torch(*args)
+    assert _rel(y, want_y) < (2e-2 if dtype == torch.bfloat16 else 1e-4)
+    assert bool(((h - want_h).abs() <= 1e-4 * (1 + want_h.abs())).all())
 
 
 def test_ssd_wrapper_raises_on_what_the_kernel_does_not_take(cuda_device):
