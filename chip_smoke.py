@@ -24,7 +24,8 @@ Phases, one JSON line each:
   build          nvcc builds every kernel from the sources in this checkout
   ptxas          registers, shared memory, stack and spills of every kernel
                  function, from the builds' ``ptxas -v`` output; the bf16
-                 tensor-core kernels (K2, K4) must not spill
+                 tensor-core kernels (K2, K4) must not spill, and K1's and
+                 K3's kernels must use neither spills nor a stack
   kernels        K1 against its plain version, bit for bit
   model_kernels  K2 (f32 2e-5, bf16 2e-2, LSE 1e-5 in both), K3 (bit for bit)
                  and K4 (f32 1e-4; bf16 x/B/C: y 2e-2, h_last 1e-4) against
@@ -40,10 +41,13 @@ Phases, one JSON line each:
                  mamba2-780m also the same check in float32, and the plain
                  version against itself at another chunk length (the
                  rounding noise of a correct bf16 path)
-  timing         K1, plain version, bound and host engine at the main path's shape
+  timing         K1, plain version, bound, its time per level against the
+                 measured least cost of a level, and the host engine at the
+                 main path's shape
   model_timing   K2, K3 and K4 at the serving shapes: kernel, plain version,
                  bound (K4's at the precision it computes in, and at the fp32
-                 rate), and for K2 PyTorch's scaled_dot_product_attention
+                 rate), for K2 PyTorch's scaled_dot_product_attention, and
+                 the K3 and K4 decode steps beside their bounds
 
 then a ``{"kernels": [...]}`` line, the card's ``nvidia-smi`` line, and last
 ``{"ok": true, "device": {...}}``.  Any failure raises: the exit code is
@@ -152,19 +156,37 @@ def ptxas_report(log: str) -> list:
     return out
 
 
+# libraries whose every kernel must use neither spills nor a stack frame
+NO_STACK_LIBRARIES = ("schedule_dp", "rglru")
+
+
 def phase_ptxas(names) -> None:
     """What ptxas reported for every kernel function; the bf16 tensor-core
-    kernels (``*_mma_kernel``) must not spill."""
+    kernels (``*_mma_kernel``) must not spill, and no kernel of
+    ``NO_STACK_LIBRARIES`` may spill or use a stack frame."""
     from repro_torch.kernels import _build
 
     report = {name: ptxas_report(_build.build_log(name)) for name in names}
     say("ptxas", functions=report,
         note="registers per thread, bytes of stack, spill stores / loads and static shared "
              "memory per kernel function (dynamic shared memory is set at launch)")
+    faults = ptxas_faults(report)
+    if faults:
+        raise AssertionError("; ".join(faults))
+
+
+def ptxas_faults(report: dict) -> list:
+    """What ``phase_ptxas`` refuses in a report (library name -> functions)."""
+    faults = []
     spilled = [f["kernel"] for fs in report.values() for f in fs
                if "mma_kernel" in f["kernel"] and (f["spill_stores"] or f["spill_loads"])]
     if spilled:
-        raise AssertionError(f"tensor-core kernels spill registers: {spilled}")
+        faults.append(f"tensor-core kernels spill registers: {spilled}")
+    stacked = [f["kernel"] for name in NO_STACK_LIBRARIES for f in report.get(name, ())
+               if f["stack"] or f["spill_stores"] or f["spill_loads"]]
+    if stacked:
+        faults.append(f"K1 / K3 kernels spill or use a stack frame: {stacked}")
+    return faults
 
 
 def max_abs_err(got, want) -> float:
@@ -396,23 +418,28 @@ def profiled_device_ms(fn, kernel: str, reps: int) -> float:
     raise AssertionError(f"the profiler saw {seen} launches of {kernel}, expected {reps}")
 
 
+def csr_bytes(csr) -> int:
+    """Bytes of one CSR form of the graph (row offsets and links, int32)."""
+    return sum(a.numel() for a in csr) * 4
+
+
 def sweep_bound(graph, dur, mpred, msucc, finish, n_done, tails: bool) -> dict:
     """Least time for this call's work: bytes each read/written once over the
-    memory rate, against the max/add operations this data needs over the
-    peak rate of its type."""
+    memory rate (the graph as the CSR the kernel reads), against the max/add
+    operations this data needs over the peak rate of its type."""
     b, n_b = dur.shape
     es = dur.element_size()
     fired = finish > 0                              # durations are positive
     indeg = (graph.pred_mat >= 0).sum(dim=1)[None, :] + (mpred >= 0)
-    # per fired task: (links + 1) max for finish, the same again for start, one add
-    ops = int((fired * (2 * (indeg + 1) + 1)).sum())
-    n_in = b * n_b * (es + 4) + graph.pred_mat.numel() * 4     # dur, mpred, pred_mat
+    # per fired task: (links + 1) max for finish and start, one add
+    ops = int((fired * ((indeg + 1) + 1)).sum())
+    n_in = b * n_b * (es + 4) + csr_bytes(graph.pred_csr)      # dur, mpred, pred CSR
     n_out = b * n_b * (es + es + 4) + b * 4                    # start, finish, level, n_done
-    if tails:                                                  # + msucc, succ_mat in, q out
+    if tails:                                                  # + msucc, succ CSR in, q out
         feas = (n_done == graph.n)[:, None]
         outdeg = (graph.succ_mat >= 0).sum(dim=1)[None, :] + (msucc >= 0)
         ops += int((feas * fired * ((outdeg + 1) + 2)).sum())
-        n_in += b * n_b * 4 + graph.succ_mat.numel() * 4
+        n_in += b * n_b * 4 + csr_bytes(graph.succ_csr)
         n_out += b * n_b * es
     t_bytes = (n_in + n_out) / HBM_BYTES_PER_S * 1e3
     t_ops = ops / PEAK_FLOPS[str(dur.dtype).split(".")[-1]] * 1e3
@@ -466,8 +493,13 @@ def phase_timing(device, rows: int):
         res = sdp.sweep(graph, dur, mpred, msucc, tails=tails)
         torch.cuda.synchronize()
         start, finish, level, n_done, q = res
+        # CUDA events around one wrapper call (the yardstick of every kernel's
+        # ms: the wrapper's host work before the launch is in it) and, beside
+        # it, the kernel's own device time
         ms = cuda_median_ms(lambda: sdp.sweep(graph, dur, mpred, msucc, tails=tails),
                             reps=100, warmup=10)
+        device_ms = profiled_device_ms(
+            lambda: sdp.sweep(graph, dur, mpred, msucc, tails=tails), "sweep_kernel", reps=100)
         plain_ms = cuda_median_ms(
             lambda: sdp.sweep_torch(graph.pred_mat, graph.succ_mat, dur, mpred, msucc,
                                     graph.n, tails=tails), reps=5, warmup=1)
@@ -475,8 +507,9 @@ def phase_timing(device, rows: int):
         depth = int(level.max()) + 1
         chain_levels = depth * (2 if tails else 1)   # the backward loop is as deep
         out["tails" if tails else "forward"] = {
-            "ms": ms, "plain_ms": plain_ms, **bound,
+            "ms": ms, "device_ms": device_ms, "plain_ms": plain_ms, **bound,
             "depth_levels": depth, "chain_ms": chain_levels * per_level,
+            "ms_per_level": ms / chain_levels, "device_ms_per_level": device_ms / chain_levels,
             "timed_launches": sdp.sweep.launches - launches_before}
     # the host engine on the same rows, for context
     t = []
@@ -484,13 +517,18 @@ def phase_timing(device, rows: int):
         t0 = time.perf_counter()
         eng._forward_dp(packed, eng._durations(packed))
         t.append((time.perf_counter() - t0) * 1e3)
+    out["chain_probe_ms_per_level"] = per_level
     say("timing", shape=[rows, graph.n_b], dtype="float64",
         chain_probe_ms_per_level=per_level, forward=out["forward"], tails=out["tails"],
         numpy_forward_dp_host_ms=statistics.median(t),
-        note="ms: median of 100 launches timed with CUDA events after 10 warm-up "
-             "launches, inputs resident on the card; chain_ms = levels x measured cost "
-             "of a minimal two-barrier level and is the bound that binds; bound_ms is "
-             "the bytes/operations bound")
+        note="ms: median of 100 wrapper calls timed with CUDA events after 10 warm-up "
+             "calls, inputs resident on the card (the wrapper's host work before the "
+             "launch included); device_ms: the kernel's mean device time over 100 "
+             "launches from torch.profiler; chain_ms = levels x measured cost "
+             "of a minimal two-barrier level and is the bound that binds; ms_per_level "
+             "= ms / levels (depth_levels, twice that with tails) and device_ms_per_level "
+             "the same of device_ms, beside chain_probe_ms_per_level; bound_ms is the "
+             "bytes/operations bound")
     return out
 
 
@@ -519,10 +557,16 @@ FLASH_TOL = {"float32": 2e-5, "bfloat16": 2e-2}       # tests/test_kernels.py
 # exact products summed in fp32 (by the tensor cores), so only the order of
 # the sums and one rounding of the scale differ from the plain version
 FLASH_LSE_TOL = 1e-5
-# (b, t, d, h0): the reference's test shapes, T = 1, ragged T, the serving shapes
+# (b, t, d, h0): the reference's test shapes, T = 1, ragged T, the serving
+# shapes, then the kernel's edges: a partial last tile (T = 4097, 1000, 33),
+# rows that are not 16-byte aligned (d = 2562, 66, 31: copied element by
+# element) and lanes past d (2562, 200, 66, 31), T = 1 and T = 2
 RGLRU_SHAPES = ((2, 512, 64, True), (1, 256, 128, True), (3, 128, 32, False),
                 (2, 1, 96, True), (3, 1000, 200, False), (3, 1000, 200, True),
-                (SERVE_BATCH, 1, 2560, True), (SERVE_BATCH, SERVE_PROMPT, 2560, True))
+                (SERVE_BATCH, 1, 2560, True), (SERVE_BATCH, SERVE_PROMPT, 2560, True),
+                (2, 4097, 2562, True), (2, 4097, 2560, False), (3, 33, 66, True),
+                (3, 200, 31, False), (2, 1, 31, False), (SERVE_BATCH, 1, 2562, True),
+                (SERVE_BATCH, 2, 2560, False))
 MAMBA_ARCH = "mamba2-780m"
 # (b, t, h, p, g, n): the four shapes of tests/test_kernels.py::test_ssd_sweep,
 # two ragged T, one decode step and the prefill at the serving width
@@ -895,7 +939,7 @@ def rel_err(got, want) -> float:
 def _kernel_class(name: str) -> str:
     if "flash_fwd" in name:          # flash_fwd_kernel (f32), flash_fwd_mma_kernel (bf16)
         return "K2 flash_attention"
-    if "rglru_scan_kernel" in name:
+    if "rglru_scan" in name:         # rglru_scan_kernel (T >= 2), rglru_scan_step_kernel
         return "K3 rglru_scan"
     if "ssd_chunk" in name:          # ssd_chunk_kernel, ssd_chunk_mma_kernel (bf16 prefill)
         return "K4 ssd_chunked"
@@ -1076,14 +1120,18 @@ def phase_model_timing(device):
     x, a_param, ig, ag, h0 = rglru_operands((SERVE_BATCH, SERVE_PROMPT, 2560, True),
                                             torch.bfloat16, device, seed=8)
     a, xb = rg.rglru_gates(x, a_param, ig, ag)
+    # CUDA events around one launch, as for every kernel, and the kernel's
+    # own device time beside it (the events also take the launch's host work)
     r_ms = cuda_median_ms(lambda: rg._launch_cuda(a, xb, h0), reps=20, warmup=3)
+    r_dev = profiled_device_ms(lambda: rg._launch_cuda(a, xb, h0), "rglru_scan_kernel", reps=20)
     r_plain = cuda_median_ms(lambda: rg.scan_torch(a, xb, h0), reps=3, warmup=1)
     r_wrapper = cuda_median_ms(lambda: rg.rglru_scan(x, a_param, ig, ag, h0), reps=20, warmup=3)
     r_bound = rglru_bound(a, h0)
     d_a, d_xb = a[:, :1].contiguous(), xb[:, :1].contiguous()
     r_decode = cuda_median_ms(lambda: rg._launch_cuda(d_a, d_xb, h0), reps=50, warmup=5)
     r_decode_dev = profiled_device_ms(lambda: rg._launch_cuda(d_a, d_xb, h0),
-                                      "rglru_scan_kernel", reps=50)
+                                      "rglru_scan_step_kernel", reps=50)
+    r_decode_bound = rglru_bound(d_a, h0)
     # K4 as the prefill calls it (bf16 x/B/C, d_skip, an fp32 h0) and as a
     # decode step calls it (T = 1)
     args = ssd_operands(SSD_SERVE, torch.bfloat16, device, True, seed=9)
@@ -1101,9 +1149,13 @@ def phase_model_timing(device):
                             "library": f"scaled_dot_product_attention ({backend}), kv heads "
                                        "expanded and band mask built outside the timing",
                             "library_max_abs_diff": lib_err, "shape": list(FLASH_SERVE)},
-        "rglru_scan": {"ms": r_ms, "plain_ms": r_plain, **r_bound, "library_ms": None,
+        "rglru_scan": {"ms": r_ms, "device_ms": r_dev, "plain_ms": r_plain, **r_bound,
+                       "library_ms": None,
                        "wrapper_ms_with_gates": r_wrapper, "decode_step_ms": r_decode,
                        "decode_step_device_ms": r_decode_dev,
+                       "decode_step_bound_ms": r_decode_bound["bound_ms"],
+                       "decode_step_bound_by": r_decode_bound["bound_by"],
+                       "decode_step_bytes": r_decode_bound["bytes"],
                        "shape": [SERVE_BATCH, SERVE_PROMPT, 2560]},
         "ssd_chunked": {"ms": s_ms, "plain_ms": s_plain, **s_bound, "library_ms": None,
                         "achieved_tflops": s_bound["kernel_operations"] / s_ms * 1e-9,
@@ -1116,8 +1168,9 @@ def phase_model_timing(device):
     }
     say("model_timing", **out,
         note="ms: median of 20 launches (plain version: 3) timed with CUDA events after "
-             "warm-up, inputs resident on the card; rglru ms is the scan kernel alone "
-             "(the gate math is PyTorch and is in wrapper_ms_with_gates); ssd ms is the "
+             "warm-up, inputs resident on the card; rglru device_ms: the scan kernel's "
+             "mean device time over 20 launches from torch.profiler (the gate math is "
+             "PyTorch and is in wrapper_ms_with_gates); ssd ms is the "
              "wrapper (one launch, d_skip fused); its bound_ms counts the least operations "
              "at the kernel's chunk (C B^T once per group) at the rate of the precision "
              "the kernel computes in (bf16 tensor cores for a bf16 prefill), "
@@ -1207,15 +1260,24 @@ def main() -> int:
         extras={
             "schedule_dp": {"chain_ms": fwd["chain_ms"], "shape": [max_rows, sdp.bucket(250)],
                             "dtype": "float64", "call": "forward only",
-                            "tails_ms": tails["ms"], "tails_plain_ms": tails["plain_ms"],
+                            "depth_levels": fwd["depth_levels"],
+                            "ms_per_level": fwd["ms_per_level"],
+                            "chain_probe_ms_per_level": timing["chain_probe_ms_per_level"],
+                            "device_ms": fwd["device_ms"],
+                            "device_ms_per_level": fwd["device_ms_per_level"],
+                            "tails_ms": tails["ms"], "tails_device_ms": tails["device_ms"],
+                            "tails_plain_ms": tails["plain_ms"],
                             "tails_bound_ms": tails["bound_ms"],
                             "tails_chain_ms": tails["chain_ms"]},
             "flash_attention": {"max_abs_err_f32": model_err["flash_f32"],
                                 "library": fl["library"], "shape": fl["shape"],
                                 "dtype": "bfloat16"},
             "rglru_scan": {"shape": rg["shape"], "dtype": "float32 scan (bfloat16 model)",
+                           "device_ms": rg["device_ms"],
                            "decode_step_ms": rg["decode_step_ms"],
-                           "decode_step_device_ms": rg["decode_step_device_ms"]},
+                           "decode_step_device_ms": rg["decode_step_device_ms"],
+                           "decode_step_bound_ms": rg["decode_step_bound_ms"],
+                           "decode_step_bound_by": rg["decode_step_bound_by"]},
             "ssd_chunked": {"shape": sd["shape"], "dtype": sd["dtype"],
                             "precision": sd["precision"],
                             "fp32_rate_bound_ms": sd["fp32_rate_bound_ms"],

@@ -824,8 +824,9 @@ def _torch_sweeps(engine: BatchEvaluator, packed: PackedSolutions, dur: np.ndarr
     result is bit-exact with the NumPy engine.  ``dur``/``mpred``/``msucc``
     go host → device, the outputs come back and are cut to ``[:k, :n]``.
     Padding tasks never fire (start = finish = 0) and never touch real
-    tasks.  The padded graph's index matrices are uploaded once per
-    ``(n_b, dtype, device)`` and live in the engine's LRU.  Peaks/lifetimes
+    tasks.  The padded graph's index matrices and their CSR form (what the
+    kernel reads) are uploaded once per ``(n_b, dtype, device)`` and live in
+    the engine's LRU.  Peaks/lifetimes
     stay on the shared NumPy sweep — they are sort-bound and off the hot
     path.
     """

@@ -3,20 +3,36 @@
 //
 // Replaces the TPU kernel `rglru_pallas` (src/repro/kernels/rglru.py:41, kernel
 // body `_kernel`).  There the time axis is the sequential grid axis and the
-// carry sits in VMEM scratch between time blocks.  Here each (batch, channel)
-// pair is one thread that keeps h in a register and loops over t; the gate
+// carry sits in VMEM scratch between time blocks; here every (batch, channel)
+// pair is one lane that keeps h in a register and walks t in order, so the
+// kernel computes what the TPU kernel and the plain version compute.  The gate
 // math (a = exp(-c softplus(a_param) a_gate), x = sqrt(1 - a^2) i x) stays
 // outside, in PyTorch, as it stays outside the TPU kernel.
 //
 // What bounds it on this card: bytes.  It reads a and x and writes y once,
 // 12 bytes per element for 2 operations, so at the prefill shape
 // (4 x 4096 x 2560 fp32, 503 MB) the least time is ~0.15 ms at 3.35 TB/s.
-// Loads and stores of neighbouring threads are neighbouring channels, so every
-// access is coalesced, and the loads of later steps do not depend on h, so
-// the unrolled loop keeps several in flight.  What holds it back today: only
-// B * D threads (10,240 at the prefill shape, 80 blocks of 128 on 132 SMs)
-// and a dependent chain of T steps each; a chunked parallel scan over t is a
-// later step.
+// The dependent chain (T steps of a multiply and an add, ~20 us at T = 4096)
+// is well under that, so the design is about keeping enough loads in flight
+// on enough SMs:
+//
+//   * a warp owns 32 consecutive channels of one batch row (one warp per
+//     block: B * ceil(D / 32) blocks, 320 at the prefill shape, on all 132
+//     SMs);
+//   * the loads are decoupled from the recurrence: the warp keeps a ring of
+//     STAGES tiles of (TILE_T steps x 32 channels) of a and x in shared
+//     memory, filled by cp.async, so while the lanes run the recurrence out
+//     of one tile the copies of the next STAGES - 1 are in flight (320 warps
+//     x 3 tiles x 8 KB = 7.9 MB at the prefill shape, where the card needs
+//     ~2.3 MB);
+//   * each step's y is stored straight from registers, 128 bytes a warp,
+//     coalesced.
+//
+// Rows that are 16-byte aligned (D % 4 == 0) are copied 16 bytes a lane; the
+// others element by element, in the same kernel.  A partial last tile and the
+// lanes past D are masked.  A single step (T = 1, every decode step) takes a
+// second kernel, one thread per (batch, channel) with direct loads: nothing
+// there to pipeline.
 //
 // The update is written as two separately rounded operations
 // (__fmul_rn, __fadd_rn): nvcc would otherwise contract a * h + x into one
@@ -25,26 +41,114 @@
 
 #include <cuda_runtime.h>
 #include <stddef.h>
+#include <stdint.h>
+
+#include "sm90_mma.cuh"  // the cp.async helpers
 
 namespace {
 
-constexpr int THREADS = 128;
+constexpr int LANES = 32;                     // channels per warp
+constexpr int TILE_T = 32;                    // time steps per tile
+constexpr int STAGES = 4;                     // tiles in the ring
+constexpr int TILE = TILE_T * LANES;          // floats of one array in one tile
+constexpr int STEP_THREADS = 128;
 
-__global__ void __launch_bounds__(THREADS)
-    rglru_scan_kernel(const float* __restrict__ a, const float* __restrict__ x,
-                      const float* __restrict__ h0, float* __restrict__ y, int t,
-                      int d) {
-  const int c = blockIdx.x * THREADS + threadIdx.x;
-  const int bb = blockIdx.y;
-  if (c >= d) return;
-  float h = h0 != nullptr ? h0[(long long)bb * d + c] : 0.f;
-  const long long base = (long long)bb * t * d + c;
+// wait until at most N of this thread's cp.async groups are still in flight
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// Copy steps [t0, t0 + TILE_T) of channels [c0, c0 + 32) of one array into a
+// (TILE_T x 32) tile; steps past t and channels past d are not copied.
+template <bool VEC>
+__device__ __forceinline__ void load_tile(float* tile, const float* __restrict__ src,
+                                          long long row0, int t0, int t, int c0, int d,
+                                          int lane) {
+  if (VEC) {
+    // 8 lanes cover one step's 128 bytes, a warp 4 steps per instruction
+    const int col = 4 * (lane & 7);
+#pragma unroll
+    for (int k = 0; k < TILE_T / 4; ++k) {
+      const int r = 4 * k + (lane >> 3);
+      if (t0 + r < t && c0 + col < d)
+        sm90::cp_async16(sm90::smem_addr(tile + r * LANES + col),
+                         src + (row0 + t0 + r) * d + c0 + col, true);
+    }
+  } else {
 #pragma unroll 8
-  for (int s = 0; s < t; ++s) {
-    const long long i = base + (long long)s * d;
-    h = __fadd_rn(__fmul_rn(a[i], h), x[i]);
-    y[i] = h;
+    for (int r = 0; r < TILE_T; ++r) {
+      if (t0 + r < t && c0 + lane < d)
+        sm90::cp_async4(sm90::smem_addr(tile + r * LANES + lane),
+                        src + (row0 + t0 + r) * d + c0 + lane, true);
+    }
   }
+}
+
+template <bool VEC>
+__global__ void __launch_bounds__(LANES)
+    rglru_scan_kernel(const float* __restrict__ a, const float* __restrict__ x,
+                      const float* __restrict__ h0, float* __restrict__ y, int t, int d) {
+  __shared__ __align__(16) float ring[STAGES][2][TILE];
+  const int lane = threadIdx.x;
+  const int c0 = blockIdx.x * LANES;
+  const int c = c0 + lane;
+  const bool live = c < d;
+  const long long row0 = (long long)blockIdx.y * t;
+  const int n_tiles = (t + TILE_T - 1) / TILE_T;
+
+  float h = (h0 != nullptr && live) ? h0[(long long)blockIdx.y * d + c] : 0.f;
+  float* yp = y + row0 * d + c;
+
+  // prologue: the first STAGES - 1 tiles in flight (empty groups past the end
+  // keep the group count, and so the wait below, the same for every tile)
+#pragma unroll
+  for (int s = 0; s < STAGES - 1; ++s) {
+    if (s < n_tiles) {
+      load_tile<VEC>(ring[s][0], a, row0, s * TILE_T, t, c0, d, lane);
+      load_tile<VEC>(ring[s][1], x, row0, s * TILE_T, t, c0, d, lane);
+    }
+    sm90::cp_async_commit();
+  }
+  for (int j = 0; j < n_tiles; ++j) {
+    // refill the slot the previous tile used (every lane is past it: the
+    // __syncwarp at the end of the last iteration)
+    const int nj = j + STAGES - 1;
+    if (nj < n_tiles) {
+      load_tile<VEC>(ring[nj % STAGES][0], a, row0, nj * TILE_T, t, c0, d, lane);
+      load_tile<VEC>(ring[nj % STAGES][1], x, row0, nj * TILE_T, t, c0, d, lane);
+    }
+    sm90::cp_async_commit();
+    cp_async_wait<STAGES - 1>();  // this lane's copies of tile j have landed
+    __syncwarp();                 // ... and every other lane's
+    const float* ta = ring[j % STAGES][0];
+    const float* tx = ring[j % STAGES][1];
+    const int t0 = j * TILE_T;
+    if (t0 + TILE_T <= t) {
+#pragma unroll
+      for (int r = 0; r < TILE_T; ++r) {
+        h = __fadd_rn(__fmul_rn(ta[r * LANES + lane], h), tx[r * LANES + lane]);
+        if (live) yp[(long long)(t0 + r) * d] = h;
+      }
+    } else {
+      for (int r = 0; r < t - t0; ++r) {
+        h = __fadd_rn(__fmul_rn(ta[r * LANES + lane], h), tx[r * LANES + lane]);
+        if (live) yp[(long long)(t0 + r) * d] = h;
+      }
+    }
+    __syncwarp();
+  }
+}
+
+// one step per (batch, channel): the decode path (T = 1)
+__global__ void __launch_bounds__(STEP_THREADS)
+    rglru_scan_step_kernel(const float* __restrict__ a, const float* __restrict__ x,
+                           const float* __restrict__ h0, float* __restrict__ y, int d) {
+  const int c = blockIdx.x * STEP_THREADS + threadIdx.x;
+  if (c >= d) return;
+  const long long i = (long long)blockIdx.y * d + c;
+  const float h = h0 != nullptr ? h0[i] : 0.f;
+  y[i] = __fadd_rn(__fmul_rn(a[i], h), x[i]);
 }
 
 }  // namespace
@@ -54,9 +158,19 @@ extern "C" {
 int rglru_scan_f32(const float* a, const float* x, const float* h0, float* y,
                    int b, int t, int d, void* stream) {
   if (b <= 0 || t <= 0 || d <= 0) return (int)cudaSuccess;
-  dim3 grid((d + THREADS - 1) / THREADS, b);
-  rglru_scan_kernel<<<grid, THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
-      a, x, h0, y, t, d);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (t == 1) {
+    dim3 grid((d + STEP_THREADS - 1) / STEP_THREADS, b);
+    rglru_scan_step_kernel<<<grid, STEP_THREADS, 0, s>>>(a, x, h0, y, d);
+    return (int)cudaGetLastError();
+  }
+  dim3 grid((d + LANES - 1) / LANES, b);
+  const bool vec = d % 4 == 0 && reinterpret_cast<uintptr_t>(a) % 16 == 0 &&
+                   reinterpret_cast<uintptr_t>(x) % 16 == 0;
+  if (vec)
+    rglru_scan_kernel<true><<<grid, LANES, 0, s>>>(a, x, h0, y, t, d);
+  else
+    rglru_scan_kernel<false><<<grid, LANES, 0, s>>>(a, x, h0, y, t, d);
   return (int)cudaGetLastError();
 }
 

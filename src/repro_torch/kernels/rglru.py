@@ -6,9 +6,11 @@ The gate math (``a = exp(-c softplus(a_param) a_gate)``,
 is the kernel's.
 
 * :func:`rglru_scan` — the wrapper.  For CUDA tensors it launches
-  ``csrc/rglru.cu`` (one thread per (batch, channel), h in a register, a loop
-  over t) and counts the launch in ``rglru_scan.launches``; for CPU tensors it
-  runs the plain scan.
+  ``csrc/rglru.cu`` (a warp per 32 channels of a batch row, h in a register,
+  t in order, the a / x~ tiles streamed through a ring of cp.async stages in
+  shared memory; a single step takes a one-thread-per-channel kernel) and
+  counts the launch in ``rglru_scan.launches``; for CPU tensors it runs the
+  plain scan.
 * :func:`rglru_scan_torch` — the plain PyTorch version: the same gates, then a
   Python loop over t.  Both round ``a * h`` and ``+ x~`` separately, so the
   kernel is bit-equal to it.

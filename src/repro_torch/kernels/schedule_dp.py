@@ -11,7 +11,8 @@ exactly when all those slots are done.
 
 * :func:`sweep` / :func:`backward_q` — the wrappers.  For CUDA tensors they
   launch the hand-written kernel ``csrc/schedule_dp.cu`` (one thread block
-  per candidate row, the row's state in shared memory, two barrier-separated
+  per candidate row, the row's state and the graph's link lists as CSR in
+  shared memory, a cursor per task over its links, two barrier-separated
   phases per level) and count the launch in ``sweep.launches``; a tensor the
   kernel does not take raises.  For CPU tensors they run the plain version.
 * :func:`sweep_torch`, :func:`level_loop_torch`, :func:`backward_q_torch` —
@@ -31,6 +32,7 @@ from __future__ import annotations
 
 import ctypes
 import dataclasses
+import functools
 
 import numpy as np
 import torch
@@ -39,6 +41,7 @@ __all__ = [
     "DenseGraph",
     "dense_graph",
     "dense_from_csr",
+    "csr_from_dense",
     "sweep",
     "backward_q",
     "sweep_torch",
@@ -52,13 +55,24 @@ __all__ = [
 
 MODE_FORWARD, MODE_FORWARD_TAILS, MODE_BACKWARD = 0, 1, 2
 
-# dynamic shared memory one thread block may ask for on sm_90
-_MAX_SMEM = 232448
+# the kernel's thread block holds at most 1,024 threads of 8 tasks each
+MAX_TASKS = 8192
 
 
 def bucket(n: int, quantum: int = 32) -> int:
     """Round ``n`` up to the next shape bucket."""
     return max(quantum, quantum * ((int(n) + quantum - 1) // quantum))
+
+
+def csr_from_dense(mat: np.ndarray):
+    """``(indptr, idx)`` of a -1-padded ``(rows, width)`` index matrix: each
+    row's real slots (``>= 0``, wherever they sit in the row) in slot order,
+    as int32 NumPy arrays."""
+    mat = np.asarray(mat)
+    real = mat >= 0
+    indptr = np.zeros(mat.shape[0] + 1, dtype=np.int32)
+    np.cumsum(real.sum(axis=1), out=indptr[1:])
+    return indptr, mat[real].astype(np.int32)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -68,6 +82,9 @@ class DenseGraph:
     ``pred_mat``/``succ_mat`` are ``(n_b, deg)`` int32 index matrices padded
     with -1 — NumPy arrays as built, ``torch`` tensors after :meth:`to`.
     ``n`` is the real task count, ``n_b`` the shape bucket it is padded to.
+    ``pred_csr``/``succ_csr`` are the same links in CSR form (what the CUDA
+    kernel reads), built once per graph on first use and carried to the
+    device by :meth:`to`.
     """
 
     n: int
@@ -75,13 +92,28 @@ class DenseGraph:
     pred_mat: "np.ndarray | torch.Tensor"   # (n_b, max_indeg)  int32, -1 padded
     succ_mat: "np.ndarray | torch.Tensor"   # (n_b, max_outdeg) int32, -1 padded
 
+    @functools.cached_property
+    def pred_csr(self):
+        """``(indptr (n_b + 1,), idx (nnz,))`` of ``pred_mat``."""
+        return csr_from_dense(self.pred_mat)
+
+    @functools.cached_property
+    def succ_csr(self):
+        """``(indptr (n_b + 1,), idx (nnz,))`` of ``succ_mat``."""
+        return csr_from_dense(self.succ_mat)
+
     def to(self, device: torch.device | str) -> "DenseGraph":
-        """The same graph with both index matrices as tensors on ``device``."""
-        return dataclasses.replace(
+        """The same graph with both index matrices and both CSR forms as
+        tensors on ``device`` (the CSR is built here once, not per launch)."""
+        moved = dataclasses.replace(
             self,
             pred_mat=torch.as_tensor(self.pred_mat, device=device).contiguous(),
             succ_mat=torch.as_tensor(self.succ_mat, device=device).contiguous(),
         )
+        for name in ("pred_csr", "succ_csr"):   # cached_property's own slot
+            moved.__dict__[name] = tuple(torch.as_tensor(a, device=device).contiguous()
+                                         for a in getattr(self, name))
+        return moved
 
 
 def dense_from_csr(n: int, n_b: int, indptr: np.ndarray, idx: np.ndarray,
@@ -208,14 +240,15 @@ _FN_BY_DTYPE = {torch.float64: "schedule_dp_sweep_f64",
                 torch.float32: "schedule_dp_sweep_f32"}
 
 
+@functools.cache
 def _c_fn(dtype: torch.dtype):
     """The C entry point for ``dtype`` (builds and loads the library at
-    first use)."""
+    first use; typed once, not per launch)."""
     from . import _build
 
     fn = getattr(_build.load("schedule_dp"), _FN_BY_DTYPE[dtype])
     p, i = ctypes.c_void_p, ctypes.c_int
-    fn.argtypes = [p, i, p, i, p, p, p, p, i, i, i, i, p, p, p, p, p, p]
+    fn.argtypes = [p, p, i, p, p, i, p, p, p, p, i, i, i, i, p, p, p, p, p, p]
     fn.restype = ctypes.c_int
     return fn
 
@@ -233,6 +266,20 @@ def _check(name: str, t, dtype, shape, device) -> None:
         raise ValueError(f"{name} must be contiguous")
 
 
+def _graph_csr(graph: DenseGraph, dev):
+    """The graph's two CSR forms, checked to be tensors on ``dev`` with one
+    offset per task + 1 (:meth:`DenseGraph.to` makes them int32 and
+    contiguous, the offsets and links of a form on one device)."""
+    out = []
+    for nm in ("pred_csr", "succ_csr"):
+        indptr, idx = getattr(graph, nm)
+        if not isinstance(indptr, torch.Tensor):
+            raise TypeError(f"graph.{nm} must be tensors on {dev} (DenseGraph.to(device))")
+        _check(f"graph.{nm} indptr", indptr, torch.int32, (graph.n_b + 1,), dev)
+        out += [indptr, idx]
+    return out
+
+
 def _launch_cuda(graph: DenseGraph, node, mpred, msucc, active, mode: int):
     """Check the operands, allocate the outputs, launch the kernel on the
     current stream (no synchronisation) and count the launch."""
@@ -244,17 +291,9 @@ def _launch_cuda(graph: DenseGraph, node, mpred, msucc, active, mode: int):
     b, n_b = node.shape
     if n_b != graph.n_b:
         raise ValueError(f"dur has width {n_b}, the graph is padded to {graph.n_b}")
-    smem = n_b * (3 * node.element_size() + 4 + 2)
-    if smem > _MAX_SMEM:
-        raise ValueError(
-            f"n_b={n_b} needs {smem} bytes of shared memory per row, "
-            f"the kernel holds a row in at most {_MAX_SMEM}")
-    pred_mat, succ_mat = graph.pred_mat, graph.succ_mat
-    for nm, mat in (("graph.pred_mat", pred_mat), ("graph.succ_mat", succ_mat)):
-        if not isinstance(mat, torch.Tensor) or mat.dim() != 2:
-            raise TypeError(f"{nm} must be a 2-D torch.Tensor on {dev} "
-                            "(DenseGraph.to(device))")
-        _check(nm, mat, torch.int32, (n_b, mat.shape[1]), dev)
+    if n_b > MAX_TASKS:
+        raise ValueError(f"n_b={n_b}: the kernel holds at most {MAX_TASKS} tasks per row")
+    pred_ptr, pred_idx, succ_ptr, succ_idx = _graph_csr(graph, dev)
     _check("dur", node, node.dtype, (b, n_b), dev)
     if mode != MODE_BACKWARD:
         _check("mpred", mpred, torch.int32, (b, n_b), dev)
@@ -282,7 +321,8 @@ def _launch_cuda(graph: DenseGraph, node, mpred, msucc, active, mode: int):
     # call stay valid for the kernel: PyTorch's allocator hands freed blocks
     # only to later work on the same stream.
     with torch.cuda.device(dev):
-        err = fn(ptr(pred_mat), pred_mat.shape[1], ptr(succ_mat), succ_mat.shape[1],
+        err = fn(ptr(pred_ptr), ptr(pred_idx), pred_idx.numel(),
+                 ptr(succ_ptr), ptr(succ_idx), succ_idx.numel(),
                  ptr(node), ptr(mpred), ptr(msucc), ptr(active),
                  b, n_b, int(graph.n), mode,
                  ptr(start), ptr(finish), ptr(level), ptr(n_done), ptr(q),
@@ -295,34 +335,22 @@ def _launch_cuda(graph: DenseGraph, node, mpred, msucc, active, mode: int):
     return start, finish, level, n_done, q
 
 
-def _pick_impl(impl: str | None, t: torch.Tensor) -> str:
-    if impl is None:
-        impl = "cuda" if t.is_cuda else "torch"
-    if impl not in ("cuda", "torch"):
-        raise ValueError(f"unknown schedule-DP impl {impl!r}; use 'cuda' or 'torch'")
-    if impl == "cuda" and not t.is_cuda:
-        raise ValueError("impl='cuda' needs CUDA tensors")
-    return impl
-
-
 def _as_i32(t):
     return t if t is None or t.dtype == torch.int32 else t.to(torch.int32)
 
 
-def sweep(graph: DenseGraph, dur, mpred, msucc, *, tails: bool = True,
-          impl: str | None = None):
+def sweep(graph: DenseGraph, dur, mpred, msucc, *, tails: bool = True):
     """Run the sweep on ``(B, n_b)`` tensors; ``graph`` carries the padded
     index matrices (:meth:`DenseGraph.to` puts them on the device once).
 
-    ``impl=None`` launches the CUDA kernel for CUDA tensors and runs the
-    plain version for CPU tensors; ``"torch"`` forces the plain version,
-    ``"cuda"`` the kernel.  int64 links are narrowed to int32.  Returns
-    ``(start, finish, level, n_done, q)``; ``q`` is zeros when ``tails`` is
-    false.  The kernel launch is asynchronous on the current stream.
+    CUDA tensors launch the kernel (or raise where it cannot take them); CPU
+    tensors run the plain version.  int64 links are narrowed to int32.
+    Returns ``(start, finish, level, n_done, q)``; ``q`` is zeros when
+    ``tails`` is false.  The kernel launch is asynchronous on the current
+    stream.
     """
-    impl = _pick_impl(impl, dur)
     mpred, msucc = _as_i32(mpred), _as_i32(msucc)
-    if impl == "cuda":
+    if dur.is_cuda:
         return _launch_cuda(graph, dur, mpred, msucc, None,
                             MODE_FORWARD_TAILS if tails else MODE_FORWARD)
     dev = dur.device
@@ -334,15 +362,13 @@ def sweep(graph: DenseGraph, dur, mpred, msucc, *, tails: bool = True,
 sweep.launches = 0  # kernel launches made through this module's wrappers
 
 
-def backward_q(graph: DenseGraph, dur, msucc, active_rows=None,
-               *, impl: str | None = None):
+def backward_q(graph: DenseGraph, dur, msucc, active_rows=None):
     """Tails Q alone for already-scheduled rows: ``dur`` is the node weight,
     ``active_rows`` an optional ``(B,)`` bool mask (inactive rows give zeros).
     Same dispatch as :func:`sweep`; a kernel launch counts in
     ``sweep.launches``."""
-    impl = _pick_impl(impl, dur)
     msucc = _as_i32(msucc)
-    if impl == "cuda":
+    if dur.is_cuda:
         act = None if active_rows is None else \
             active_rows.reshape(-1).to(torch.uint8).contiguous()
         return _launch_cuda(graph, dur, None, msucc, act, MODE_BACKWARD)[4]

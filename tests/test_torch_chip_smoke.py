@@ -67,10 +67,13 @@ def test_bound_counts_each_operand_once(smoke, operands, tails):
     b, n_b = dur.shape
     bound = smoke.sweep_bound(graph, dur, mpred, msucc, finish, n_done, tails)
     # forward only: dur 8 + mpred 4 in, start 8 + finish 8 + level 4 out per
-    # task, n_done per row, the shared predecessor matrix once; no q
-    want = 32 * b * n_b + 4 * b + 4 * graph.pred_mat.numel()
-    if tails:                                  # msucc in, q out, successor matrix
-        want += (4 + 8) * b * n_b + 4 * graph.succ_mat.numel()
+    # task, n_done per row, the shared predecessor CSR (n_b + 1 offsets and
+    # the real links, what the kernel reads) once; no q
+    n_links = int((graph.pred_mat >= 0).sum())
+    assert n_links == int((graph.succ_mat >= 0).sum())
+    want = 32 * b * n_b + 4 * b + 4 * (n_b + 1 + n_links)
+    if tails:                                  # msucc in, q out, successor CSR
+        want += (4 + 8) * b * n_b + 4 * (n_b + 1 + n_links)
     assert bound["bytes"] == want
     assert bound["bound_ms"] == max(bound["bytes_ms"], bound["ops_ms"])
     assert bound["bytes_ms"] == want / smoke.HBM_BYTES_PER_S * 1e3
@@ -161,6 +164,15 @@ def test_rglru_bound_at_the_serving_shape(smoke):
         503_316_480 + 4 * 4 * 2560
 
 
+def test_rglru_bound_of_a_decode_step(smoke):
+    """One step at batch 4, width 2560: a, x~, h0 read and y written, 16 bytes
+    a channel (0.16 MB, ~0.05 us at 3.35 TB/s)."""
+    a = torch.empty((4, 1, 2560), device="meta")
+    bound = smoke.rglru_bound(a, torch.empty((4, 2560), device="meta"))
+    assert bound["bytes"] == 4 * 2560 * 16 == 163_840 and bound["bound_by"] == "bytes"
+    assert bound["bound_ms"] == 163_840 / 3.35e12 * 1e3
+
+
 def test_plain_kernels_swap_the_ops_and_restore_them(smoke):
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import ops
@@ -224,6 +236,8 @@ def test_operands_have_the_asked_shapes_and_types(smoke):
     ("void (anonymous namespace)::flash_fwd_kernel<256>(Params)", "K2"),
     ("void (anonymous namespace)::tc::flash_fwd_mma_kernel<256>(Params, int)", "K2"),
     ("(anonymous namespace)::rglru_scan_kernel(float const*, float const*)", "K3"),
+    ("void (anonymous namespace)::rglru_scan_kernel<true>(float const*, float const*)", "K3"),
+    ("(anonymous namespace)::rglru_scan_step_kernel(float const*, float const*)", "K3"),
     ("void (anonymous namespace)::ssd_chunk_kernel<__nv_bfloat16>(Params)", "K4"),
     ("(anonymous namespace)::tc::ssd_chunk_mma_kernel(Params, int)", "K4"),
     ("sm90_xmma_gemm_bf16bf16_bf16f32_f32_tn_n_tilesize128x128x64", "matmul"),
@@ -357,6 +371,31 @@ def test_ptxas_report_reads_each_kernel_function(smoke):
     assert (report[1]["registers"], report[1]["stack"], report[1]["spill_stores"],
             report[1]["spill_loads"], report[1]["static_smem"]) == (128, 40, 36, 60, 16)
     assert report[2]["registers"] == 109 and report[2]["spill_loads"] == 0
+
+
+def test_ptxas_gate_refuses_spills_and_stacks_where_it_must(smoke):
+    """A tensor-core kernel must not spill; a K1 or K3 kernel must use neither
+    spills nor a stack frame; others (here the f32 SSD kernel) may."""
+    def fn(kernel, stack=0, spills=0):
+        return {"kernel": kernel, "registers": 32, "stack": stack, "spill_stores": spills,
+                "spill_loads": spills, "static_smem": 0}
+
+    clean = {"ssd": [fn("ssd_chunk_kernelIfE", 40, 36), fn("tc20ssd_chunk_mma_kernel")],
+             "schedule_dp": [fn("sweep_kernelIdLb1E")], "rglru": [fn("rglru_scan_kernelILb1E")]}
+    assert smoke.ptxas_faults(clean) == []
+    assert smoke.ptxas_faults(smoke_report(smoke)) == []
+    for lib, bad in (("schedule_dp", fn("sweep_kernelIdLb0E", stack=24)),
+                     ("rglru", fn("rglru_scan_step_kernel", spills=8)),
+                     ("ssd", fn("tc20ssd_chunk_mma_kernel", spills=4))):
+        faults = smoke.ptxas_faults({**clean, lib: clean[lib] + [bad]})
+        assert len(faults) == 1 and bad["kernel"] in faults[0]
+    assert set(smoke.NO_STACK_LIBRARIES) == {"schedule_dp", "rglru"}
+
+
+def smoke_report(smoke):
+    """PTXAS_LOG read as the flash_attention and ssd libraries' report."""
+    return {"flash_attention": smoke.ptxas_report(PTXAS_LOG)[::2],
+            "ssd": smoke.ptxas_report(PTXAS_LOG)[1:2]}
 
 
 def test_kernels_line_lists_every_kernel_with_its_keys(smoke):

@@ -109,6 +109,160 @@ def test_cuda_wrapper_raises_on_what_the_kernel_does_not_take(cuda_device):
     with pytest.raises(ValueError, match="padded to"):
         sdp.sweep(g, dur[:, :16].contiguous(), mpred[:, :16].contiguous(),
                   msucc[:, :16].contiguous())
+    before = sdp.sweep.launches                     # no plain route on the card:
+    sdp.sweep(g, dur, mpred, msucc, tails=False)    # CUDA tensors launch the kernel
+    sdp.backward_q(g, dur, msucc)
+    torch.cuda.synchronize()
+    assert sdp.sweep.launches == before + 2
+    n_b = sdp.MAX_TASKS + 32
+    wide = sdp.DenseGraph(n=n_b, n_b=n_b, pred_mat=np.full((n_b, 1), -1, np.int32),
+                          succ_mat=np.full((n_b, 1), -1, np.int32)).to(cuda_device)
+    links = torch.full((1, n_b), -1, dtype=torch.int32, device=cuda_device)
+    with pytest.raises(ValueError, match="at most 8192 tasks"):
+        sdp.sweep(wide, torch.ones((1, n_b), dtype=torch.float64, device=cuda_device),
+                  links, links)
+
+
+def scattered_graph(n, max_deg, seed, nnz=None):
+    """A random DAG over ``n`` tasks (task i's predecessors drawn from the
+    tasks before it) whose -1 padding is scattered through each row of
+    ``pred_mat`` / ``succ_mat`` instead of trailing the real slots.  With
+    ``nnz``, the DAG has exactly ``nnz`` links (``max_deg`` is then unused)."""
+    rng = np.random.default_rng(seed)
+    n_b = sdp.bucket(n)
+    if nnz is None:
+        preds = [rng.choice(i, size=min(i, int(rng.integers(0, max_deg + 1))), replace=False)
+                 for i in range(n)]
+    else:   # nnz distinct pairs (j, i), j < i, of the strict lower triangle
+        flat = rng.choice(n * (n - 1) // 2, size=nnz, replace=False)
+        i_of = np.floor((1 + np.sqrt(1 + 8 * flat)) / 2).astype(np.int64)
+        i_of -= (i_of * (i_of - 1) // 2 > flat)         # guard the float sqrt
+        i_of += ((i_of + 1) * i_of // 2 <= flat)
+        j_of = flat - i_of * (i_of - 1) // 2
+        preds = [j_of[i_of == i] for i in range(n)]
+    succs = [[] for _ in range(n)]
+    for i, ps in enumerate(preds):
+        for j in ps:
+            succs[j].append(i)
+
+    def scatter(lists):
+        width = max(len(x) for x in lists) + 3
+        mat = np.full((n_b, width), -1, dtype=np.int32)
+        for i, links in enumerate(lists):
+            mat[i, np.sort(rng.choice(width, size=len(links), replace=False))] = links
+        return mat
+
+    return sdp.DenseGraph(n=n, n_b=n_b, pred_mat=scatter(preds), succ_mat=scatter(succs))
+
+
+def machine_links(n, n_b, rows, seed):
+    """Per row, the tasks dealt onto 10 cores in one order: index order (a
+    topological order of ``scattered_graph``: feasible) on even rows, a random
+    order (mostly cyclic) on odd rows.  Returns (mpred, msucc) (rows, n_b)."""
+    rng = np.random.default_rng(seed)
+    mpred = np.full((rows, n_b), -1, dtype=np.int32)
+    msucc = np.full((rows, n_b), -1, dtype=np.int32)
+    for r in range(rows):
+        order = np.arange(n) if r % 2 == 0 else rng.permutation(n)
+        core = rng.integers(0, 10, size=n)
+        for c in range(10):
+            chain = order[core[order] == c]
+            mpred[r, chain[1:]] = chain[:-1]
+            msucc[r, chain[:-1]] = chain[1:]
+    return mpred, msucc
+
+
+def _csr_in_smem(n_b, nnz, dtype) -> bool:
+    import ctypes
+
+    from repro_torch.kernels import _build
+
+    fn = _build.load("schedule_dp").schedule_dp_csr_in_smem
+    fn.argtypes = [ctypes.c_int] * 3
+    fn.restype = ctypes.c_int
+    return bool(fn(n_b, nnz, 8 if dtype == np.float64 else 4))
+
+
+# (tasks, max in-degree): scattered -1 slots with the CSR in shared memory and
+# 1, 2 or 5 tasks a thread; then a graph whose CSR (~70,000 links) does not
+# fit beside the row's state, so the kernel reads it from device memory
+SCATTERED = [(250, 28, True), (1500, 12, True), (5000, 6, True), (2000, 70, False)]
+
+
+@pytest.mark.parametrize("dtype", [np.float64, np.float32])
+@pytest.mark.parametrize("n,max_deg,fits", SCATTERED)
+def test_cuda_kernel_takes_scattered_padding_and_csr_in_device_memory(
+        cuda_device, n, max_deg, fits, dtype):
+    g = scattered_graph(n, max_deg, seed=n)
+    rows = 6
+    trailing = all((row[: (row >= 0).sum()] >= 0).all() for row in g.pred_mat)
+    assert not trailing                                  # padding inside the rows
+    nnz = max(g.pred_csr[1].size, g.succ_csr[1].size)
+    assert _csr_in_smem(g.n_b, nnz, dtype) == fits
+    rng = np.random.default_rng(n)
+    dur = np.zeros((rows, g.n_b), dtype=dtype)
+    dur[:, :n] = rng.uniform(0.5, 5.0, size=(rows, n))
+    mpred, msucc = machine_links(n, g.n_b, rows, seed=n + 1)
+    dg = g.to(cuda_device)
+    dur_t, mpred_t, msucc_t = (torch.from_numpy(a).to(cuda_device) for a in (dur, mpred, msucc))
+    for tails in (False, True):
+        before = sdp.sweep.launches
+        got = sdp.sweep(dg, dur_t, mpred_t, msucc_t, tails=tails)
+        torch.cuda.synchronize()
+        assert sdp.sweep.launches == before + 1
+        want = sdp.sweep_torch(dg.pred_mat, dg.succ_mat, dur_t, mpred_t, msucc_t, n,
+                               tails=tails)
+        for a, b in zip(got, want):
+            assert torch.equal(a, b)                     # tolerance 0
+    start, finish, _, n_done, q = want
+    feasible = n_done == n
+    assert 0 < int(feasible.sum()) < rows               # mixed rows
+    active = feasible.clone()
+    active[0] = False
+    got_q = sdp.backward_q(dg, finish - start, msucc_t, active)
+    torch.cuda.synchronize()
+    want_q = sdp.backward_q_torch(dg.succ_mat, finish - start, msucc_t, n, active[:, None])
+    assert torch.equal(got_q, want_q) and torch.equal(got_q[active], q[active])
+
+
+def _boundary_links(n_b, dtype) -> int:
+    """Links at which a row's shared memory (a 16-byte counter, 2 values and
+    2 ints a task, n_b + 1 offsets and the links) is exactly the 232,448
+    bytes one block may use on an H100."""
+    es = 8 if dtype == np.float64 else 4
+    return (232448 - 16 - n_b * (2 * es + 8) - (n_b + 1) * 4) // 4
+
+
+@pytest.mark.parametrize("dtype", [np.float64, np.float32])
+@pytest.mark.parametrize("extra,fits", [(0, True), (1, False)])
+def test_cuda_kernel_at_the_shared_memory_boundary(cuda_device, dtype, extra, fits):
+    """A CSR that fills the block's shared memory to the last byte stays in
+    shared memory; one link more sends it to device memory.  Both launch and
+    are bit-equal to the plain version in all three modes."""
+    n = 2048
+    nnz = _boundary_links(sdp.bucket(n), dtype) + extra
+    g = scattered_graph(n, 0, seed=7, nnz=nnz)
+    assert g.pred_csr[1].size == g.succ_csr[1].size == nnz
+    assert _csr_in_smem(g.n_b, nnz, dtype) == fits
+    rows = 4
+    rng = np.random.default_rng(nnz)
+    dur = np.zeros((rows, g.n_b), dtype=dtype)
+    dur[:, :n] = rng.uniform(0.5, 5.0, size=(rows, n))
+    mpred, msucc = machine_links(n, g.n_b, rows, seed=nnz + 1)
+    dg = g.to(cuda_device)
+    dur_t, mpred_t, msucc_t = (torch.from_numpy(a).to(cuda_device) for a in (dur, mpred, msucc))
+    for tails in (False, True):
+        got = sdp.sweep(dg, dur_t, mpred_t, msucc_t, tails=tails)
+        want = sdp.sweep_torch(dg.pred_mat, dg.succ_mat, dur_t, mpred_t, msucc_t, n,
+                               tails=tails)
+        torch.cuda.synchronize()
+        assert all(torch.equal(a, b) for a, b in zip(got, want))    # tolerance 0
+    start, finish, _, n_done, q = want
+    active = n_done == n
+    got_q = sdp.backward_q(dg, finish - start, msucc_t, active)
+    want_q = sdp.backward_q_torch(dg.succ_mat, finish - start, msucc_t, n, active[:, None])
+    torch.cuda.synchronize()
+    assert torch.equal(got_q, want_q)
 
 
 def test_evaluator_on_the_card_equals_numpy_engine(cuda_device):
@@ -277,8 +431,14 @@ def test_flash_wrapper_raises_on_what_the_kernel_does_not_take(cuda_device):
         fa.flash_attention(q, k.cpu(), v)
 
 
+# the reference's shapes, then the kernel's edges: T = 4097 (a partial last
+# tile), d = 2562, 66 and 31 (rows not 16-byte aligned, lanes past d), T = 1
+# and a T shorter than one tile
 @pytest.mark.parametrize("b,t,d,with_h0", [(2, 512, 64, True), (3, 128, 32, False),
-                                            (2, 1, 96, True), (3, 1000, 200, True)])
+                                            (2, 1, 96, True), (3, 1000, 200, True),
+                                            (1, 4097, 2562, True), (2, 4097, 64, False),
+                                            (3, 300, 31, True), (2, 20, 66, False),
+                                            (2, 1, 31, False), (2, 1, 2562, True)])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_rglru_kernel_is_bit_equal_to_plain_version(cuda_device, b, t, d, with_h0, dtype):
     from repro_torch.kernels import rglru as rg
@@ -294,6 +454,15 @@ def test_rglru_kernel_is_bit_equal_to_plain_version(cuda_device, b, t, d, with_h
     assert rg.rglru_scan.launches == before + 1
     want_y, want_h = rg.rglru_scan_torch(x, a_param, ig, ag, h0)
     assert torch.equal(y, want_y) and torch.equal(h, want_h)     # tolerance 0
+
+
+def test_rglru_library_holds_the_pipelined_and_the_step_kernels(cuda_device):
+    """One entry point, three kernels: the pipelined scan with 16-byte and
+    with element copies, and the single step."""
+    kernels = _entry_kernels("rglru")
+    assert sum("rglru_scan_kernelILb1E" in k for k in kernels) == 1
+    assert sum("rglru_scan_kernelILb0E" in k for k in kernels) == 1
+    assert sum("rglru_scan_step_kernel" in k for k in kernels) == 1 and len(kernels) == 3
 
 
 def test_smoke_model_served_on_the_card_matches_the_cpu(cuda_device):

@@ -105,8 +105,12 @@ def test_flash_rejects_what_it_does_not_take():
         ops.flash_attention(q, q, q, bias=torch.zeros((1, 1, 4, 4)))
 
 
+# the reference's shapes, then widths the CUDA kernel copies element by
+# element (d % 4 != 0, lanes past d) and a T that is not a multiple of
+# block_t (the TPU kernel hands that one to its oracle)
 @pytest.mark.parametrize("b,t,d,bt,with_h0", [(2, 512, 64, 256, True), (1, 256, 128, 128, True),
-                                               (3, 128, 32, 64, False)])
+                                               (3, 128, 32, 64, False), (2, 600, 31, 200, True),
+                                               (3, 600, 66, 256, False), (1, 330, 66, 110, True)])
 def test_rglru_plain_version_matches_pallas_kernel(b, t, d, bt, with_h0):
     x = _normal(12, (b, t, d))
     ap = _normal(13, (d,))

@@ -187,15 +187,77 @@ def test_dense_graph_matches_csr_and_reference():
     assert np.array_equal(dev.succ_mat.numpy(), g.succ_mat)
 
 
+def _csr_rows(indptr, idx):
+    return [list(idx[indptr[r]:indptr[r + 1]]) for r in range(len(indptr) - 1)]
+
+
+@pytest.mark.parametrize("n_tasks", EDGES + [250])
+def test_csr_holds_the_dense_slots_in_slot_order(n_tasks):
+    """The CSR the kernel reads: every real slot of pred_mat / succ_mat, in
+    the row's slot order, no -1 slot, int32, one offset per task + 1."""
+    inst, _ = candidate_batch(n_tasks % 7, n_tasks, n_data=600 if n_tasks == 250 else 90)
+    g = sdp.dense_graph(port_instance(inst))
+    for mat, (indptr, idx) in ((g.pred_mat, g.pred_csr), (g.succ_mat, g.succ_csr)):
+        assert indptr.dtype == np.int32 and idx.dtype == np.int32
+        assert indptr.shape == (g.n_b + 1,) and indptr[0] == 0 and indptr[-1] == len(idx)
+        assert not (idx < 0).any()
+        assert _csr_rows(indptr, idx) == [[x for x in row if x >= 0] for row in mat]
+    assert len(g.pred_csr[1]) == len(g.succ_csr[1]) == len(inst.pred_idx)
+    # padding scattered inside the rows (columns reversed, one -1 column put
+    # first): the same links, in the new slot order
+    mat = np.concatenate([np.full((g.n_b, 1), -1, np.int32), g.pred_mat[:, ::-1]], axis=1)
+    indptr, idx = sdp.csr_from_dense(mat)
+    assert _csr_rows(indptr, idx) == [[x for x in row if x >= 0][::-1] for row in g.pred_mat]
+
+
+def test_csr_is_built_once_per_graph_not_per_launch(monkeypatch):
+    """The host graph builds its CSR once; ``to`` carries it to the device;
+    the evaluator's cached device graph hands the same tensors to every
+    sweep."""
+    from repro_torch.core.eval_batch import BatchEvaluator
+    from repro_torch.core.eval_batch import pack_solutions as port_pack
+
+    from torch_port_helpers import port_solution
+
+    calls = []
+    orig = sdp.csr_from_dense
+    monkeypatch.setattr(sdp, "csr_from_dense", lambda mat: calls.append(1) or orig(mat))
+    inst, cands = candidate_batch(4, 64)
+    pinst = port_instance(inst)
+    eng = BatchEvaluator(pinst, backend="torch", device="cpu")
+    packed = port_pack(pinst, [port_solution(c) for c in cands])
+    eng.evaluate(packed, tails=True)
+    assert len(calls) == 2                              # pred and succ, once each
+    (dev_graph,) = list(eng._dev_graphs._d.values())
+    first = dev_graph.pred_csr
+    eng.evaluate(packed, tails=True)
+    eng.evaluate(packed, tails=False)
+    assert len(calls) == 2 and dev_graph.pred_csr is first
+    assert isinstance(first[0], torch.Tensor) and first[0].dtype == torch.int32
+    host = eng._graph
+    assert np.array_equal(first[1].numpy(), host.pred_csr[1])
+    again = host.to("cpu")
+    assert len(calls) == 2 and torch.equal(again.succ_csr[1], dev_graph.succ_csr[1])
+
+
 def test_wrapper_dispatch_rules():
     inst, cands = candidate_batch(0, 31)
     packed, dur, ev = reference(inst, cands)
     g, ops = operands(inst, packed, dur)
-    t = [torch.from_numpy(a) for a in ops]
+    dur_t, mpred_t, msucc_t = (torch.from_numpy(a) for a in ops)
+    pred_t, succ_t = torch.from_numpy(g.pred_mat), torch.from_numpy(g.succ_mat)
     before = sdp.sweep.launches
-    sdp.sweep(g, *t, tails=False)                       # CPU tensors: plain version
-    assert sdp.sweep.launches == before                 # ... and no launch counted
-    with pytest.raises(ValueError, match="CUDA tensors"):
-        sdp.sweep(g, *t, impl="cuda")
-    with pytest.raises(ValueError, match="unknown schedule-DP impl"):
-        sdp.sweep(g, *t, impl="xla")
+    # CPU tensors route to the plain version, whatever the call, and count no launch
+    for tails in (False, True):
+        got = sdp.sweep(g, dur_t, mpred_t, msucc_t, tails=tails)
+        want = sdp.sweep_torch(pred_t, succ_t, dur_t, mpred_t, msucc_t, g.n, tails=tails)
+        assert all(torch.equal(a, b) for a, b in zip(got, want))
+    start, finish, _, n_done, _ = got
+    active = n_done == g.n
+    got_q = sdp.backward_q(g, finish - start, msucc_t, active)
+    want_q = sdp.backward_q_torch(succ_t, finish - start, msucc_t, g.n, active[:, None])
+    assert torch.equal(got_q, want_q)
+    assert sdp.sweep.launches == before
+    with pytest.raises(TypeError, match="impl"):        # the route is the device's alone
+        sdp.sweep(g, dur_t, mpred_t, msucc_t, impl="torch")
+    assert sdp.MAX_TASKS == 8192                        # 1,024 threads x 8 tasks
