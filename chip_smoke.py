@@ -8,7 +8,9 @@ every kernel against its plain PyTorch version on the card:
 
 * the scheduler: ``repro_torch.solve(inst, "tabu_multiwalk")`` at the paper's
   instance size (250 tasks, 600 data blocks, 10 cores; 8 walks, top-K 10)
-  through the schedule-DP kernel (K1);
+  through the schedule-DP kernel (K1), and ``solve(inst, "tabu_device")``,
+  the device-resident search, whose round is captured as a CUDA graph that
+  launches K1 and the sequential prefix-sum kernel (``seq_cumsum``);
 * model serving: recurrentgemma-2b at its published width (26 layers, d 2560,
   vocab 256000), random bf16 parameters from seed 0, batch 4, 4096-token
   prompts (twice the attention window), 32 greedy tokens, through the flash
@@ -33,6 +35,15 @@ Phases, one JSON line each:
                  ones, T = 1 and the serving shapes
   main_path      the solve on the card, against the port's NumPy backend,
                  certified, with the host time of each phase of the search round
+  device_path    ``tabu_device`` at the same configuration: without Algorithm 3
+                 (cold, then three warm runs paired in alternating order with
+                 NumPy runs) bit-identical to the NumPy ``tabu_multiwalk``
+                 with no perturbation; with it, certified with capacity; the
+                 replays run with every synchronising call an error, the time
+                 of one replayed round, and the K1 / seq_cumsum launches that
+                 the profiler sees in replays held to the captured round's
+                 nodes; then seq_cumsum against its plain version (bit for
+                 bit), timed beside its bound and its chain of dependent adds
   model_serve    per arch (recurrentgemma-2b, then mamba2-780m): the
                  full-width serve (launch counts of every model kernel
                  asserted), the card's kernel time by class over a profiled
@@ -243,12 +254,51 @@ def phase_kernels(device):
             if not torch.equal(got_q[active], q_full[active]):
                 raise AssertionError("backward-only q disagrees with the full sweep's q")
             n_checks += 1
+            if np_dtype is np.float64:      # as the device round calls it
+                worst = max(worst, check_sweep_launch(graph, dur, mpred, msucc, active))
+                n_checks += 2
     if n_cyclic == 0:
         raise AssertionError("no cyclic row in any batch: the comparison is too easy")
     say("kernels", kernels=["schedule_dp"], sizes=list(EDGE_SIZES), checks=n_checks,
         rows=n_rows, cyclic_rows=n_cyclic, max_abs_err=worst,
         tolerance="0 (torch.equal), float64 and float32")
     return worst
+
+
+def check_sweep_launch(graph, dur, mpred, msucc, active) -> float:
+    """K1 as the device-resident round calls it (``SweepLaunch``: outputs
+    allocated once, the task count read on the device, the CSR in buffers
+    longer than its links; the graph's own ``n`` set to 0, so a kernel that
+    ignored the device count would disagree), forward and backward-only,
+    against the plain version, bit for bit."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.kernels import schedule_dp as sdp
+
+    dev, b = dur.device, dur.shape[0]
+
+    def longer(csr):
+        return csr[0], torch.cat([csr[1], torch.zeros(128, dtype=torch.int32, device=dev)])
+
+    g = dataclasses.replace(graph, n=0).with_csr(longer(graph.pred_csr),
+                                                 longer(graph.succ_csr))
+    n_valid = torch.full((1,), graph.n, dtype=torch.int32, device=dev)
+    start, finish, n_done = sdp.SweepLaunch(g, b, sdp.MODE_FORWARD, n_valid)(dur, mpred)
+    q = sdp.SweepLaunch(g, b, sdp.MODE_BACKWARD, n_valid)(finish - start, msucc, active)
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+    w_start, w_finish, _, w_done, _ = sdp.sweep_torch(
+        graph.pred_mat, graph.succ_mat, dur, mpred, msucc, graph.n, tails=False)
+    w_q = sdp.backward_q_torch(graph.succ_mat, w_finish - w_start, msucc, graph.n,
+                               active[:, None])
+    got, want = (start, finish, n_done, q), (w_start, w_finish, w_done, w_q)
+    for name, x, y in zip(("start", "finish", "n_done", "q"), got, want):
+        if not torch.equal(x, y):
+            raise AssertionError(f"schedule_dp through SweepLaunch: {name} differs from the "
+                                 f"plain version (n={graph.n})")
+    return max_abs_err(got, want)
 
 
 class HostTimers:
@@ -260,11 +310,11 @@ class HostTimers:
     the device included: it returns NumPy arrays); its batches, their largest
     row count and the deepest level seen are recorded too."""
 
-    def __init__(self):
+    def __init__(self, targets=None):
         from repro_torch.core import tabu
         from repro_torch.core.eval_batch import BatchEvaluator, PackedSolutions
 
-        self.targets = {
+        self.targets = targets or {
             "evaluate": (BatchEvaluator, "evaluate"),
             "backward_tails": (BatchEvaluator, "backward_tails"),
             "apply_moves": (PackedSolutions, "apply_moves"),
@@ -360,7 +410,279 @@ def phase_main_path():
         wall_s_numpy_backend=wall_ref,
         evaluate_s_numpy_backend=host_ref["evaluate"]["s"],
         host_phases_numpy_backend=host_ref, backend=rep.extras["backend"])
-    return launches, max_rows
+    return launches, max_rows, wall
+
+
+def device_targets() -> dict:
+    """What ``HostTimers`` wraps around a ``tabu_device`` solve: the walks'
+    greedy starts (Algorithm 1), Algorithm 3 and the scalar schedules (the
+    inits, the syncs, the final repair), one sync period of replays (the
+    capture included, when it happens; the replays are queued, the wait for
+    them falls in the next host read, under "other"), and the capture on its
+    own."""
+    from repro_torch.core import api
+    from repro_torch.core import device_search as ds
+
+    return {"greedy_inits": (api, "multiwalk_inits"),
+            "memory_update": (ds, "memory_update"),
+            "exact_schedule": (ds, "exact_schedule"),
+            "sync_period": (ds._Launch, "run"),
+            "capture": (ds._Launch, "_capture")}
+
+
+def walk_iters_per_s(walks: int, iterations: int, seconds: float) -> float:
+    """Walk-iterations per second (``benchmarks/search_bench.py``'s
+    definition): W × iterations / warm seconds of the engine, its walks'
+    greedy starts built before the clock starts."""
+    return walks * iterations / seconds
+
+
+def same_trajectory(res, ref) -> bool:
+    """Two ``MultiWalkResult``s took the same trajectory: incumbent, history,
+    counts, stop reason and every walk's history."""
+    return ((res.best_makespan, res.history, res.n_exact_evals, res.n_approx_evals,
+             res.iterations, res.stop_reason)
+            == (ref.best_makespan, ref.history, ref.n_exact_evals, ref.n_approx_evals,
+                ref.iterations, ref.stop_reason)
+            and [w.history for w in res.per_walk] == [w.history for w in ref.per_walk])
+
+
+def phase_device_path(device, tabu_multiwalk_wall: float):
+    """``tabu_device`` at the main path's configuration: the parity profile
+    against the NumPy ``tabu_multiwalk`` (cold, then warm), then the run
+    with Algorithm 3 at syncs (the counts set to 0 before it, read after)."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch import solve
+    from repro_torch.analysis.certify import certify_solution
+    from repro_torch.core import TSParams, random_instance
+    from repro_torch.core import device_search as ds
+    from repro_torch.core.api import multiwalk_inits
+    from repro_torch.core.tabu import tabu_multiwalk
+    from repro_torch.kernels import schedule_dp as sdp
+
+    n_tasks, n_data, walks, iters = 250, 600, 8, 30
+    inst = random_instance(0, n_tasks=n_tasks, n_data=n_data)
+    params = TSParams(top_k=10, max_unimproved=10**9, time_limit=10**9, max_iters=iters)
+    # the parity profile, on the walks' starts solve() builds, the engines
+    # timed alone (search_bench's definition)
+    parity = dataclasses.replace(params, mem_update_period=ds.MEM_UPDATE_DISABLED, seed=0)
+    inits, _ = multiwalk_inits(inst, walks, 0)
+    walls = {"numpy": [], "device": []}
+    ref = None
+
+    def parity_run(engine: str):
+        t0 = time.perf_counter()
+        if engine == "numpy":
+            res = tabu_multiwalk(inst, [s.copy() for s in inits],
+                                 dataclasses.replace(parity, backend="numpy"))
+        else:
+            res = ds.device_multiwalk(inst, [s.copy() for s in inits], parity)
+            torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        if ref is not None and not same_trajectory(res, ref):
+            raise AssertionError(f"the {engine} parity run and the NumPy tabu_multiwalk differ")
+        if res.n_perturbations != 0:
+            raise AssertionError(f"the {engine} parity run entered the perturbation branch")
+        return res, wall
+
+    ref, wall = parity_run("numpy")
+    walls["numpy"].append(wall)
+    torch.cuda.reset_peak_memory_stats(device)     # the captures' pools included
+    cold, cold_wall = parity_run("device")
+    # warm pairs in alternating order, so that a drift of the host's speed
+    # within the call falls on both engines
+    for order in (("device", "numpy"), ("numpy", "device"), ("device", "numpy")):
+        for engine in order:
+            walls[engine].append(parity_run(engine)[1])
+    numpy_wall = statistics.median(walls["numpy"])
+    warm_wall = statistics.median(walls["device"])
+    pair_ratios = [n / d for n, d in zip(walls["numpy"][1:], walls["device"])]
+    kw = dict(walks=walks, seed=0)
+
+    relaunches = ds.launch_cache_info()["overflow_relaunches"]
+    with HostTimers(device_targets()) as log:
+        sdp.sweep.launches = sdp.seq_cumsum.launches = 0
+        t0 = time.perf_counter()
+        rep = solve(inst, "tabu_device", params=params, **kw)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        k1, cs = sdp.sweep.launches, sdp.seq_cumsum.launches
+        host = log.breakdown(wall)
+    peak = torch.cuda.max_memory_allocated(device)
+    reserved = torch.cuda.memory_reserved(device)
+    st = rep.extras["device_stats"]
+    if k1 <= 0 or cs <= 0 or (k1, cs) != (st["k1_launches"], st["seq_cumsum_launches"]):
+        raise AssertionError(f"{k1} K1 and {cs} seq_cumsum launches counted, the solve "
+                             f"reports {st['k1_launches']} and {st['seq_cumsum_launches']}")
+    cert = certify_solution(inst, rep.solution, reported_makespan=rep.makespan,
+                            claimed_feasible=rep.feasible)
+    if not (cert.ok and rep.feasible):
+        raise AssertionError("certificate rejected the device path's result: " + cert.summary())
+    # one replayed round at this shape (the run has stopped, so a replay is
+    # masked throughout: every kernel runs, nothing changes)
+    batch = ds.InstanceBatch.from_instances([inst])
+    launch, fresh = ds._get_launch(batch, walks, params, st["crit_cap"], st["chunk_cap"],
+                                   ds.DeviceConfig(), device)
+    if fresh or launch.graph is None:
+        raise AssertionError("the device path's launch is not in the cache")
+    round_ms = cuda_median_ms(launch.graph.replay, reps=20, warmup=2)
+    round_profile, profiled = replayed_round_profile(launch, st, replays=8)
+    ip = batch.packs[0]
+    base = solve(inst, "load_balance", seed=0).makespan
+    say("device_path", n_tasks=n_tasks, n_data=n_data, n_procs=inst.n_procs, walks=walks,
+        top_k=params.top_k, iterations=rep.iterations, stop_reason=rep.stop_reason,
+        wall_s=wall, compile_seconds=rep.extras["compile_seconds"],
+        memory_update_s=host["memory_update"]["s"],
+        memory_update_calls=host["memory_update"]["calls"], host_phases=host,
+        k1_launches=k1, seq_cumsum_launches=cs, k1_per_round=st["k1_per_round"],
+        seq_cumsum_per_round=st["seq_cumsum_per_round"],
+        rounds_replayed=st["rounds_replayed"],
+        overflow_relaunches=ds.launch_cache_info()["overflow_relaunches"] - relaunches,
+        chunk_cap=st["chunk_cap"], crit_cap=st["crit_cap"], round_ms=round_ms,
+        round_profile=round_profile, round_launches_profiled=profiled,
+        makespan=rep.makespan, initial_makespan=rep.initial_makespan,
+        load_balance_makespan=base, improvement_over_load_balance=1.0 - rep.makespan / base,
+        n_perturbations=rep.extras["n_perturbations"], certified=True, feasible=rep.feasible,
+        max_memory_allocated=peak, memory_reserved=reserved,
+        tabu_table_bytes=walks * ip.n_b * ip.p_b * (ip.n_b + 2) * 4,
+        host_syncs_in_replay=0,
+        parity={"matches_numpy_tabu_multiwalk": True, "n_perturbations": 0,
+                "makespan": ref.best_makespan, "iterations": ref.iterations,
+                "cold": {"wall_s": cold_wall, "compile_seconds": cold.compile_seconds,
+                         "walk_iters_per_s": walk_iters_per_s(walks, ref.iterations, cold_wall)},
+                "warm_wall_s": walls["device"], "numpy_wall_s": walls["numpy"],
+                "warm_wall_s_median": warm_wall, "numpy_wall_s_median": numpy_wall,
+                "walk_iters_per_s": walk_iters_per_s(walks, ref.iterations, warm_wall),
+                "numpy_walk_iters_per_s": walk_iters_per_s(walks, ref.iterations, numpy_wall),
+                "speedup": numpy_wall / warm_wall,
+                "speedup_by_pair": pair_ratios,
+                "speedup_range": [min(pair_ratios), max(pair_ratios)]},
+        tabu_multiwalk_wall_s=tabu_multiwalk_wall,
+        note="wall_s and the parity runs' wall_s: host clock around solve() ending in a "
+             "synchronize; compile_seconds: the capture (an eager first round on a side "
+             "stream, then the recording); round_ms: median of 20 replays of the captured "
+             "round, CUDA events; round_profile: torch.profiler over 8 replays, its K1 and "
+             "seq_cumsum launches held to 8 x the captured round's nodes "
+             "(round_launches_profiled: each window taken, at most 3); replays run under "
+             "torch.cuda.set_sync_debug_mode('error') (host_syncs_in_replay is 0 or the run "
+             "raised); k1_launches / seq_cumsum_launches: the round's nodes x the rounds "
+             "replayed, plus the eager first round of each capture; parity: "
+             "device_multiwalk and the NumPy tabu_multiwalk on the same 8 greedy starts, "
+             "built before the clock starts, every run held to the first NumPy run's "
+             "trajectory: NumPy, device cold, then three warm pairs in alternating order "
+             "(device numpy, numpy device, device numpy); walk_iters_per_s = walks x "
+             "iterations / median warm wall_s (the NumPy runs' over all four), speedup "
+             "their ratio, speedup_by_pair each warm pair's; "
+             "max_memory_allocated: peak over the parity runs (the captures) and this "
+             "run; memory_reserved: the allocator's holding after it")
+    return {"schedule_dp": k1, "seq_cumsum": cs}
+
+
+def replayed_round_profile(launch, stats: dict, replays: int):
+    """``device_breakdown`` over ``replays`` replays of ``launch``'s captured
+    round, held to what the capture recorded: ``replays`` x its K1 and
+    ``seq_cumsum`` nodes must be the launches the profiler saw on the card.
+    A window whose counts differ is taken again, at most three in all (the
+    profiler can drop records of a window); the counts of every window are
+    returned beside the last profile."""
+    want = {"K1 schedule_dp": replays * stats["k1_per_round"],
+            "seq_cumsum": replays * stats["seq_cumsum_per_round"]}
+    seen = []
+    for _ in range(3):
+        prof = device_breakdown(lambda: [launch.graph.replay() for _ in range(replays)],
+                                top=12)
+        got = {c: prof["by_class"].get(c, {}).get("launches", 0) for c in want}
+        seen.append(got)
+        if got == want:
+            return prof, seen
+    raise AssertionError(f"{replays} replays of the captured round: the profiler saw "
+                         f"{seen}, the capture recorded {want}")
+
+
+def cumsum_operands(inst, rows: int, seed: int, device):
+    """What the device round hands ``seq_cumsum`` for ``rows`` candidate
+    rows of ``inst``: on the padded in-edge list, each edge's data size
+    times the access time of its owner's core for its block's tier (zeros
+    past the real edges), for assignments and allocations drawn from
+    ``seed``."""
+    import numpy as np
+    import torch
+
+    from repro_torch.instances import pack_instance
+
+    ip = pack_instance(inst)
+    rng = np.random.default_rng(seed)
+    assign = rng.integers(0, ip.p, (rows, ip.n_b))
+    mem = rng.integers(0, ip.access_time.shape[1], (rows, ip.d_b))
+    rate = ip.access_time[assign[:, ip.in_owner], mem[:, ip.in_idx]]
+    vals = np.where(ip.in_valid[None, :], ip.data_size[ip.in_idx][None, :] * rate, 0.0)
+    return torch.from_numpy(vals).to(device)
+
+
+def cumsum_bound(v) -> dict:
+    """Least time for ``seq_cumsum(v)``: ``v`` read once and the
+    ``(rows, e + 1)`` result written once, against one float64 add per
+    element."""
+    rows, e = v.shape
+    n_bytes = rows * e * 8 + rows * (e + 1) * 8
+    ops = rows * e
+    t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / PEAK_FLOPS["float64"] * 1e3
+    return {"bytes": n_bytes, "operations": ops, "bytes_ms": t_bytes, "ops_ms": t_ops,
+            "bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+
+
+def phase_seq_cumsum(device, rows: int) -> dict:
+    """``seq_cumsum`` against its plain version (on the CPU, where it is
+    ``np.cumsum``'s order) bit for bit at several widths and at the round's
+    shape, then timed there beside its bound, its plain version on the card
+    and ``torch.cumsum``; how far ``torch.cumsum`` on the card lands from
+    the sequential sums is recorded."""
+    import torch
+
+    from repro_torch.core import random_instance
+    from repro_torch.kernels import schedule_dp as sdp
+
+    inst = random_instance(0, n_tasks=250, n_data=600)
+    worst = 0.0
+    v = cumsum_operands(inst, rows, 0, device)
+    for width in (1, 255, 256, 257, 4096, v.shape[1]):
+        x = cumsum_operands(inst, rows, width, device)[:, :width].contiguous() \
+            if width <= v.shape[1] else torch.rand((rows, width), dtype=torch.float64,
+                                                   device=device) * 1e4
+        got = sdp.seq_cumsum(x)
+        torch.cuda.synchronize()
+        want = sdp.seq_cumsum_torch(x.cpu())
+        worst = max(worst, max_abs_err([got.cpu()], [want]))
+        if not torch.equal(got.cpu(), want):
+            raise AssertionError(f"seq_cumsum differs from its plain version at width {width}")
+    card = torch.cumsum(v, dim=1)
+    torch_cumsum_err = max_abs_err([card.cpu()], [sdp.seq_cumsum_torch(v.cpu())[:, 1:]])
+    ms = cuda_median_ms(lambda: sdp.seq_cumsum(v), reps=100, warmup=10)
+    device_ms = profiled_device_ms(lambda: sdp.seq_cumsum(v), "seq_cumsum", reps=100)
+    plain_ms = cuda_median_ms(lambda: sdp.seq_cumsum_torch(v), reps=20, warmup=3)
+    library_ms = cuda_median_ms(lambda: torch.cumsum(v, dim=1), reps=100, warmup=10)
+    per_add = add_chain_ms_per_add(device)
+    out = {"ms": ms, "device_ms": device_ms, "plain_ms": plain_ms, "library_ms": library_ms,
+           "max_abs_err": worst, "shape": list(v.shape),
+           "torch_cumsum_on_card_max_abs_err": torch_cumsum_err,
+           "chain_ms": v.shape[1] * per_add, "add_chain_ms_per_add": per_add,
+           **cumsum_bound(v)}
+    say("seq_cumsum", **out,
+        note="bit-equal to its plain version (the CPU's torch.cumsum, np.cumsum's order) at "
+             "every width; ms: median of 100 wrapper calls by CUDA events (host work "
+             "included), device_ms the kernel's mean device time over 100 launches "
+             "(torch.profiler), plain_ms the plain version on the card (20), library_ms "
+             "torch.cumsum on the card (100); chain_ms = width x add_chain_ms_per_add, the "
+             "measured time of one dependent float64 add: each row is such a chain, so "
+             "this floor binds, not bound_ms (bytes / operations); "
+             "torch_cumsum_on_card_max_abs_err: how far the card's torch.cumsum lands "
+             "from the sequential sums")
+    return out
 
 
 def cuda_median_ms(fn, reps: int, warmup: int) -> float:
@@ -474,6 +796,32 @@ def chain_probe_ms_per_level(blocks: int, threads: int, device) -> float:
     if float(out[0]) <= 0:
         raise AssertionError("chain probe did not run")
     return ms / levels
+
+
+def add_chain_ms_per_add(device) -> float:
+    """Measured time of one float64 add that waits on the one before (a
+    single thread adding a long chain), the step of ``seq_cumsum``'s row."""
+    import ctypes
+
+    import torch
+
+    from repro_torch.kernels import _build
+
+    fn = _build.load("schedule_dp").schedule_dp_add_chain_probe
+    fn.argtypes = [ctypes.c_int, ctypes.c_double, ctypes.c_void_p, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    out = torch.zeros(1, dtype=torch.float64, device=device)
+    n = 1 << 20
+
+    def run():
+        err = fn(n, 1.0, out.data_ptr(), torch.cuda.current_stream().cuda_stream)
+        if err != 0:
+            raise RuntimeError(f"add chain probe launch failed: CUDA error {err}")
+
+    ms = cuda_median_ms(run, reps=10, warmup=2)
+    if float(out[0]) != n:
+        raise AssertionError(f"add chain probe summed {float(out[0])}, expected {n}")
+    return ms / n
 
 
 def phase_timing(device, rows: int):
@@ -937,6 +1285,10 @@ def rel_err(got, want) -> float:
 
 
 def _kernel_class(name: str) -> str:
+    if "sweep_kernel" in name:       # K1's four instances
+        return "K1 schedule_dp"
+    if "seq_cumsum" in name:
+        return "seq_cumsum"
     if "flash_fwd" in name:          # flash_fwd_kernel (f32), flash_fwd_mma_kernel (bf16)
         return "K2 flash_attention"
     if "rglru_scan" in name:         # rglru_scan_kernel (T >= 2), rglru_scan_step_kernel
@@ -949,9 +1301,10 @@ def _kernel_class(name: str) -> str:
     return "elementwise / reduction / copy"
 
 
-def device_breakdown(fn) -> dict:
+def device_breakdown(fn, top: int = 0) -> dict:
     """Run ``fn`` once under ``torch.profiler`` and sum the card's kernel time
-    by class; busy share = kernel time / wall time of the window."""
+    by class; busy share = kernel time / wall time of the window.  ``top``
+    adds the kernels with the most device time, by name."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -962,6 +1315,7 @@ def device_breakdown(fn) -> dict:
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     by_class: dict = {}
+    by_name = []
     n_kernels = 0
     for e in prof.key_averages():
         if not str(e.device_type).endswith("CUDA"):
@@ -973,13 +1327,17 @@ def device_breakdown(fn) -> dict:
         c["ms"] += us / 1e3
         c["launches"] += e.count
         n_kernels += e.count
+        by_name.append({"kernel": e.key[:120], "ms": us / 1e3, "launches": e.count})
     if n_kernels == 0:
         raise AssertionError("the profiler recorded no kernel of the window")
     busy = sum(c["ms"] for c in by_class.values())
-    return {"wall_ms": wall_ms, "device_busy_ms": busy,
-            "device_idle_share": 1.0 - busy / wall_ms if wall_ms > 0 else None,
-            "kernels": n_kernels,
-            "by_class": dict(sorted(by_class.items(), key=lambda kv: -kv[1]["ms"]))}
+    out = {"wall_ms": wall_ms, "device_busy_ms": busy,
+           "device_idle_share": 1.0 - busy / wall_ms if wall_ms > 0 else None,
+           "kernels": n_kernels,
+           "by_class": dict(sorted(by_class.items(), key=lambda kv: -kv[1]["ms"]))}
+    if top:
+        out["top_kernels"] = sorted(by_name, key=lambda k: -k["ms"])[:top]
+    return out
 
 
 def phase_model_serve(device, arch: str, check):
@@ -1191,7 +1549,12 @@ KERNELS = (
      "src/repro/kernels/flash_attention.py:99"),
     ("rglru_scan", "src/repro_torch/kernels/csrc/rglru.cu", "src/repro/kernels/rglru.py:41"),
     ("ssd_chunked", "src/repro_torch/kernels/csrc/ssd.cu", "src/repro/kernels/ssd.py:75"),
+    # a helper of the device-resident round, with no TPU kernel: it replaces
+    # the reference's blocked sequential lax.scan of the durations
+    ("seq_cumsum", "src/repro_torch/kernels/csrc/schedule_dp.cu",
+     "src/repro/core/device_search.py:199"),
 )
+HELPERS = ("seq_cumsum",)
 
 
 def kernel_entries(launches: dict, errs: dict, times: dict, extras: dict) -> list:
@@ -1201,6 +1564,7 @@ def kernel_entries(launches: dict, errs: dict, times: dict, extras: dict) -> lis
     bound_ms, bound_by and library_ms, which is None where no single PyTorch
     call computes the function)."""
     return [{"name": name, "route": "cuda", "source": source, "replaces": replaces,
+             **({"helper": True, "tpu_kernel": None} if name in HELPERS else {}),
              "launches": launches[name], "max_abs_err": errs[name],
              **{k: times[name].get(k) for k in ("ms", "plain_ms", "bound_ms", "bound_by",
                                                 "library_ms")},
@@ -1243,7 +1607,9 @@ def main() -> int:
 
     worst = phase_kernels(device)
     model_err = phase_model_kernels(device)
-    launches, max_rows = phase_main_path()
+    launches, max_rows, main_wall = phase_main_path()
+    device_launches = phase_device_path(device, main_wall)
+    cum = phase_seq_cumsum(device, rows=80)
     model_launches = phase_model_serve(device, ARCH, check_fixed_limit)
     mamba_launches = phase_model_serve(device, MAMBA_ARCH, check_against_yardstick)
     timing = phase_timing(device, rows=max_rows)
@@ -1254,11 +1620,14 @@ def main() -> int:
     entries = kernel_entries(
         launches={"schedule_dp": launches, "flash_attention": model_launches["flash_attention"],
                   "rglru_scan": model_launches["rglru_scan"],
-                  "ssd_chunked": mamba_launches["ssd_chunked"]},
-        errs={"schedule_dp": worst, **model_err},
-        times={"schedule_dp": fwd, **mtime},
+                  "ssd_chunked": mamba_launches["ssd_chunked"],
+                  "seq_cumsum": device_launches["seq_cumsum"]},
+        errs={"schedule_dp": worst, **model_err, "seq_cumsum": cum["max_abs_err"]},
+        times={"schedule_dp": fwd, **mtime, "seq_cumsum": cum},
         extras={
-            "schedule_dp": {"chain_ms": fwd["chain_ms"], "shape": [max_rows, sdp.bucket(250)],
+            "schedule_dp": {"launches_by_path": {"main_path": launches,
+                                                 "device_path": device_launches["schedule_dp"]},
+                            "chain_ms": fwd["chain_ms"], "shape": [max_rows, sdp.bucket(250)],
                             "dtype": "float64", "call": "forward only",
                             "depth_levels": fwd["depth_levels"],
                             "ms_per_level": fwd["ms_per_level"],
@@ -1289,6 +1658,12 @@ def main() -> int:
                             "decode_step_ms": sd["decode_step_ms"],
                             "decode_step_device_ms": sd["decode_step_device_ms"],
                             "decode_step_bound_ms": sd["decode_step_bound_ms"]},
+            "seq_cumsum": {"shape": cum["shape"], "dtype": "float64",
+                           "path": "device_path", "device_ms": cum["device_ms"],
+                           "chain_ms": cum["chain_ms"],
+                           "add_chain_ms_per_add": cum["add_chain_ms_per_add"],
+                           "torch_cumsum_on_card_max_abs_err":
+                               cum["torch_cumsum_on_card_max_abs_err"]},
         })
     print(json.dumps({"kernels": entries, "seconds": time.perf_counter() - t_start}), flush=True)
     print(smi, flush=True)

@@ -42,6 +42,7 @@ from .tabu import (
     critical_blocks,
     tabu_multiwalk,
 )
+from .device_search import DeviceConfig, device_multiwalk, solve_instances
 from .ilp import build_ilp
 from .api import (
     Budget,
@@ -84,6 +85,9 @@ __all__ = [
     "apply_move",
     "critical_blocks",
     "tabu_multiwalk",
+    "DeviceConfig",
+    "device_multiwalk",
+    "solve_instances",
     "build_ilp",
     "Budget",
     "Callbacks",

@@ -20,6 +20,8 @@ exact vs. heuristic schedulers in arXiv:2507.17411).
 The exact-evaluation engine of the tabu solvers defaults to
 ``backend="torch"`` on ``torch_device="cuda"``; ``solve(...,
 torch_device="cpu")`` or ``backend="numpy"`` keeps a run on the host.
+``"tabu_device"`` (or ``"tabu_multiwalk"`` with ``backend="device"``) runs
+the whole search round on the device (``core/device_search.py``).
 """
 from __future__ import annotations
 
@@ -430,18 +432,20 @@ def _solve_tabu_multiwalk(
 
     ``backend`` / ``torch_device`` override ``params.backend`` /
     ``params.torch_device`` (the exact-evaluation engine and the torch device
-    its sweeps run on).  ``backend="device"`` and the ``device`` config dict
-    belong to the device-resident search engine, which is not ported yet:
-    both raise ``ValueError``.
+    its sweeps run on).  ``backend="device"`` (or ``params.backend=
+    "device"``) routes the whole search through the device-resident engine
+    (``device_search.device_multiwalk``): one captured round replayed
+    ``sync_every`` times between host reads, on ``torch_device``.
+    ``device`` passes :class:`~repro_torch.core.device_search.DeviceConfig`
+    fields (``sync_every``, ``crit_cap``, ``perturb``).
     """
     t0 = time.monotonic()
     params = params or TSParams()
     seed = params.seed if seed is None else seed
     ts = _budgeted_ts_params(params, budget, seed, backend, torch_device)
     check_backend(ts.backend)
-    if device is not None:
-        raise ValueError("device config requires backend='device', which is "
-                         "not ported yet (ROADMAP item A2)")
+    if device is not None and ts.backend != "device":
+        raise ValueError("device config requires backend='device'")
     if inits is not None:
         if not inits:
             raise ValueError("inits must be non-empty when given")
@@ -449,14 +453,22 @@ def _solve_tabu_multiwalk(
         labels = [f"explicit{i}" for i in range(len(init_sols))]
     else:
         init_sols, labels = multiwalk_inits(inst, walks, seed, init)
-    res = tabu_multiwalk(
-        inst,
-        init_sols,
-        ts,
-        init_labels=labels,
-        on_iteration=callbacks.on_iteration,
-        on_improvement=callbacks.on_improvement,
-    )
+    if ts.backend == "device":
+        from .device_search import DeviceConfig, device_multiwalk
+
+        res = device_multiwalk(
+            inst, init_sols, ts, config=DeviceConfig(**(device or {})),
+            init_labels=labels, on_iteration=callbacks.on_iteration,
+            on_improvement=callbacks.on_improvement)
+    else:
+        res = tabu_multiwalk(
+            inst,
+            init_sols,
+            ts,
+            init_labels=labels,
+            on_iteration=callbacks.on_iteration,
+            on_improvement=callbacks.on_improvement,
+        )
     return _report_from_multiwalk(_method, inst, res, ts.backend,
                                   time.monotonic() - t0)
 
@@ -468,7 +480,9 @@ def _report_from_multiwalk(
     backend: str,
     wall_time: float,
 ) -> SolveReport:
-    """Build a :class:`SolveReport` from a ``MultiWalkResult``."""
+    """Build a :class:`SolveReport` from a ``MultiWalkResult`` (the
+    ``tabu_multiwalk`` / ``tabu_device`` solvers); the device engine's
+    capture time goes into ``extras["compile_seconds"]``."""
     sched = exact_schedule(inst, res.best)
     assert sched is not None
     extras: dict = {
@@ -483,6 +497,11 @@ def _report_from_multiwalk(
             for wi in res.per_walk
         ],
     }
+    if hasattr(res, "compile_seconds"):
+        extras["compile_seconds"] = res.compile_seconds
+    if hasattr(res, "device_stats"):
+        extras["device_stats"] = res.device_stats
+        extras["n_perturbations"] = res.n_perturbations
     return _sanitize_report(inst, SolveReport(
         method=method,
         solution=res.best,
@@ -497,6 +516,35 @@ def _report_from_multiwalk(
         stop_reason=res.stop_reason,
         extras=extras,
     ))
+
+
+@register_solver("tabu_device")
+def _solve_tabu_device(
+    inst: Instance,
+    *,
+    budget: Budget,
+    seed: int | None,
+    callbacks: Callbacks,
+    walks: int = 8,
+    init: Union[Solution, str, None] = None,
+    inits: list[Solution] | None = None,
+    params: TSParams | None = None,
+    device: dict | None = None,
+    backend: str | None = None,
+    torch_device: str | None = None,
+) -> SolveReport:
+    """The device-resident multiwalk engine as a first-class solver:
+    ``solve(inst, "tabu_device", walks=8, device={"sync_every": 64})``, on
+    ``torch_device`` (``params.torch_device``, ``"cuda"`` by default, which
+    raises without a GPU)."""
+    if backend not in (None, "device"):
+        raise ValueError(
+            f"tabu_device always runs backend='device'; got backend={backend!r}"
+            " — use solve(inst, 'tabu_multiwalk', backend=...) to pick one")
+    return _solve_tabu_multiwalk(
+        inst, budget=budget, seed=seed, callbacks=callbacks, walks=walks,
+        init=init, inits=inits, params=params, backend="device",
+        torch_device=torch_device, device=device, _method="tabu_device")
 
 
 @register_solver("ilp_brute_force")

@@ -34,7 +34,9 @@ Backend selection is a string flag (``"torch"`` | ``"numpy"`` |
 (``TSParams.torch_device``, ``"cuda"`` by default — asking for it on a
 machine without a GPU raises).  ``"numpy"`` is the host reference and
 ``"scalar"`` wraps the original per-candidate functions; both are explicitly
-selected oracles for parity tests.
+selected oracles for parity tests.  The search takes one more value,
+``"device"``: the whole round on the device (``core/device_search.py``),
+which has no per-batch evaluator.
 """
 from __future__ import annotations
 
@@ -56,6 +58,7 @@ from .solution import (
 
 __all__ = [
     "BACKENDS",
+    "SEARCH_BACKENDS",
     "check_backend",
     "APPROX_WINDOW",
     "LRUCache",
@@ -69,17 +72,14 @@ __all__ = [
 ]
 
 BACKENDS = ("torch", "numpy", "scalar")
+SEARCH_BACKENDS = BACKENDS + ("device",)
 
 
 def check_backend(backend: str) -> str:
-    """``backend`` if the port has it, else ``ValueError``."""
-    if backend == "device":
-        raise ValueError(
-            "backend='device' (the device-resident search engine, "
-            "core/device_search.py, ROADMAP item A2) is not ported yet; "
-            f"use one of {BACKENDS}")
-    if backend not in BACKENDS:
-        raise ValueError(f"backend must be one of {BACKENDS}, got {backend!r}")
+    """``backend`` if the search has it (an evaluator backend, or
+    ``"device"``: the device-resident round), else ``ValueError``."""
+    if backend not in SEARCH_BACKENDS:
+        raise ValueError(f"backend must be one of {SEARCH_BACKENDS}, got {backend!r}")
     return backend
 
 APPROX_WINDOW = 12  # approximate-evaluation look-ahead window (ops)
@@ -387,13 +387,23 @@ class BatchEvaluator:
     """
 
     def __init__(self, inst: Instance, backend: str = "torch",
-                 device: str = "cuda", cache_size: int = 16):
+                 device: str = "cuda", cache_size: int = 16, pack=None):
         """``device`` is the torch device of the ``"torch"`` backend's sweeps
         (``"cuda"`` raises when there is no GPU; the numpy/scalar backends
         ignore it).  On a GPU the sweeps run the CUDA kernel, on the CPU its
-        plain PyTorch version."""
+        plain PyTorch version.  ``pack`` (a
+        ``repro_torch.instances.InstancePack``) hands over the already-padded
+        dense graph instead of this evaluator deriving its own; only the
+        ``"torch"`` backend's sweeps use a padded graph."""
+        if backend == "device":
+            raise ValueError(
+                "backend='device' runs the whole search round on the device "
+                "(core/device_search.py) and has no per-batch evaluator; "
+                f"BatchEvaluator takes one of {BACKENDS}")
+        if backend not in BACKENDS:
+            raise ValueError(f"backend must be one of {BACKENDS}, got {backend!r}")
         self.inst = inst
-        self.backend = check_backend(backend)
+        self.backend = backend
         self.device = None
         if backend == "torch":
             from .._device import resolve_device
@@ -409,6 +419,7 @@ class BatchEvaluator:
         self._in_owner = np.repeat(np.arange(n), np.diff(inst.in_indptr))
         self._out_owner = np.repeat(np.arange(n), np.diff(inst.out_indptr))
         self._dev_graphs = LRUCache(maxsize=cache_size)
+        self._pack = pack
         self._graph = None  # lazy schedule_dp.DenseGraph (host arrays)
 
     def cache_info(self) -> dict:
@@ -839,7 +850,8 @@ def _torch_sweeps(engine: BatchEvaluator, packed: PackedSolutions, dur: np.ndarr
     dev = engine.device
     fdt = torch.float64
     if engine._graph is None:
-        engine._graph = sdp.dense_graph(engine.inst)
+        engine._graph = (sdp.graph_from_pack(engine.inst, engine._pack)
+                         if engine._pack is not None else sdp.dense_graph(engine.inst))
     n_b = engine._graph.n_b
     key = (n_b, str(fdt), str(dev))
     graph = engine._dev_graphs.get(key)

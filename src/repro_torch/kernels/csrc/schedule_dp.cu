@@ -60,7 +60,19 @@
 //   2  backward only: `dur` is the node weight, `active` masks rows, only q
 //      is written
 // A block has up to 1,024 threads and a thread owns up to 8 tasks, so a row
-// holds at most 8,192 tasks.
+// holds at most 8,192 tasks.  The real task count is an argument, or, where
+// `n_valid_dev` is not null, read from device memory at the start of the
+// kernel: a launch recorded in a CUDA graph then serves every instance of a
+// shape bucket, whatever its task count.
+//
+// The same library holds `seq_cumsum_kernel`, a helper of the device-resident
+// search (no TPU kernel corresponds to it): row prefix sums in float64 taken
+// strictly left to right, as NumPy's `np.cumsum` takes them, so that the task
+// durations the search derives from them are bit-identical to the NumPy
+// engine's.  A parallel scan would add in another order.  The chain of adds
+// bounds it (one dependent add per element of a row); one warp per row loads
+// tiles coalesced into shared memory, one lane adds along the tile while the
+// warp fetches the next, and the warp stores the tile's prefixes coalesced.
 
 #include <cuda_runtime.h>
 #include <stddef.h>
@@ -210,9 +222,10 @@ __global__ void __launch_bounds__(MAX_THREADS)
                  const int* __restrict__ succ_idx, int succ_nnz,
                  const T* __restrict__ dur, const int* __restrict__ mpred,
                  const int* __restrict__ msucc, const unsigned char* __restrict__ active,
-                 int n_b, int n_valid, int mode, T* start, T* finish, int* level,
-                 int* n_done, T* q) {
+                 int n_b, int n_valid_arg, const int* __restrict__ n_valid_dev, int mode,
+                 T* start, T* finish, int* level, int* n_done, T* q) {
   extern __shared__ __align__(16) unsigned char smem[];
+  const int n_valid = n_valid_dev != nullptr ? *n_valid_dev : n_valid_arg;
   int& s_count = *reinterpret_cast<int*>(smem);
   Row<T> r;
   r.val = reinterpret_cast<T*>(smem + COUNTER_BYTES);
@@ -279,23 +292,33 @@ size_t state_bytes(int n_b, size_t elem) {
 }
 size_t csr_bytes(int n_b, int nnz) { return ((size_t)n_b + 1 + nnz) * sizeof(int); }
 
+constexpr int MAX_DEVICES = 64;
+
 template <typename T, bool SMEM_CSR>
 int launch_csr(const int* pred_ptr, const int* pred_idx, int pred_nnz,
                const int* succ_ptr, const int* succ_idx, int succ_nnz, const T* dur,
                const int* mpred, const int* msucc, const unsigned char* active, int b,
-               int n_b, int n_valid, int mode, T* start, T* finish, int* level,
-               int* n_done, T* q, size_t smem, cudaStream_t stream) {
+               int n_b, int n_valid, const int* n_valid_dev, int mode, T* start, T* finish,
+               int* level, int* n_done, T* q, size_t smem, cudaStream_t stream) {
   int threads = ((n_b + 31) / 32) * 32;
   if (threads > MAX_THREADS) threads = MAX_THREADS;
-  if (smem > 48 * 1024) {
-    cudaError_t e = cudaFuncSetAttribute(sweep_kernel<T, SMEM_CSR>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         (int)smem);
+  // the opt-in above 48 KB is set once per device and size, so a launch that
+  // a CUDA graph records after a first, eager launch of its shape makes no
+  // call but the launch itself
+  static size_t allowed[MAX_DEVICES] = {};
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return (int)e;
+  if (dev < 0 || dev >= MAX_DEVICES) return (int)cudaErrorInvalidDevice;
+  if (smem > 48 * 1024 && smem > allowed[dev]) {
+    e = cudaFuncSetAttribute(sweep_kernel<T, SMEM_CSR>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (e != cudaSuccess) return (int)e;
+    allowed[dev] = smem;
   }
   sweep_kernel<T, SMEM_CSR><<<b, threads, smem, stream>>>(
       pred_ptr, pred_idx, pred_nnz, succ_ptr, succ_idx, succ_nnz, dur, mpred, msucc, active,
-      n_b, n_valid, mode, start, finish, level, n_done, q);
+      n_b, n_valid, n_valid_dev, mode, start, finish, level, n_done, q);
   return (int)cudaGetLastError();
 }
 
@@ -303,8 +326,8 @@ template <typename T>
 int launch_sweep(const int* pred_ptr, const int* pred_idx, int pred_nnz,
                  const int* succ_ptr, const int* succ_idx, int succ_nnz, const T* dur,
                  const int* mpred, const int* msucc, const unsigned char* active, int b,
-                 int n_b, int n_valid, int mode, T* start, T* finish, int* level,
-                 int* n_done, T* q, cudaStream_t stream) {
+                 int n_b, int n_valid, const int* n_valid_dev, int mode, T* start,
+                 T* finish, int* level, int* n_done, T* q, cudaStream_t stream) {
   if (b <= 0) return (int)cudaSuccess;
   if (n_b <= 0 || n_b > MAX_TASKS) return (int)cudaErrorInvalidValue;
   // the loops' link lists: pred for the forward loop, succ for the backward
@@ -315,12 +338,58 @@ int launch_sweep(const int* pred_ptr, const int* pred_idx, int pred_nnz,
   const size_t csr = csr_bytes(n_b, nnz);
   if (state + csr <= MAX_SMEM)
     return launch_csr<T, true>(pred_ptr, pred_idx, pred_nnz, succ_ptr, succ_idx, succ_nnz,
-                               dur, mpred, msucc, active, b, n_b, n_valid, mode, start,
-                               finish, level, n_done, q, state + csr, stream);
+                               dur, mpred, msucc, active, b, n_b, n_valid, n_valid_dev, mode,
+                               start, finish, level, n_done, q, state + csr, stream);
   if (state > MAX_SMEM) return (int)cudaErrorInvalidValue;
   return launch_csr<T, false>(pred_ptr, pred_idx, pred_nnz, succ_ptr, succ_idx, succ_nnz,
-                              dur, mpred, msucc, active, b, n_b, n_valid, mode, start,
-                              finish, level, n_done, q, state, stream);
+                              dur, mpred, msucc, active, b, n_b, n_valid, n_valid_dev, mode,
+                              start, finish, level, n_done, q, state, stream);
+}
+
+constexpr int CUMSUM_TILE = 256;  // 8 values a lane
+
+// out (rows, e + 1): out[r][0] = 0, out[r][k + 1] = out[r][k] + v[r][k], the
+// adds strictly in order.  One warp per row.
+__global__ void __launch_bounds__(32)
+    seq_cumsum_kernel(const double* __restrict__ v, double* __restrict__ out, int e) {
+  __shared__ double tile[CUMSUM_TILE];
+  constexpr int PER_LANE = CUMSUM_TILE / 32;
+  const int lane = threadIdx.x;
+  const double* src = v + (size_t)blockIdx.x * e;
+  double* dst = out + (size_t)blockIdx.x * ((size_t)e + 1);
+  if (lane == 0) dst[0] = 0.0;
+  double next[PER_LANE];
+#pragma unroll
+  for (int k = 0; k < PER_LANE; ++k) {
+    const int i = k * 32 + lane;
+    next[k] = i < e ? src[i] : 0.0;
+  }
+  double acc = 0.0;  // lane 0's running sum
+  for (int base = 0; base < e; base += CUMSUM_TILE) {
+#pragma unroll
+    for (int k = 0; k < PER_LANE; ++k) tile[k * 32 + lane] = next[k];
+    __syncwarp();
+    // the next tile is in flight while lane 0 adds along this one
+#pragma unroll
+    for (int k = 0; k < PER_LANE; ++k) {
+      const int i = base + CUMSUM_TILE + k * 32 + lane;
+      next[k] = i < e ? src[i] : 0.0;
+    }
+    if (lane == 0) {
+      const int m = e - base < CUMSUM_TILE ? e - base : CUMSUM_TILE;
+      for (int j = 0; j < m; ++j) {
+        acc = acc + tile[j];
+        tile[j] = acc;
+      }
+    }
+    __syncwarp();
+#pragma unroll
+    for (int k = 0; k < PER_LANE; ++k) {
+      const int i = base + k * 32 + lane;
+      if (i < e) dst[i + 1] = tile[k * 32 + lane];
+    }
+    __syncwarp();
+  }
 }
 
 // The least a two-phase level can cost: one dependent shared-memory load, a
@@ -341,6 +410,16 @@ __global__ void chain_probe_kernel(int levels, double* out) {
   if (tid == 0) out[blockIdx.x] = x;
 }
 
+// The least `seq_cumsum_kernel` can take a row: `n` float64 adds, each on the
+// result of the one before.  One thread; `y` comes from the host, so the
+// compiler can neither fold nor reorder the chain.  Timed by the smoke script.
+__global__ void add_chain_probe_kernel(int n, double y, double* out) {
+  double x = 0.0;
+#pragma unroll 8
+  for (int i = 0; i < n; ++i) x = x + y;
+  out[0] = x;
+}
+
 }  // namespace
 
 extern "C" {
@@ -348,26 +427,38 @@ extern "C" {
 // pred_ptr/succ_ptr: (n_b + 1) row offsets, pred_idx/succ_idx: the links
 // (pred_nnz / succ_nnz of them), the graph's CSR; the rest as in the header.
 // Returns a CUDA error code (cudaErrorInvalidValue for n_b above 8,192).
+// n_valid_dev: null, or one int in device memory that the kernel takes as the
+// real task count in place of n_valid.
 int schedule_dp_sweep_f64(const int* pred_ptr, const int* pred_idx, int pred_nnz,
                           const int* succ_ptr, const int* succ_idx, int succ_nnz,
                           const double* dur, const int* mpred, const int* msucc,
                           const unsigned char* active, int b, int n_b, int n_valid,
-                          int mode, double* start, double* finish, int* level,
-                          int* n_done, double* q, void* stream) {
+                          const int* n_valid_dev, int mode, double* start, double* finish,
+                          int* level, int* n_done, double* q, void* stream) {
   return launch_sweep<double>(pred_ptr, pred_idx, pred_nnz, succ_ptr, succ_idx, succ_nnz,
-                              dur, mpred, msucc, active, b, n_b, n_valid, mode, start,
-                              finish, level, n_done, q, static_cast<cudaStream_t>(stream));
+                              dur, mpred, msucc, active, b, n_b, n_valid, n_valid_dev, mode,
+                              start, finish, level, n_done, q,
+                              static_cast<cudaStream_t>(stream));
 }
 
 int schedule_dp_sweep_f32(const int* pred_ptr, const int* pred_idx, int pred_nnz,
                           const int* succ_ptr, const int* succ_idx, int succ_nnz,
                           const float* dur, const int* mpred, const int* msucc,
                           const unsigned char* active, int b, int n_b, int n_valid,
-                          int mode, float* start, float* finish, int* level,
-                          int* n_done, float* q, void* stream) {
+                          const int* n_valid_dev, int mode, float* start, float* finish,
+                          int* level, int* n_done, float* q, void* stream) {
   return launch_sweep<float>(pred_ptr, pred_idx, pred_nnz, succ_ptr, succ_idx, succ_nnz,
-                             dur, mpred, msucc, active, b, n_b, n_valid, mode, start,
-                             finish, level, n_done, q, static_cast<cudaStream_t>(stream));
+                             dur, mpred, msucc, active, b, n_b, n_valid, n_valid_dev, mode,
+                             start, finish, level, n_done, q, static_cast<cudaStream_t>(stream));
+}
+
+// v (rows, e) float64 -> out (rows, e + 1): each row's inclusive prefix sums
+// after a leading 0, added strictly left to right.
+int schedule_dp_seq_cumsum_f64(const double* v, double* out, int rows, int e, void* stream) {
+  if (rows <= 0) return (int)cudaSuccess;
+  if (e < 0) return (int)cudaErrorInvalidValue;
+  seq_cumsum_kernel<<<rows, 32, 0, static_cast<cudaStream_t>(stream)>>>(v, out, e);
+  return (int)cudaGetLastError();
 }
 
 // 1 where a row of n_b tasks with nnz links (the larger list) keeps its
@@ -380,6 +471,11 @@ int schedule_dp_chain_probe(int levels, int blocks, int threads, double* out,
                             void* stream) {
   chain_probe_kernel<<<blocks, threads, threads * sizeof(double),
                        static_cast<cudaStream_t>(stream)>>>(levels, out);
+  return (int)cudaGetLastError();
+}
+
+int schedule_dp_add_chain_probe(int n, double y, double* out, void* stream) {
+  add_chain_probe_kernel<<<1, 1, 0, static_cast<cudaStream_t>(stream)>>>(n, y, out);
   return (int)cudaGetLastError();
 }
 

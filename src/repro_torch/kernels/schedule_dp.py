@@ -15,10 +15,26 @@ exactly when all those slots are done.
   shared memory, a cursor per task over its links, two barrier-separated
   phases per level) and count the launch in ``sweep.launches``; a tensor the
   kernel does not take raises.  For CPU tensors they run the plain version.
-* :func:`sweep_torch`, :func:`level_loop_torch`, :func:`backward_q_torch` —
-  the plain PyTorch version (a Python ``while`` over levels of gathers,
-  masked max-reduces and masked updates).  The CPU tests and the on-card
-  comparison use it; nothing on the main path does when a GPU is present.
+* :class:`SweepLaunch` — one call site of the device-resident search round
+  (``core/device_search.py``): graph, row count and mode fixed, operands
+  checked at the first call and outputs allocated once, so that a call is
+  the launch alone and a CUDA graph can record it.  The real task count is a
+  one-element tensor the kernel reads on the device.
+* :func:`seq_cumsum` — the same library's row prefix sum in float64, added
+  strictly left to right (``np.cumsum``'s order; a parallel scan such as
+  ``torch.cumsum`` on the card adds in another).  The round derives its
+  candidates' durations from it.  No TPU kernel corresponds to it.
+* :func:`sweep_torch`, :func:`level_loop_torch`, :func:`backward_q_torch`,
+  :func:`seq_cumsum_torch` — the plain PyTorch versions (a Python ``while``
+  over levels of gathers, masked max-reduces and masked updates; a CPU
+  ``torch.cumsum``).  The CPU tests and the on-card comparison use them;
+  nothing on the main path does when a GPU is present.
+
+A launch counts one in its function's ``launches`` (``sweep.launches`` for
+every K1 launch, ``seq_cumsum.launches``).  While a CUDA graph is being
+captured nothing is launched: the call counts one in ``captured`` instead,
+and the graph's owner adds its nodes to ``launches`` at every replay
+(:func:`count_replays`).
 
 Both are **bit-exact** with the NumPy engine in float64 (every reduction is a
 pure float max over the identical operand set, and ``finish = start + dur``
@@ -42,8 +58,13 @@ __all__ = [
     "dense_graph",
     "dense_from_csr",
     "csr_from_dense",
+    "graph_from_pack",
     "sweep",
     "backward_q",
+    "SweepLaunch",
+    "seq_cumsum",
+    "seq_cumsum_torch",
+    "count_replays",
     "sweep_torch",
     "level_loop_torch",
     "backward_q_torch",
@@ -102,6 +123,15 @@ class DenseGraph:
         """``(indptr (n_b + 1,), idx (nnz,))`` of ``succ_mat``."""
         return csr_from_dense(self.succ_mat)
 
+    def with_csr(self, pred_csr, succ_csr) -> "DenseGraph":
+        """The same graph reading the given CSR tensors (``(indptr, idx)``
+        each; ``idx`` may be longer than the links it holds, the offsets
+        say where each task's links are)."""
+        moved = dataclasses.replace(self)
+        moved.__dict__["pred_csr"] = tuple(pred_csr)
+        moved.__dict__["succ_csr"] = tuple(succ_csr)
+        return moved
+
     def to(self, device: torch.device | str) -> "DenseGraph":
         """The same graph with both index matrices and both CSR forms as
         tensors on ``device`` (the CSR is built here once, not per launch)."""
@@ -114,6 +144,17 @@ class DenseGraph:
             moved.__dict__[name] = tuple(torch.as_tensor(a, device=device).contiguous()
                                          for a in getattr(self, name))
         return moved
+
+
+def graph_from_pack(inst, pack) -> DenseGraph:
+    """A :class:`DenseGraph` that reuses an ``InstancePack``'s already-padded
+    predecessor/successor matrices instead of re-walking the CSR (pack once,
+    every sweep consumer reads the same arrays).  There is no mask form:
+    the port's kernel reads the CSR."""
+    if pack.n != inst.n_tasks:
+        raise ValueError(f"the pack holds {pack.n} tasks, the instance {inst.n_tasks}")
+    return DenseGraph(n=pack.n, n_b=pack.n_b, pred_mat=pack.pred_mat,
+                      succ_mat=pack.succ_mat)
 
 
 def dense_from_csr(n: int, n_b: int, indptr: np.ndarray, idx: np.ndarray,
@@ -248,9 +289,26 @@ def _c_fn(dtype: torch.dtype):
 
     fn = getattr(_build.load("schedule_dp"), _FN_BY_DTYPE[dtype])
     p, i = ctypes.c_void_p, ctypes.c_int
-    fn.argtypes = [p, p, i, p, p, i, p, p, p, p, i, i, i, i, p, p, p, p, p, p]
+    fn.argtypes = [p, p, i, p, p, i, p, p, p, p, i, i, i, p, i, p, p, p, p, p, p]
     fn.restype = ctypes.c_int
     return fn
+
+
+def _count(fn) -> None:
+    """Count one launch of ``fn``'s kernel, or, while the current stream is
+    capturing a CUDA graph (the kernel is recorded, not launched), one node
+    of the graph: its owner counts the nodes at each replay."""
+    if torch.cuda.is_current_stream_capturing():
+        fn.captured += 1
+    else:
+        fn.launches += 1
+
+
+def count_replays(k1_nodes: int, cumsum_nodes: int, replays: int) -> None:
+    """A CUDA graph holding ``k1_nodes`` K1 launches and ``cumsum_nodes``
+    :func:`seq_cumsum` launches was replayed ``replays`` times."""
+    sweep.launches += k1_nodes * replays
+    seq_cumsum.launches += cumsum_nodes * replays
 
 
 def _check(name: str, t, dtype, shape, device) -> None:
@@ -266,18 +324,15 @@ def _check(name: str, t, dtype, shape, device) -> None:
         raise ValueError(f"{name} must be contiguous")
 
 
-def _graph_csr(graph: DenseGraph, dev):
-    """The graph's two CSR forms, checked to be tensors on ``dev`` with one
+def _graph_csr(graph: DenseGraph, dev) -> None:
+    """Check the graph's two CSR forms to be tensors on ``dev`` with one
     offset per task + 1 (:meth:`DenseGraph.to` makes them int32 and
     contiguous, the offsets and links of a form on one device)."""
-    out = []
     for nm in ("pred_csr", "succ_csr"):
-        indptr, idx = getattr(graph, nm)
+        indptr, _ = getattr(graph, nm)
         if not isinstance(indptr, torch.Tensor):
             raise TypeError(f"graph.{nm} must be tensors on {dev} (DenseGraph.to(device))")
         _check(f"graph.{nm} indptr", indptr, torch.int32, (graph.n_b + 1,), dev)
-        out += [indptr, idx]
-    return out
 
 
 def _launch_cuda(graph: DenseGraph, node, mpred, msucc, active, mode: int):
@@ -293,7 +348,7 @@ def _launch_cuda(graph: DenseGraph, node, mpred, msucc, active, mode: int):
         raise ValueError(f"dur has width {n_b}, the graph is padded to {graph.n_b}")
     if n_b > MAX_TASKS:
         raise ValueError(f"n_b={n_b}: the kernel holds at most {MAX_TASKS} tasks per row")
-    pred_ptr, pred_idx, succ_ptr, succ_idx = _graph_csr(graph, dev)
+    _graph_csr(graph, dev)
     _check("dur", node, node.dtype, (b, n_b), dev)
     if mode != MODE_BACKWARD:
         _check("mpred", mpred, torch.int32, (b, n_b), dev)
@@ -313,26 +368,39 @@ def _launch_cuda(graph: DenseGraph, node, mpred, msucc, active, mode: int):
         level = torch.empty((b, n_b), dtype=torch.int32, device=dev)
         n_done = torch.empty((b,), dtype=torch.int32, device=dev)
 
-    def ptr(t):
-        return None if t is None else t.data_ptr()
-
-    fn = _c_fn(fdt)
     # The launch is asynchronous.  Operands a caller drops right after this
     # call stay valid for the kernel: PyTorch's allocator hands freed blocks
     # only to later work on the same stream.
-    with torch.cuda.device(dev):
-        err = fn(ptr(pred_ptr), ptr(pred_idx), pred_idx.numel(),
-                 ptr(succ_ptr), ptr(succ_idx), succ_idx.numel(),
-                 ptr(node), ptr(mpred), ptr(msucc), ptr(active),
-                 b, n_b, int(graph.n), mode,
-                 ptr(start), ptr(finish), ptr(level), ptr(n_done), ptr(q),
-                 torch.cuda.current_stream(dev).cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"schedule_dp kernel launch failed: CUDA error {err}")
-    sweep.launches += 1
+    _launch(graph, node, mpred, msucc, active, mode, None,
+            (start, finish, level, n_done, q))
     if q is None:
         q = torch.zeros((b, n_b), dtype=fdt, device=dev)
     return start, finish, level, n_done, q
+
+
+def _ptr(t):
+    return None if t is None else t.data_ptr()
+
+
+def _launch(graph: DenseGraph, node, mpred, msucc, active, mode: int, n_valid_dev,
+            outs) -> None:
+    """The ctypes call on the current stream, counted (operands checked by
+    the caller)."""
+    dev = node.device
+    pred_ptr, pred_idx = graph.pred_csr
+    succ_ptr, succ_idx = graph.succ_csr
+    start, finish, level, n_done, q = outs
+    with torch.cuda.device(dev):
+        err = _c_fn(node.dtype)(
+            _ptr(pred_ptr), _ptr(pred_idx), pred_idx.numel(),
+            _ptr(succ_ptr), _ptr(succ_idx), succ_idx.numel(),
+            _ptr(node), _ptr(mpred), _ptr(msucc), _ptr(active),
+            node.shape[0], node.shape[1], int(graph.n), _ptr(n_valid_dev), mode,
+            _ptr(start), _ptr(finish), _ptr(level), _ptr(n_done), _ptr(q),
+            torch.cuda.current_stream(dev).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"schedule_dp kernel launch failed: CUDA error {err}")
+    _count(sweep)
 
 
 def _as_i32(t):
@@ -360,6 +428,7 @@ def sweep(graph: DenseGraph, dur, mpred, msucc, *, tails: bool = True):
 
 
 sweep.launches = 0  # kernel launches made through this module's wrappers
+sweep.captured = 0  # launches recorded into CUDA graphs (counted at replay)
 
 
 def backward_q(graph: DenseGraph, dur, msucc, active_rows=None):
@@ -375,3 +444,122 @@ def backward_q(graph: DenseGraph, dur, msucc, active_rows=None):
     act = None if active_rows is None else active_rows.reshape(-1, 1).bool()
     return backward_q_torch(torch.as_tensor(graph.succ_mat, device=dur.device),
                             dur, msucc, graph.n, act)
+
+
+class SweepLaunch:
+    """One K1 call site of a round that a CUDA graph records.
+
+    ``graph`` (its tensors on the device the round runs on) and ``rows``
+    fix the launch shape; ``mode`` is :data:`MODE_FORWARD` (``__call__(dur,
+    mpred)`` → ``(start, finish, n_done)``) or :data:`MODE_BACKWARD`
+    (``__call__(dur, msucc, active)`` → ``q``, zeros on rows whose
+    ``active`` is false).  ``n_valid`` is a one-element int32 tensor beside
+    the graph holding the real task count: the kernel reads it on the
+    device, so the recorded launch serves any instance whose arrays are
+    copied into the same buffers.
+
+    On the card the operands are checked at the first call and the outputs
+    are allocated once; every call writes the same output tensors, which
+    the caller consumes before its next call on the stream.  So a call is
+    the ctypes launch alone, and a captured round pays no host work per
+    replay.  On the CPU a call runs the plain version.
+    """
+
+    def __init__(self, graph: DenseGraph, rows: int, mode: int, n_valid,
+                 dtype: torch.dtype = torch.float64):
+        if mode not in (MODE_FORWARD, MODE_BACKWARD):
+            raise ValueError(f"mode must be MODE_FORWARD or MODE_BACKWARD, got {mode}")
+        dev = n_valid.device
+        self.graph, self.rows, self.mode, self.n_valid = graph, int(rows), mode, n_valid
+        self.dtype, self.device = dtype, dev
+        self._checked = False
+        if dev.type != "cuda":
+            return
+        if dtype not in _FN_BY_DTYPE:
+            raise TypeError(f"dtype must be float32 or float64, got {dtype}")
+        if graph.n_b > MAX_TASKS:
+            raise ValueError(f"n_b={graph.n_b}: the kernel holds at most {MAX_TASKS} tasks per row")
+        _graph_csr(graph, dev)
+        _check("n_valid", n_valid, torch.int32, (1,), dev)
+        b, n_b = self.rows, graph.n_b
+        if mode == MODE_FORWARD:
+            self.outs = (torch.empty((b, n_b), dtype=dtype, device=dev),
+                         torch.empty((b, n_b), dtype=dtype, device=dev),
+                         torch.empty((b, n_b), dtype=torch.int32, device=dev),
+                         torch.empty((b,), dtype=torch.int32, device=dev), None)
+        else:
+            self.outs = (None, None, None, None,
+                         torch.empty((b, n_b), dtype=dtype, device=dev))
+
+    def __call__(self, dur, links, active=None):
+        g, fwd = self.graph, self.mode == MODE_FORWARD
+        if self.device.type != "cuda":       # the plain versions, as sweep routes them
+            g = dataclasses.replace(g, n=int(self.n_valid))
+            if fwd:
+                start, finish, _, n_done, _ = sweep(g, dur, links, None, tails=False)
+                return start, finish, n_done
+            return backward_q(g, dur, links, active)
+        if links.dtype != torch.int32:
+            links = links.to(torch.int32)
+        act = None if active is None else active.to(torch.uint8)
+        if not self._checked:
+            shape = (self.rows, g.n_b)
+            _check("dur", dur, self.dtype, shape, self.device)
+            _check("mpred" if fwd else "msucc", links, torch.int32, shape, self.device)
+            if act is not None:
+                _check("active_rows", act, torch.uint8, (self.rows,), self.device)
+            self._checked = True
+        _launch(g, dur, links if fwd else None, None if fwd else links, act, self.mode,
+                self.n_valid, self.outs)
+        if fwd:
+            start, finish, _, n_done, _ = self.outs
+            return start, finish, n_done
+        return self.outs[4]
+
+
+# --------------------------------------------------------------------------- #
+# sequential row prefix sums                                                   #
+# --------------------------------------------------------------------------- #
+def seq_cumsum_torch(v):
+    """``(rows, e)`` → ``(rows, e + 1)``: a zero column, then each row's
+    prefix sums.  On the CPU ``torch.cumsum`` adds left to right in the
+    working type, as ``np.cumsum`` does (the tests hold them bit for bit)."""
+    zero = torch.zeros((v.shape[0], 1), dtype=v.dtype, device=v.device)
+    return torch.cat([zero, torch.cumsum(v, dim=1)], dim=1)
+
+
+@functools.cache
+def _cumsum_fn():
+    from . import _build
+
+    fn = _build.load("schedule_dp").schedule_dp_seq_cumsum_f64
+    p, i = ctypes.c_void_p, ctypes.c_int
+    fn.argtypes = [p, p, i, i, p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def seq_cumsum(v):
+    """Row prefix sums of a float64 ``(rows, e)`` tensor, each row added
+    strictly left to right, with a leading zero column: ``(rows, e + 1)``.
+    A CUDA tensor launches the kernel (counted in ``seq_cumsum.launches``,
+    or ``seq_cumsum.captured`` inside a CUDA graph capture); a CPU tensor
+    runs :func:`seq_cumsum_torch`."""
+    if not v.is_cuda:
+        return seq_cumsum_torch(v)
+    if v.dtype != torch.float64 or v.dim() != 2:
+        raise TypeError(f"seq_cumsum takes a 2-d float64 tensor, got {v.dtype} {tuple(v.shape)}")
+    v = v.contiguous()
+    rows, e = v.shape
+    out = torch.empty((rows, e + 1), dtype=v.dtype, device=v.device)
+    with torch.cuda.device(v.device):
+        err = _cumsum_fn()(v.data_ptr(), out.data_ptr(), rows, e,
+                           torch.cuda.current_stream(v.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"seq_cumsum kernel launch failed: CUDA error {err}")
+    _count(seq_cumsum)
+    return out
+
+
+seq_cumsum.launches = 0
+seq_cumsum.captured = 0

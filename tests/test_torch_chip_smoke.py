@@ -1,7 +1,9 @@
 """The plumbing of ``chip_smoke.py`` that needs no GPU: its refusal to run
 without one, the candidate batches it builds, the byte/operation bounds it
-computes (K1 to K4), the host-phase timers it wraps around the search round,
-the launch counts it expects of each served arch, and its ``kernels`` line."""
+computes (K1 to K4, seq_cumsum), the host-phase timers it wraps around the
+search round and the device engine, the device path's parity check and K1
+call, the launch counts it expects of each served arch, and its ``kernels``
+line."""
 import importlib.util
 import pathlib
 import subprocess
@@ -120,6 +122,118 @@ def test_host_timers_cover_the_round_and_restore_what_they_wrap(smoke):
     assert log.max_rows > 0 and log.max_levels > 0
     log.reset()
     assert log.calls["evaluate"] == 0 and log.max_rows == 0
+
+
+# --------------------------------------------------------------------------- #
+# device path: the timers, the parity check, seq_cumsum's operands and bound #
+# --------------------------------------------------------------------------- #
+def test_device_timers_cover_the_device_run_and_restore_what_they_wrap(smoke):
+    from repro_torch.core import api
+    from repro_torch.core import device_search as ds
+
+    before = (api.multiwalk_inits, ds.memory_update, ds.exact_schedule, ds._Launch.run,
+              ds._Launch._capture)
+    inst = random_instance(0, n_tasks=40, n_data=90)
+    kw = dict(walks=2, seed=0, torch_device="cpu", device={"sync_every": 4},
+              params=TSParams(top_k=10, max_unimproved=10**9, time_limit=10**9, max_iters=9))
+    plain = solve(inst, "tabu_device", **kw)
+    with smoke.HostTimers(smoke.device_targets()) as log:
+        t0 = time.perf_counter()
+        rep = solve(inst, "tabu_device", **kw)
+        host = log.breakdown(time.perf_counter() - t0)
+    assert (rep.makespan, rep.history) == (plain.makespan, plain.history)
+    assert before == (api.multiwalk_inits, ds.memory_update, ds.exact_schedule,
+                      ds._Launch.run, ds._Launch._capture)
+    # Alg-3 on the two inits and at the two syncs before the budget ends
+    assert host["memory_update"]["calls"] >= 2 + 2 * 2
+    assert host["sync_period"]["calls"] == 3 and host["capture"]["calls"] == 0
+    assert host["exact_schedule"]["calls"] > 0 and host["greedy_inits"]["calls"] == 1
+    assert smoke.walk_iters_per_s(8, 30, 2.0) == 120.0
+
+
+def test_same_trajectory_compares_what_parity_means(smoke):
+    from repro_torch.core import device_search as ds
+    from repro_torch.core.api import multiwalk_inits
+    from repro_torch.core.tabu import tabu_multiwalk
+
+    inst = random_instance(2, n_tasks=40, n_data=90)
+    inits, _ = multiwalk_inits(inst, 2, 0)
+    p = TSParams(top_k=5, max_unimproved=15, time_limit=10**9, max_iters=12, seed=0,
+                 mem_update_period=ds.MEM_UPDATE_DISABLED, torch_device="cpu")
+    ref = tabu_multiwalk(inst, [s.copy() for s in inits], TSParams(**{
+        **{f: getattr(p, f) for f in ("top_k", "max_unimproved", "time_limit", "max_iters",
+                                      "seed", "mem_update_period")}, "backend": "numpy"}))
+    dev = ds.device_multiwalk(inst, [s.copy() for s in inits], p,
+                              config=ds.DeviceConfig(sync_every=8))
+    assert smoke.same_trajectory(dev, ref)
+    short = ds.device_multiwalk(inst, [s.copy() for s in inits],
+                                TSParams(**{**p.__dict__, "max_iters": 6}),
+                                config=ds.DeviceConfig(sync_every=8))
+    assert not smoke.same_trajectory(short, ref)
+
+
+@pytest.mark.parametrize("windows, passes", [
+    ([(24, 32)], True),                        # the capture's nodes x 8 replays
+    ([(23, 32), (24, 32)], True),              # a window that dropped a record, retaken
+    ([(0, 0)] * 3, False),                     # the replays ran no K1
+    ([(24, 31)] * 3, False),
+])
+def test_replayed_round_profile_holds_the_launches_to_the_capture(smoke, monkeypatch,
+                                                                  windows, passes):
+    """The launches the profiler sees in replays must be the captured
+    round's nodes times the replays, in one of at most three windows."""
+    replayed, seen = [], iter(windows)
+
+    class Launch:
+        class graph:
+            @staticmethod
+            def replay():
+                replayed.append(1)
+
+    def breakdown(fn, top):
+        fn()
+        k1, cs = next(seen)
+        return {"by_class": {"K1 schedule_dp": {"launches": k1, "ms": 1.0},
+                             "seq_cumsum": {"launches": cs, "ms": 1.0}}}
+
+    monkeypatch.setattr(smoke, "device_breakdown", breakdown)
+    stats = {"k1_per_round": 3, "seq_cumsum_per_round": 4}
+    if passes:
+        prof, counts = smoke.replayed_round_profile(Launch, stats, replays=8)
+        assert counts[-1] == {"K1 schedule_dp": 24, "seq_cumsum": 32}
+        assert len(counts) == len(windows) and len(replayed) == 8 * len(windows)
+    else:
+        with pytest.raises(AssertionError, match="the capture recorded"):
+            smoke.replayed_round_profile(Launch, stats, replays=8)
+        assert len(replayed) == 24
+
+
+def test_cumsum_operands_and_bound(smoke):
+    from repro_torch.instances import pack_instance
+
+    inst = random_instance(0, n_tasks=40, n_data=90)
+    ip = pack_instance(inst)
+    v = smoke.cumsum_operands(inst, 12, 0, torch.device("cpu"))
+    assert v.shape == (12, len(ip.in_idx)) and v.dtype == torch.float64
+    e = len(inst.in_idx)
+    assert (v[:, :e] > 0).all() and not v[:, e:].any()     # zeros past the real edges
+    got = sdp.seq_cumsum(v)
+    want = np.concatenate([np.zeros((12, 1)), np.cumsum(v.numpy(), axis=1)], axis=1)
+    assert np.array_equal(got.numpy(), want)
+    bound = smoke.cumsum_bound(v)
+    rows, width = v.shape
+    assert bound["bytes"] == 8 * rows * width + 8 * rows * (width + 1)
+    assert bound["operations"] == rows * width
+    assert bound["bound_ms"] == max(bound["bytes_ms"], bound["ops_ms"])
+    assert bound["bound_by"] == "bytes"
+
+
+def test_sweep_launch_check_holds_the_device_call_against_the_plain_version(smoke, operands):
+    _, _, graph, dur, mpred, msucc = operands
+    _, _, _, n_done, _ = sdp.sweep(graph, dur, mpred, msucc, tails=False)
+    active = n_done == graph.n
+    active[::2] = False
+    assert smoke.check_sweep_launch(graph, dur, mpred, msucc, active) == 0.0
 
 
 # --------------------------------------------------------------------------- #
@@ -242,7 +356,9 @@ def test_operands_have_the_asked_shapes_and_types(smoke):
     ("(anonymous namespace)::tc::ssd_chunk_mma_kernel(Params, int)", "K4"),
     ("sm90_xmma_gemm_bf16bf16_bf16f32_f32_tn_n_tilesize128x128x64", "matmul"),
     ("nvjet_tst_128x256_64x4_1x2_h_bz_coopA_NTT", "matmul"),
-    ("void at::native::vectorized_elementwise_kernel<4, ...>", "elementwise")])
+    ("void at::native::vectorized_elementwise_kernel<4, ...>", "elementwise"),
+    ("void (anonymous namespace)::sweep_kernel<double, true>(int const*, ...)", "K1"),
+    ("(anonymous namespace)::seq_cumsum_kernel(double const*, double*, int)", "seq_cumsum")])
 def test_profile_classes_name_the_kernels(smoke, name, cls):
     assert smoke._kernel_class(name).startswith(cls)
 
@@ -400,11 +516,12 @@ def smoke_report(smoke):
 
 def test_kernels_line_lists_every_kernel_with_its_keys(smoke):
     names = [k[0] for k in smoke.KERNELS]
-    assert names == ["schedule_dp", "flash_attention", "rglru_scan", "ssd_chunked"]
+    assert names == ["schedule_dp", "flash_attention", "rglru_scan", "ssd_chunked",
+                     "seq_cumsum"]
     times = {n: {"ms": 1.0 + i, "plain_ms": 2.0, "bound_ms": 0.5, "bound_by": "bytes",
                  "library_ms": None} for i, n in enumerate(names)}
     entries = smoke.kernel_entries(
-        launches=dict(zip(names, (30, 8, 576, 1536))), errs=dict.fromkeys(names, 0.0),
+        launches=dict(zip(names, (30, 8, 576, 1536, 1000))), errs=dict.fromkeys(names, 0.0),
         times=times, extras={"ssd_chunked": {"decode_step_ms": 0.01}})
     assert [e["name"] for e in entries] == names
     keys = {"name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
@@ -415,7 +532,14 @@ def test_kernels_line_lists_every_kernel_with_its_keys(smoke):
         path, line = e["replaces"].split(":")
         src = (ROOT / path).read_text().splitlines()
         assert src[int(line) - 1].startswith("def "), e["replaces"]
-        assert "pallas_call" in (ROOT / path).read_text()
+        # a helper has no TPU kernel: it names the reference function it
+        # replaces, which reaches no pallas_call
+        assert ("pallas_call" in (ROOT / path).read_text()) != e.get("helper", False)
+    helper = entries[4]
+    assert helper["replaces"] == "src/repro/core/device_search.py:199"
+    assert helper["tpu_kernel"] is None and "_seq_cumsum" in (ROOT / "src/repro/core/"
+                                                              "device_search.py").read_text(
+    ).splitlines()[198]
     k4 = entries[3]
     assert k4["replaces"] == "src/repro/kernels/ssd.py:75" and k4["launches"] == 1536
     assert k4["library_ms"] is None and k4["decode_step_ms"] == 0.01

@@ -121,8 +121,11 @@ def test_backend_and_device_names_are_checked():
     assert eb.BACKENDS == ("torch", "numpy", "scalar")
     with pytest.raises(ValueError, match="backend must be one of"):
         BatchEvaluator(pinst, backend="jax", device="cpu")
-    with pytest.raises(ValueError, match="A2"):
+    assert eb.check_backend("device") == "device"      # the search's own engine
+    with pytest.raises(ValueError, match="no per-batch evaluator"):
         BatchEvaluator(pinst, backend="device", device="cpu")
+    with pytest.raises(ValueError, match="backend must be one of"):
+        eb.check_backend("jax")
     with pytest.raises(ValueError, match="'cuda' or 'cpu'"):
         BatchEvaluator(pinst, backend="torch", device="meta")
     assert resolve_device("cpu") == torch.device("cpu")

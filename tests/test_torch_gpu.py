@@ -7,7 +7,10 @@ Mamba-2 SSD kernel (1e-4 relative in float32; y 2e-2 relative, h_last 1e-4
 with bfloat16 x/B/C, a prefill on the tensor cores) against their plain
 versions, which kernel each input takes (the entry point its wrapper resolves), and
 smoke-size recurrentgemma-2b and mamba2-780m models served on the card
-against the CPU (same ids, logits within 1e-4).  They import the port only
+against the CPU (same ids, logits within 1e-4), and the device-resident
+search (its round captured as a CUDA graph) against the same search on the
+CPU, bit for bit, with its sequential prefix-sum kernel against
+``np.cumsum``.  They import the port only
 (no JAX, no reference package), skip with a reason where there is no GPU,
 and run on the card with::
 
@@ -19,11 +22,12 @@ import numpy as np
 import pytest
 import torch
 
+from repro_torch.core import device_search as ds
 from repro_torch.core import random_instance
 from repro_torch.core.eval_batch import BatchEvaluator, pack_solutions
-from repro_torch.core.greedy import construct_greedy
+from repro_torch.core.greedy import STRATEGIES, construct_greedy
 from repro_torch.core.solution import exact_schedule, heads_tails
-from repro_torch.core.tabu import _cc_moves, _n7_moves, apply_move
+from repro_torch.core.tabu import TSParams, _cc_moves, _n7_moves, apply_move, tabu_search
 from repro_torch.kernels import schedule_dp as sdp
 
 pytestmark = pytest.mark.gpu
@@ -691,3 +695,159 @@ def _teacher_forced(cfg, model, prompts, ids, device):
         logits, cache = arch_decode_step(cfg, model, cache, ids[:, i:i + 1], plen + i)
         out.append(logits.float())
     return out
+
+
+# --------------------------------------------------------------------------- #
+# the device-resident search: the round as a CUDA graph that launches K1     #
+# --------------------------------------------------------------------------- #
+def _same_result(a, b):
+    assert a.history == b.history
+    assert a.best_makespan == b.best_makespan
+    assert (a.iterations, a.n_exact_evals, a.n_approx_evals, a.n_perturbations,
+            a.stop_reason) == (b.iterations, b.n_exact_evals, b.n_approx_evals,
+                               b.n_perturbations, b.stop_reason)
+    for wa, wb in zip(a.per_walk, b.per_walk):
+        assert wa.history == wb.history and wa.best_makespan == wb.best_makespan
+        assert np.array_equal(wa.best.assign, wb.best.assign)
+        assert np.array_equal(wa.best.mem, wb.best.mem)
+        assert wa.best.proc_seq == wb.best.proc_seq
+
+
+@pytest.mark.parametrize("walks", [1, 8])
+def test_device_search_on_the_card_equals_the_cpu_bit_for_bit(cuda_device, walks):
+    """Two cores and four tasks: the tabu table saturates, so walks stall
+    and the perturbation fires (its branch is on the card as on the CPU)."""
+    inst = random_instance(0, n_tasks=4, n_data=8, n_fast_cores=1, n_slow_cores=1)
+    inits = [construct_greedy(inst, STRATEGIES[w % 4], rng=3 + w) for w in range(walks)]
+    kw = dict(seed=3, max_unimproved=10**6, time_limit=1e9, top_k=4, max_iters=40,
+              mem_update_period=ds.MEM_UPDATE_DISABLED)
+    cfg = ds.DeviceConfig(sync_every=16, crit_cap=32)
+    cpu = ds.device_multiwalk(inst, [s.copy() for s in inits],
+                              TSParams(torch_device="cpu", **kw), config=cfg)
+    gpu = ds.device_multiwalk(inst, [s.copy() for s in inits],
+                              TSParams(torch_device="cuda", **kw), config=cfg)
+    assert gpu.n_perturbations > 0
+    _same_result(gpu, cpu)
+
+
+def test_device_search_with_alg3_at_syncs_equals_the_cpu(cuda_device):
+    inst = random_instance(5, n_tasks=64, n_data=150)
+    inits = [construct_greedy(inst, STRATEGIES[w % 4], rng=5 + w) for w in range(8)]
+    kw = dict(seed=5, max_unimproved=12, time_limit=1e9, top_k=4, max_iters=24)
+    cfg = ds.DeviceConfig(sync_every=8)
+    cpu = ds.device_multiwalk(inst, [s.copy() for s in inits],
+                              TSParams(torch_device="cpu", **kw), config=cfg)
+    gpu = ds.device_multiwalk(inst, [s.copy() for s in inits],
+                              TSParams(torch_device="cuda", **kw), config=cfg)
+    _same_result(gpu, cpu)
+
+
+def test_replayed_round_reads_nothing_back_and_launches_k1_as_its_code_says(cuda_device):
+    inst = random_instance(1, n_tasks=48, n_data=120)
+    params = TSParams(seed=1, max_unimproved=10**6, time_limit=1e9, top_k=5, max_iters=50,
+                      mem_update_period=ds.MEM_UPDATE_DISABLED, torch_device="cuda")
+    inits = [construct_greedy(inst, STRATEGIES[w % 4], rng=1 + w) for w in range(3)]
+    k1, cs = sdp.sweep.launches, sdp.seq_cumsum.launches
+    res = ds.device_multiwalk(inst, inits, params, config=ds.DeviceConfig(sync_every=16))
+    st = res.device_stats
+    assert st["k1_launches"] == sdp.sweep.launches - k1 > 0
+    assert st["k1_per_round"] == 1 + st["chunk_cap"] + 1     # tails, J chunks, perturbation
+    assert st["seq_cumsum_per_round"] == 2 * (st["k1_per_round"] - 1)
+    assert sdp.seq_cumsum.launches - cs == st["seq_cumsum_launches"] > 0
+    # replays alone, with every synchronising call an error
+    batch = ds.InstanceBatch.from_instances([inst])
+    sols, scheds = ds._start_walks([inst], [inits], params)
+    launch, _ = ds._get_launch(batch, 3, params, batch.n_b, 1,
+                               ds.DeviceConfig(sync_every=16), cuda_device)
+    launch.load_instances(batch)
+    launch.load_state({k: np.stack([v]) for k, v in
+                       ds.pack_state(batch.packs[0], sols[0], scheds[0], 1).items()})
+    if launch.graph is None:
+        launch._capture()
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for _ in range(4):
+            launch.graph.replay()
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    # four rounds committed, unless the one exact-evaluation chunk overflowed
+    it = int(launch.state["it"][0])
+    assert it == 4 or (it < 4 and bool(launch.state["chunk_overflow"][0]))
+    # the kernels the card ran in two more replays, as the profiler saw them
+    ran = profiled_kernel_counts(lambda: [launch.graph.replay() for _ in range(2)])
+    assert ran.get("sweep_kernel", 0) == 2 * launch.k1_per_round
+    assert ran.get("seq_cumsum", 0) == 2 * launch.cumsum_per_round
+
+
+def profiled_kernel_counts(fn) -> dict:
+    """Launches of K1 (``sweep_kernel``) and ``seq_cumsum`` that
+    ``torch.profiler`` records on the card while ``fn`` runs."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    counts = {}
+    for e in prof.key_averages():
+        if str(e.device_type).endswith("CUDA"):
+            for name in ("sweep_kernel", "seq_cumsum"):
+                if name in e.key:
+                    counts[name] = counts.get(name, 0) + e.count
+    return counts
+
+
+def test_same_bucket_instances_share_one_captured_round(cuda_device):
+    """Two instances of one bucket through one cached graph, each against
+    the port's NumPy search (a stale instance buffer would show)."""
+    kw = dict(seed=3, max_unimproved=15, time_limit=1e9, top_k=5, max_iters=40,
+              mem_update_period=ds.MEM_UPDATE_DISABLED)
+    cfg = ds.DeviceConfig(sync_every=16, crit_cap=32)
+    insts = [random_instance(s, n_tasks=40, n_data=100) for s in (0, 4)]
+    hits = []
+    for inst in insts:
+        init = construct_greedy(inst, "slack_first", rng=3)
+        ref = tabu_search(inst, init.copy(), TSParams(backend="numpy", **kw))
+        dev = ds.device_multiwalk(inst, [init.copy()], TSParams(torch_device="cuda", **kw),
+                                  config=cfg)
+        assert dev.history == ref.history and dev.n_exact_evals == ref.n_exact_evals
+        hits.append(ds.launch_cache_info()["hits"])
+    assert hits[1] > hits[0]
+    inits = [[construct_greedy(i, "slack_first", rng=3)] for i in insts]
+    both = ds.solve_instances(insts, inits, TSParams(torch_device="cuda", **kw), config=cfg)
+    for inst, il, res in zip(insts, inits, both):
+        solo = ds.device_multiwalk(inst, [s.copy() for s in il],
+                                   TSParams(torch_device="cpu", **kw), config=cfg)
+        assert res.history == solo.history and res.n_exact_evals == solo.n_exact_evals
+
+
+def test_warm_launches_captures_what_solve_instances_then_replays(cuda_device):
+    inst = random_instance(6, n_tasks=56, n_data=130)     # a shape no other test uses
+    kw = dict(seed=6, max_unimproved=15, time_limit=1e9, top_k=5, max_iters=20,
+              mem_update_period=ds.MEM_UPDATE_DISABLED)
+    cfg = ds.DeviceConfig(sync_every=8, crit_cap=64)
+    warm = ds.warm_launches([inst], 2, TSParams(torch_device="cuda", **kw), config=cfg,
+                            batch_sizes=(1,))
+    assert warm["per_size"][1]["fresh"] and warm["compile_seconds"] > 0
+    inits = [[construct_greedy(inst, s, rng=6) for s in ("slack_first", "r_first")]]
+    res = ds.solve_instances([inst], inits, TSParams(torch_device="cuda", **kw), config=cfg)[0]
+    cpu = ds.solve_instances([inst], [[s.copy() for s in inits[0]]],
+                             TSParams(torch_device="cpu", **kw), config=cfg)[0]
+    assert res.history == cpu.history and res.n_exact_evals == cpu.n_exact_evals
+    # the warmed round served the run: nothing was captured again, unless
+    # its one exact-evaluation chunk overflowed
+    assert res.compile_seconds == 0.0 or res.device_stats["chunk_cap"] > 1
+
+
+@pytest.mark.parametrize("width", [1, 31, 128, 255, 256, 257, 1280, 3072, 4096])
+def test_seq_cumsum_kernel_equals_plain_version_and_numpy(cuda_device, width):
+    rng = np.random.default_rng(width)
+    v = rng.random((80, width)) * rng.integers(1, 15000, (80, width))
+    v[:, ::7] = 0.0
+    got = sdp.seq_cumsum(torch.from_numpy(v).to(cuda_device))
+    torch.cuda.synchronize()
+    want = np.concatenate([np.zeros((80, 1)), np.cumsum(v, axis=1)], axis=1)
+    assert np.array_equal(got.cpu().numpy(), want)
+    assert torch.equal(got.cpu(), sdp.seq_cumsum_torch(torch.from_numpy(v)))

@@ -1,5 +1,7 @@
-"""The port stands alone: importing and running it pulls in neither JAX nor
-the reference package, and no source file of it names either."""
+"""The port stands alone: importing and running it (the solvers, the
+device-resident search and its instance packing among them) pulls in
+neither JAX nor the reference package, and no source file of it names
+either."""
 import pathlib
 import re
 import subprocess
@@ -11,6 +13,8 @@ PORT = ROOT / "src" / "repro_torch"
 _PROBE = """
 import sys
 import repro_torch
+import repro_torch.core.device_search
+import repro_torch.instances.batch
 import repro_torch.kernels.ops
 import repro_torch.kernels.ssd
 import repro_torch.launch.model_serve
@@ -22,6 +26,8 @@ inst = random_instance(0, n_tasks=24, n_data=50)
 rep = solve(inst, "tabu_multiwalk", walks=2, budget=Budget(max_iters=3),
             torch_device="cpu")
 assert rep.makespan > 0
+rep = solve(inst, "tabu_device", walks=2, budget=Budget(max_iters=3), torch_device="cpu")
+assert rep.extras["backend"] == "device"
 ids = repro_torch.launch.model_serve.serve_main(
     ["--smoke", "--device", "cpu", "--batch", "2", "--prompt-len", "70", "--gen", "3"])
 assert ids.shape == (2, 3)
@@ -81,5 +87,4 @@ def test_public_surface_matches_reference():
     import repro_torch
 
     assert set(repro.__all__) == set(repro_torch.__all__)
-    ported = set(repro_torch.list_solvers())
-    assert ported == set(repro.list_solvers()) - {"tabu_device"}
+    assert set(repro_torch.list_solvers()) == set(repro.list_solvers())

@@ -122,11 +122,22 @@ def test_default_device_is_the_gpu_and_its_absence_raises():
 
 
 def test_unported_engine_names_raise():
+    """The device engine routes now (``backend="device"``, ``"tabu_device"``);
+    what of its surface the port still lacks raises, naming its ROADMAP
+    item, and its options need the engine."""
+    from repro_torch.core.device_search import device_multiwalk
+    from repro_torch.core.greedy import construct_greedy
+
     inst = repro_torch.core.random_instance(0, n_tasks=31, n_data=60)
-    with pytest.raises(ValueError, match="A2"):
-        repro_torch.solve(inst, "tabu_multiwalk", backend="device", torch_device="cpu")
-    with pytest.raises(ValueError, match="not ported"):
+    budget = repro_torch.Budget(max_iters=3)
+    rep = repro_torch.solve(inst, "tabu_multiwalk", backend="device", walks=2,
+                            budget=budget, torch_device="cpu")
+    assert rep.extras["backend"] == "device" and rep.iterations <= 3
+    assert repro_torch.solve(inst, "tabu_device", walks=2, budget=budget,
+                             torch_device="cpu").makespan == rep.makespan
+    with pytest.raises(ValueError, match="requires backend='device'"):
         repro_torch.solve(inst, "tabu_multiwalk", device={"sync_every": 8},
                           torch_device="cpu")
-    with pytest.raises(KeyError, match="tabu_device"):
-        repro_torch.solve(inst, "tabu_device")
+    with pytest.raises(NotImplementedError, match="A6"):
+        device_multiwalk(inst, [construct_greedy(inst, "slack_first", rng=0)],
+                         TSParams(torch_device="cpu"), on_checkpoint=print)
