@@ -11,6 +11,11 @@ every kernel against its plain PyTorch version on the card:
   through the schedule-DP kernel (K1), and ``solve(inst, "tabu_device")``,
   the device-resident search, whose round is captured as a CUDA graph that
   launches K1 and the sequential prefix-sum kernel (``seq_cumsum``);
+* the scheduling-solve service: ``repro_torch.serve.SolveService`` at the
+  reference's full serving profile (36 requests of three families, 70-80
+  tasks, 4 walks, 20 iterations, Poisson arrivals at 4/s), its batches
+  through ``solve_instances``' captured rounds (K1, ``seq_cumsum``), a fault
+  lane, and the ``table2`` suite swept on the device engine;
 * model serving: recurrentgemma-2b at its published width (26 layers, d 2560,
   vocab 256000), random bf16 parameters from seed 0, batch 4, 4096-token
   prompts (twice the attention window), 32 greedy tokens, through the flash
@@ -59,6 +64,17 @@ Phases, one JSON line each:
                  bound (K4's at the precision it computes in, and at the fp32
                  rate), for K2 PyTorch's scaled_dot_product_attention, and
                  the K3 and K4 decode steps beside their bounds
+  solve_service  the solve service: warm-up (one WarmSpec per signature
+                 class), the Poisson trace with no capture during traffic,
+                 the K1 / seq_cumsum launches of the served run, one served
+                 cut under the profiler (its K1 launches = captured nodes x
+                 rounds), every report certified and bit-identical to its
+                 solo tabu_device solve (the solo loop timed cold and warm),
+                 the first 12 requests again under a seeded fault plan of
+                 every kind with a watchdog (every request one terminal
+                 state, survivors equal to their solo solves, no launch
+                 failing but by an injected fault), and the table2 sweep on
+                 the device engine against the NumPy engine
 
 then a ``{"kernels": [...]}`` line, the card's ``nvidia-smi`` line, and last
 ``{"ok": true, "device": {...}}``.  Any failure raises: the exit code is
@@ -67,6 +83,7 @@ non-zero and the last line is not printed.  Without a GPU it exits non-zero.
 """
 from __future__ import annotations
 
+import collections
 import contextlib
 import functools
 import json
@@ -528,7 +545,8 @@ def phase_device_path(device, tabu_multiwalk_wall: float):
                                    ds.DeviceConfig(), device)
     if fresh or launch.graph is None:
         raise AssertionError("the device path's launch is not in the cache")
-    round_ms = cuda_median_ms(launch.graph.replay, reps=20, warmup=2)
+    with host_syncs_are_errors():
+        round_ms = cuda_median_ms(launch.graph.replay, reps=20, warmup=2)
     round_profile, profiled = replayed_round_profile(launch, st, replays=8)
     ip = batch.packs[0]
     base = solve(inst, "load_balance", seed=0).makespan
@@ -566,9 +584,9 @@ def phase_device_path(device, tabu_multiwalk_wall: float):
              "stream, then the recording); round_ms: median of 20 replays of the captured "
              "round, CUDA events; round_profile: torch.profiler over 8 replays, its K1 and "
              "seq_cumsum launches held to 8 x the captured round's nodes "
-             "(round_launches_profiled: each window taken, at most 3); replays run under "
-             "torch.cuda.set_sync_debug_mode('error') (host_syncs_in_replay is 0 or the run "
-             "raised); k1_launches / seq_cumsum_launches: the round's nodes x the rounds "
+             "(round_launches_profiled: each window taken, at most 3); the round_ms replays "
+             "run under torch.cuda.set_sync_debug_mode('error'), as does each capture's "
+             "eager first round (host_syncs_in_replay is 0 or the run raised); k1_launches / seq_cumsum_launches: the round's nodes x the rounds "
              "replayed, plus the eager first round of each capture; parity: "
              "device_multiwalk and the NumPy tabu_multiwalk on the same 8 greedy starts, "
              "built before the clock starts, every run held to the first NumPy run's "
@@ -579,6 +597,20 @@ def phase_device_path(device, tabu_multiwalk_wall: float):
              "max_memory_allocated: peak over the parity runs (the captures) and this "
              "run; memory_reserved: the allocator's holding after it")
     return {"schedule_dp": k1, "seq_cumsum": cs}
+
+
+@contextlib.contextmanager
+def host_syncs_are_errors():
+    """Every synchronising call raises inside the block (a process-wide
+    debug mode: the caller runs nothing else on the card meanwhile)."""
+    import torch
+
+    prev = torch.cuda.get_sync_debug_mode()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        yield
+    finally:
+        torch.cuda.set_sync_debug_mode(prev)
 
 
 def replayed_round_profile(launch, stats: dict, replays: int):
@@ -683,6 +715,587 @@ def phase_seq_cumsum(device, rows: int) -> dict:
              "torch_cumsum_on_card_max_abs_err: how far the card's torch.cumsum lands "
              "from the sequential sums")
     return out
+
+
+# --------------------------------------------------------------------------- #
+# the scheduling-solve service                                                #
+# --------------------------------------------------------------------------- #
+# a serving profile: a mixed-family trace (``families``: (family, generator
+# kwargs) pairs) with Poisson arrivals at ``rate`` per second, its search
+# shape and the engine's launch-shape knobs
+ServeProfile = collections.namedtuple(
+    "ServeProfile",
+    "families n_requests walks max_iters rate batch_sizes sync_every crit_cap")
+
+
+# the reference's full serving profile (benchmarks/serve_bench.py:88-93)
+SERVE_PROFILE = ServeProfile(
+    families=(("random_layered", {"n_tasks": 70, "n_data": 160}),
+              ("out_tree", {"n_tasks": 70}),
+              ("fft", {"width": 16, "stages": 4})),
+    n_requests=36, walks=4, max_iters=20, rate=4.0, batch_sizes=(1, 2, 4, 8),
+    sync_every=8, crit_cap=64)
+SERVE_MAX_WAIT = 0.05          # the reference's BatchPolicy(max_wait=0.05)
+# the fault lane: the trace's first requests again under a seeded plan of
+# every fault kind; the watchdog gives up on a launch before a hang ends
+FAULT_REQUESTS = 12
+# cuts of one request: the NumPy fallback's launches (0.5-1.8 s on a busy
+# host) stay inside the watchdog, so hangs are what is abandoned
+FAULT_PLAN = {"seed": 5, "rate": 0.3, "hang_seconds": 2.5, "skew_seconds": 0.1}
+FAULT_WATCHDOG_S = 2.0
+FAULT_MAX_BATCH = 1
+# the race lane: requests of one launch shape, one of them hung at its
+# launch; the stale run wakes while the fresh lane serves the rest
+RACE_REQUESTS = 12
+RACE_HUNG_RID = 1
+
+
+def serve_params():
+    """The reference's serving search knobs (``serve_bench.serve_params``):
+    iteration-bound budgets, no Algorithm 3 inside the horizon."""
+    from repro_torch.core import TSParams
+    from repro_torch.core.device_search import MEM_UPDATE_DISABLED
+
+    return TSParams(max_unimproved=10**9, time_limit=1e9, top_k=5,
+                    mem_update_period=MEM_UPDATE_DISABLED)
+
+
+def serve_trace(prof: ServeProfile, seed: int = 0):
+    """The reference's deterministic trace (``serve_bench.build_trace``):
+    request ``k`` is family ``k mod 3`` from generator seed ``10000·seed + k``
+    and solved at search seed ``seed + k``; arrival offsets are Poisson."""
+    import numpy as np
+
+    from repro_torch.instances import generate
+
+    rng = np.random.default_rng(seed)
+    items = []
+    for k in range(prof.n_requests):
+        fam, kw = prof.families[k % len(prof.families)]
+        inst = generate(fam, np.random.default_rng(10_000 * seed + k), **kw)
+        items.append({"family": fam, "instance": inst, "seed": seed + k})
+    arrivals = np.cumsum(rng.exponential(1.0 / prof.rate, size=len(items)))
+    return items, arrivals
+
+
+def same_report(a, b) -> bool:
+    """Two ``SolveReport``s are bit-identical: makespan, history, counts, and
+    the solution's assignment, allocation and machine sequences."""
+    import numpy as np
+
+    return ((a.makespan, a.history, a.iterations, a.n_exact_evals, a.n_approx_evals)
+            == (b.makespan, b.history, b.iterations, b.n_exact_evals, b.n_approx_evals)
+            and np.array_equal(a.solution.assign, b.solution.assign)
+            and np.array_equal(a.solution.mem, b.solution.mem)
+            and [list(map(int, s)) for s in a.solution.proc_seq]
+            == [list(map(int, s)) for s in b.solution.proc_seq])
+
+
+def solo_solve(item, prof: ServeProfile, params, torch_device: str, backend: str = "device"):
+    """A request solved alone: ``tabu_device`` at the service's launch knobs,
+    or the NumPy ``tabu_multiwalk`` (the service's fallback backend)."""
+    from repro_torch import Budget, solve
+
+    kw = dict(walks=prof.walks, budget=Budget(max_iters=prof.max_iters), seed=item["seed"],
+              params=params)
+    if backend == "device":
+        return solve(item["instance"], "tabu_device", torch_device=torch_device,
+                     device={"sync_every": prof.sync_every, "crit_cap": prof.crit_cap}, **kw)
+    return solve(item["instance"], "tabu_multiwalk", backend="numpy", **kw)
+
+
+async def run_service(items, arrivals, prof: ServeProfile, params, torch_device: str, *,
+                      on_start=None, plan=None, resilience=None, max_batch=None,
+                      pace: bool = True) -> dict:
+    """``items`` through a device-backend ``SolveService``: one ``WarmSpec``
+    per signature class, warmed at start; then ``on_start(service)``, the
+    requests at their arrival offsets (``pace``) under ``plan``, and every
+    request awaited to its terminal state (a result or a typed error) and
+    its incumbent stream drained."""
+    import asyncio
+
+    from repro_torch import Budget
+    from repro_torch.faults import plan_context
+    from repro_torch.faults.errors import ReproError
+    from repro_torch.serve import (BatchPolicy, EngineConfig, SolveService, WarmSpec,
+                                   launch_signature)
+
+    budget = Budget(max_iters=prof.max_iters)
+    warm, seen = [], set()
+    for item in items:
+        sig = launch_signature(item["instance"], prof.walks, budget)
+        if sig not in seen:
+            seen.add(sig)
+            warm.append(WarmSpec(item["instance"], prof.walks, budget))
+    svc = SolveService(
+        config=EngineConfig(backend="device", sync_every=prof.sync_every,
+                            crit_cap=prof.crit_cap, batch_sizes=prof.batch_sizes,
+                            torch_device=torch_device),
+        policy=BatchPolicy(max_batch=max_batch or max(prof.batch_sizes),
+                           max_wait=SERVE_MAX_WAIT),
+        params=params, warm=warm, resilience=resilience)
+    await svc.start()
+    if on_start is not None:
+        on_start(svc)
+    events: dict = {}
+
+    async def drain(rid):
+        events[rid] = 0
+        async for _ in svc.stream_incumbents(rid):
+            events[rid] += 1
+
+    with plan_context(plan) if plan is not None else contextlib.nullcontext():
+        rids, drains = [], []
+        t0 = time.monotonic()
+        for k, item in enumerate(items):
+            if pace and arrivals[k] > time.monotonic() - t0:
+                await asyncio.sleep(arrivals[k] - (time.monotonic() - t0))
+            rid = await svc.submit(item["instance"], budget, seed=item["seed"],
+                                   walks=prof.walks)
+            rids.append(rid)
+            drains.append(asyncio.ensure_future(drain(rid)))
+        outcomes = []
+        for rid in rids:
+            try:
+                outcomes.append(await asyncio.wait_for(svc.result(rid), timeout=600.0))
+            except ReproError as e:
+                outcomes.append(e)
+        wall = time.monotonic() - t0
+        await asyncio.gather(*drains)
+        metrics = svc.metrics()
+        await svc.shutdown()
+    return {"outcomes": outcomes, "wall_s": wall, "metrics": metrics,
+            "events": [events[r] for r in rids], "signatures": len(seen), "service": svc,
+            "rids": rids}
+
+
+def profiled_cut(engine, items, prof: ServeProfile, served: dict):
+    """One served cut again, through the service's engine with its warm
+    launch, under ``torch.profiler``: the K1 and ``seq_cumsum`` launches on
+    the card must be the launch's captured nodes x the rounds it replayed
+    (at most three windows: the profiler can drop records of one), and its
+    lanes must equal what the service served."""
+    from repro_torch import Budget
+    from repro_torch.core import device_search as ds
+    from repro_torch.serve import Batcher, BatchPolicy, RequestQueue
+
+    budget = Budget(max_iters=prof.max_iters)
+    by_sig: dict = {}
+    for k, item in enumerate(items):
+        by_sig.setdefault(served[k].request.signature, []).append(k)
+    # one request: the profiler's records of a cut grow with its lanes (a
+    # cut of eight replays ~300,000 kernels, slow to gather)
+    ks = max(by_sig.values(), key=len)[:1]
+    q = RequestQueue()
+    for k in ks:
+        q.submit(items[k]["instance"], budget, seed=items[k]["seed"], walks=prof.walks)
+    q.close()
+    asm = engine.assemble(Batcher(q, BatchPolicy(max_batch=len(ks))).cut())
+    seen = []
+    for _ in range(3):
+        cache0 = ds.launch_cache_info()
+        out = []
+        prof_out = device_breakdown(lambda: out.extend(engine.execute(asm)))
+        if ds.launch_cache_info()["misses"] != cache0["misses"]:
+            raise AssertionError("the profiled cut did not replay a warm launch")
+        st = out[0].report.extras["device_stats"]
+        want = {"K1 schedule_dp": st["k1_per_round"] * st["rounds_replayed"],
+                "seq_cumsum": st["seq_cumsum_per_round"] * st["rounds_replayed"]}
+        got = {c: prof_out["by_class"].get(c, {}).get("launches", 0) for c in want}
+        seen.append(got)
+        for k, rr in zip(ks, out):
+            if not same_report(rr.report, served[k].report):
+                raise AssertionError(f"the profiled cut's request {k} differs from its served "
+                                     "report")
+        if got == want and want["K1 schedule_dp"] > 0:
+            return {"requests": len(ks), "padded_to": asm.padded_to,
+                    "rounds_replayed": st["rounds_replayed"],
+                    "k1_per_round": st["k1_per_round"],
+                    "seq_cumsum_per_round": st["seq_cumsum_per_round"],
+                    "launches_profiled": seen, "wall_ms": prof_out["wall_ms"],
+                    "device_busy_ms": prof_out["device_busy_ms"],
+                    "device_idle_share": prof_out["device_idle_share"],
+                    "by_class": prof_out["by_class"]}
+    raise AssertionError(f"one served cut: the profiler saw {seen}, its launch's captured "
+                         f"nodes x rounds are {want}")
+
+
+class FaultLedger:
+    """What the fault lane did: every decision the plan made at a
+    ``fire`` point (its kind, by point), and how every ``Engine.execute``
+    call ended, the abandoned ones included (each a thread of its own)."""
+
+    def __init__(self, plan):
+        self.plan = plan
+        self.fires = collections.Counter()
+        # (backend, seconds, the exception raised or None, the lanes returned or None)
+        self.executes = []
+
+    def __enter__(self):
+        from repro_torch.faults import inject as finj
+
+        self._fire = finj.fire
+
+        def fire(point, key=0, *, rid=None):
+            kind = finj.would_fire(self.plan, "fire", point, key) \
+                if finj.active() is self.plan else None
+            if kind is not None:
+                self.fires[f"{point}:{kind}"] += 1
+            return self._fire(point, key, rid=rid)
+
+        finj.fire = fire
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.faults import inject as finj
+
+        finj.fire = self._fire
+
+    def watch(self, svc) -> None:
+        execute = svc.engine.execute
+
+        def recorded(assembled, callbacks=None):
+            t0 = time.perf_counter()
+            try:
+                out = execute(assembled, callbacks)
+            except BaseException as e:
+                self.executes.append((assembled.backend, time.perf_counter() - t0, e, None))
+                raise
+            self.executes.append((assembled.backend, time.perf_counter() - t0, None, out))
+            return out
+
+        svc.engine.execute = recorded
+
+
+def join_solve_threads(timeout: float) -> int:
+    """Wait for the service's solve-lane threads, the abandoned ones too
+    (their launches run to their end); returns how many were still running."""
+    import threading
+
+    lanes = [t for t in threading.enumerate() if t.name.startswith("serve-solve")]
+    deadline = time.monotonic() + timeout
+    for t in lanes:
+        t.join(max(0.0, deadline - time.monotonic()))
+    if any(t.is_alive() for t in lanes):
+        raise AssertionError("a solve lane did not end")
+    return len(lanes)
+
+
+def fault_lane(items, prof: ServeProfile, params, solos: list, torch_device: str, *,
+               plan_kw: dict = FAULT_PLAN, watchdog: float = FAULT_WATCHDOG_S,
+               retry=None) -> dict:
+    """``items`` served under the plan ``plan_kw`` (every kind, unless it
+    names its kinds) with a watchdog shorter than a hang: every request must
+    end in exactly one terminal state, every survivor must equal its solo
+    solve on the backend that served it, every lane a device launch returned
+    (the abandoned launches' included) must equal its solo ``tabu_device``
+    solve, and no launch may fail but by an injected fault, the stale runs
+    of abandoned launches included.  ``retry`` is the service's
+    ``RetryPolicy`` (its default when None)."""
+    import asyncio
+
+    import torch
+
+    from repro_torch.core import device_search as ds
+    from repro_torch.faults import FaultPlan
+    from repro_torch.faults.errors import (CertifyFailure, CompileTimeout, ReproError)
+    from repro_torch.serve import RequestResult, ResiliencePolicy
+
+    if watchdog >= plan_kw["hang_seconds"]:
+        raise ValueError("the watchdog must give up on a launch before a hang ends")
+    plan = FaultPlan(**plan_kw)
+    policy = ResiliencePolicy(watchdog_deadline=watchdog) if retry is None \
+        else ResiliencePolicy(retry=retry, watchdog_deadline=watchdog)
+    uncached = ds.launch_cache_info()["uncached"]
+    with FaultLedger(plan) as ledger:
+        out = asyncio.run(run_service(
+            items, None, prof, params, torch_device, on_start=ledger.watch, plan=plan,
+            resilience=policy, max_batch=FAULT_MAX_BATCH, pace=False))
+        lanes = join_solve_threads(timeout=600.0)
+    if torch_device != "cpu":
+        torch.cuda.synchronize()            # a sticky CUDA error would raise here
+    uncached = ds.launch_cache_info()["uncached"] - uncached
+    outcomes = out["outcomes"]
+    if len(outcomes) != len(items):
+        raise AssertionError("a request of the fault lane has no terminal state")
+    survivors, failed, numpy_solos = collections.Counter(), collections.Counter(), {}
+    for k, o in enumerate(outcomes):
+        if isinstance(o, ReproError):
+            failed[type(o).__name__] += 1
+            continue
+        if not isinstance(o, RequestResult) or not o.metrics.get("certified"):
+            raise AssertionError(f"fault-lane request {k} ended uncertified: {o!r}")
+        backend = o.metrics["backend"]
+        if backend == "device":
+            want = solos[k]
+        else:
+            want = numpy_solos[k] = solo_solve(items[k], prof, params, torch_device, "numpy")
+        if not same_report(o.report, want):
+            raise AssertionError(f"fault-lane survivor {k} ({backend}) differs from its solo "
+                                 "solve")
+        survivors[backend] += 1
+    k_of = {rid: k for k, rid in enumerate(out["rids"])}
+    device_lanes = 0
+    for backend, _, _, returned in ledger.executes:
+        if backend != "device" or returned is None:
+            continue
+        for item in returned:
+            if isinstance(item, RequestResult):
+                k = k_of[item.request.rid]
+                if not same_report(item.report, solos[k]):
+                    raise AssertionError(f"a device launch returned request {k} unlike its "
+                                         "solo solve")
+                device_lanes += 1
+    real = [e for _, _, e, _ in ledger.executes
+            if e is not None and not (isinstance(e, ReproError) and e.injected)]
+    if real:
+        raise AssertionError(f"a launch failed outside the plan: {real[0]!r}")
+    allowed = (CompileTimeout, CertifyFailure)
+    for o in outcomes:
+        if isinstance(o, ReproError) and not (o.injected or isinstance(o, allowed)):
+            raise AssertionError(f"a request failed outside the plan: {o!r} "
+                                 f"(cause {o.__cause__!r})")
+    res = out["metrics"]["resilience"]
+    if res["watchdog_kills"] < 1:
+        raise AssertionError("the fault lane abandoned no launch")
+    if out["metrics"]["failed"] != sum(failed.values()):
+        raise AssertionError("the service's failure count disagrees with the outcomes")
+    return {"requests": len(items), "survivors": sum(survivors.values()),
+            "survivors_by_backend": dict(survivors), "failed": dict(failed),
+            "resilience": res, "fires": dict(ledger.fires),
+            "device_search_sync_fires": {k.split(":")[1]: v for k, v in ledger.fires.items()
+                                         if k.startswith("device_search.sync:")},
+            "executes": len(ledger.executes),
+            "executes_raised": sum(e is not None for _, _, e, _ in ledger.executes),
+            "execute_s": {b: sorted(round(s, 3) for bb, s, _, _ in ledger.executes if bb == b)
+                          for b in {bb for bb, _, _, _ in ledger.executes}},
+            "device_lanes_returned": device_lanes, "uncached_launches": uncached,
+            "solve_lanes": lanes, "numpy_fallback_survivors": len(numpy_solos),
+            "wall_s": out["wall_s"], "cuda_errors": 0,
+            "plan": {**plan_kw, "kinds": list(plan.kinds),
+                     "points": None if plan.points is None else list(plan.points)},
+            "watchdog_deadline_s": watchdog, "max_batch": FAULT_MAX_BATCH}
+
+
+def one_shape(items, prof: ServeProfile) -> list:
+    """The indices of the trace's largest class of one launch signature."""
+    from repro_torch import Budget
+    from repro_torch.serve import launch_signature
+
+    by_sig: dict = {}
+    for k, item in enumerate(items):
+        sig = launch_signature(item["instance"], prof.walks, Budget(max_iters=prof.max_iters))
+        by_sig.setdefault(sig, []).append(k)
+    return max(by_sig.values(), key=len)
+
+
+def race_plan(n: int, hang_seconds: float) -> dict:
+    """The first seeded plan (seed 0, 1, ...) whose only fault over rids
+    ``0 .. n-1`` is a ``compile_hang`` at ``engine.execute.launch`` of rid
+    ``RACE_HUNG_RID``: one abandon, and a fresh lane with work after it."""
+    from repro_torch.faults import FaultPlan, would_fire
+
+    for seed in range(10_000):
+        kw = {"seed": seed, "rate": 0.1, "kinds": ("compile_hang",),
+              "points": ("engine.execute.launch",), "hang_seconds": hang_seconds}
+        plan = FaultPlan(**kw)
+        if [r for r in range(n)
+                if would_fire(plan, "fire", "engine.execute.launch", r)] == [RACE_HUNG_RID]:
+            return kw
+    raise ValueError(f"no plan hangs rid {RACE_HUNG_RID} alone among {n}")
+
+
+def race_lane(items, prof: ServeProfile, params, solos: list, torch_device: str, *,
+              hang_seconds: float = FAULT_PLAN["hang_seconds"],
+              watchdog: float = FAULT_WATCHDOG_S) -> dict:
+    """Requests of one launch shape, the launch of one of them hung (one
+    attempt each, so it fails once): the watchdog abandons it, the fresh lane
+    serves the rest, and the stale run wakes and runs ``solve_instances``
+    beside the fresh lane's runs of the same shape, so one of them must take
+    an uncached launch.  Every survivor runs on the device and equals its
+    solo solve, and so does the stale run's lane."""
+    from repro_torch.serve import RetryPolicy
+
+    plan_kw = race_plan(len(items), hang_seconds)
+    out = fault_lane(items, prof, params, solos, torch_device, plan_kw=plan_kw,
+                     watchdog=watchdog, retry=RetryPolicy(max_attempts=1))
+    if out["survivors_by_backend"].get("device", 0) < 1 or out["numpy_fallback_survivors"]:
+        raise AssertionError(f"the race lane's survivors did not run on the device: {out}")
+    if out["device_lanes_returned"] <= out["survivors"]:
+        raise AssertionError("the abandoned launch returned no lane: its stale run never ran")
+    if out["uncached_launches"] < 1:
+        raise AssertionError("no device run found its launch shape held: the stale run ran "
+                             "beside no fresh one")
+    return out
+
+
+def check_served(outcomes) -> None:
+    """Every request of a clean run was served and certified."""
+    from repro_torch.serve import RequestResult
+
+    for k, o in enumerate(outcomes):
+        if not isinstance(o, RequestResult):
+            raise AssertionError(f"request {k} failed: {o!r}")
+        if not o.metrics.get("certified"):
+            raise AssertionError(f"request {k} was served uncertified")
+
+
+def phase_solve_service(device) -> dict:
+    """The scheduling-solve service on the card at the reference's full
+    serving profile: warm-up, then the Poisson trace (the counts set to 0
+    just before it, read just after; no launch captured during traffic),
+    one served cut under the profiler, the solo loop every served report is
+    held to bit for bit, the fault lane, the race lane, and the ``table2``
+    suite swept on the device engine against the NumPy engine."""
+    import asyncio
+    import os
+
+    import torch
+
+    from repro_torch import Budget
+    from repro_torch.core import device_search as ds
+    from repro_torch.instances import sweep
+    from repro_torch.kernels import schedule_dp as sdp
+
+    prof, params = SERVE_PROFILE, serve_params()
+    items, arrivals = serve_trace(prof, seed=0)
+    t_phase = time.perf_counter()
+    spans = {}
+
+    def span(name, t0):
+        spans[name] = time.perf_counter() - t0
+        return time.perf_counter()
+
+    saved_env = os.environ.get("REPRO_SANITIZE")
+    os.environ["REPRO_SANITIZE"] = "1"       # every report certified
+    try:
+        before = {}
+        t0 = time.perf_counter()
+
+        def at_traffic(svc):
+            nonlocal t0
+            t0 = span("warm_up", t0)
+            before.update(ds.launch_cache_info())
+            sdp.sweep.launches = sdp.seq_cumsum.launches = 0
+
+        served = asyncio.run(run_service(items, arrivals, prof, params, "cuda",
+                                         on_start=at_traffic))
+        torch.cuda.synchronize()
+        t0 = span("traffic", t0)
+        k1, cs = sdp.sweep.launches, sdp.seq_cumsum.launches
+        after = ds.launch_cache_info()
+        traffic = {k: after[k] - before[k]
+                   for k in ("hits", "misses", "overflow_relaunches", "uncached")}
+        outcomes = served["outcomes"]
+        check_served(outcomes)
+        # a relaunch of an overflowing round is a hit on a warmed launch
+        if traffic["misses"] or traffic["uncached"]:
+            raise AssertionError(f"launches captured during traffic: {traffic}")
+        if k1 <= 0 or cs <= 0:
+            raise AssertionError(f"{k1} K1 and {cs} seq_cumsum launches in the served run")
+        if sum(served["events"]) < 1:
+            raise AssertionError("no request streamed an incumbent")
+        one_cut = profiled_cut(served["service"].engine, items, prof, outcomes)
+
+        t0 = span("profiled_cut", t0)
+        solos = [solo_solve(item, prof, params, "cuda") for item in items]
+        t0 = span("seq_cold", t0)
+        solo_captures = ds.launch_cache_info()["misses"] - after["misses"]
+        solo_capture_s = sum(r.extras["compile_seconds"] for r in solos)
+        for k, (o, solo) in enumerate(zip(outcomes, solos)):
+            if not (solo.extras.get("certified") and same_report(o.report, solo)):
+                raise AssertionError(f"served request {k} differs from its solo tabu_device "
+                                     "solve")
+
+        faults = fault_lane(items[:FAULT_REQUESTS], prof, params, solos, "cuda")
+        t0 = span("fault_lane", t0)
+        ks = one_shape(items, prof)[:RACE_REQUESTS]
+        race = race_lane([items[k] for k in ks], prof, params, [solos[k] for k in ks], "cuda")
+        t0 = span("race_lane", t0)
+        dev = sweep("table2", backend="device", walks=prof.walks,
+                    budget=Budget(max_iters=prof.max_iters), sanitize=True)
+        t0 = span("sweep_device", t0)
+        # the starts need no search: the NumPy sweep's initial makespans are
+        # its walks' starts, one iteration deep
+        ref = sweep("table2", backend="numpy", walks=prof.walks, budget=Budget(max_iters=1),
+                    sanitize=True)
+        span("sweep_numpy", t0)
+    finally:
+        if saved_env is None:
+            os.environ.pop("REPRO_SANITIZE", None)
+        else:
+            os.environ["REPRO_SANITIZE"] = saved_env
+    check_sweep(dev, ref)
+    m = served["metrics"]
+    n = len(items)
+    seq_warm_s = spans["seq_cold"] - solo_capture_s
+    say("solve_service", profile={**prof._asdict(), "max_wait": SERVE_MAX_WAIT},
+        requests=n, signatures=served["signatures"],
+        compile_seconds=m["warmup"]["compile_seconds"],
+        warm_signatures=m["warmup"]["signatures"], batches=m["batches"],
+        mean_batch_size=m["mean_batch_size"], cuts_by_reason=m["cuts_by_reason"],
+        traffic_launch_cache=traffic, k1_launches=k1, seq_cumsum_launches=cs,
+        streamed_events=sum(served["events"]),
+        requests_streaming=sum(e > 0 for e in served["events"]),
+        served_wall_s=served["wall_s"], latency_p50_s=m["latency_p50"],
+        latency_p99_s=m["latency_p99"], served_solved_per_s=n / served["wall_s"],
+        seq_cold_s=spans["seq_cold"], seq_cold_solved_per_s=n / spans["seq_cold"],
+        seq_cold_captures=solo_captures, seq_cold_capture_s=solo_capture_s,
+        seq_warm_s=seq_warm_s, seq_warm_solved_per_s=n / seq_warm_s,
+        parity={"bit_identical": n, "certified": n},
+        profiled_cut=one_cut, faults=faults, race=race,
+        sweep={"suite": dev.suite, "buckets": dev.buckets, "compiles": dev.compiles,
+               "wall_s": spans["sweep_device"], "initial_makespans_equal_numpy": True,
+               "rows": [{k: r[k] for k in ("name", "makespan", "initial_makespan", "lb",
+                                           "ratio", "certified")} for r in dev.rows]},
+        launch_cache=ds.launch_cache_info(), memory_reserved=torch.cuda.memory_reserved(device),
+        phase_s=time.perf_counter() - t_phase, spans_s=spans,
+        note="the reference's full serving profile (36 requests, Poisson 4/s from seed 0); "
+             "compile_seconds: the warm-up's captures, each signature x batch size at one "
+             "exact-evaluation chunk and at two (the chunk-overflow relaunch's first rung); "
+             "traffic_launch_cache: launch-cache deltas over the traffic (misses and "
+             "uncached launches must be 0: no capture during traffic; an overflow "
+             "relaunch is a hit on a warmed launch); k1_launches / seq_cumsum_launches: "
+             "the kernels' counters (a replay adds the captured round's nodes), set to 0 "
+             "after warm-up and read after the traffic, i.e. captured nodes x rounds "
+             "replayed, which the profiler checks on one cut (profiled_cut); latency: "
+             "service clock from submit to result; served_solved_per_s: requests / wall "
+             "from the first submit to the last result (arrivals included); seq_cold: the "
+             "36 solo tabu_device solves in order, capturing each solo launch shape "
+             "(seq_cold_captures, seq_cold_capture_s); seq_warm_s: seq_cold_s minus those "
+             "captures' seconds (derived, not a second pass); every served report "
+             "bit-identical to its solo solve and certified (REPRO_SANITIZE=1); "
+             "profiled_cut: a request of the largest signature class again, a cut of its "
+             "own through the service's engine under torch.profiler, its K1 and "
+             "seq_cumsum launches equal to the launch's captured nodes x rounds; faults: "
+             "the first 12 requests under the plan with every kind, a watchdog shorter "
+             "than a hang, every request ending in one terminal state, every survivor "
+             "equal to its solo solve on the backend that served it, every lane a device "
+             "launch returned (abandoned ones included) equal to its solo tabu_device "
+             "solve, every launch failure an injected one, then torch.cuda.synchronize(); "
+             "race: the same checks on 12 requests of the largest signature class, one "
+             "hung at its launch and abandoned (one attempt), its stale run waking beside "
+             "the fresh lane: every survivor on the device, the stale run's lane held to "
+             "its solo solve, uncached_launches >= 1; sweep: table2 on the device engine "
+             "(crit_cap n_b, 20 iterations) certified, makespan >= lb, initial makespans "
+             "equal to the NumPy sweep's (one iteration: the starts need no search); "
+             "spans_s: host seconds of each part of the phase")
+    return {"schedule_dp": k1, "seq_cumsum": cs}
+
+
+def check_sweep(dev, ref) -> None:
+    """The device sweep captured at most once per bucket, certified every
+    row above its lower bound, and started where the NumPy sweep did."""
+    if dev.compiles > dev.buckets:
+        raise AssertionError(f"the device sweep captured {dev.compiles} launches for "
+                             f"{dev.buckets} buckets")
+    for r, n in zip(dev.rows, ref.rows):
+        if not (r["certified"] and r["makespan"] >= r["lb"] - 1e-6):   # the reference's slack
+            raise AssertionError(f"sweep row {r['name']}: certified {r['certified']}, "
+                                 f"makespan {r['makespan']} against lb {r['lb']}")
+        if r["initial_makespan"] != n["initial_makespan"] or r["name"] != n["name"]:
+            raise AssertionError(f"sweep row {r['name']} starts at {r['initial_makespan']}, "
+                                 f"the NumPy sweep's at {n['initial_makespan']}")
 
 
 def cuda_median_ms(fn, reps: int, warmup: int) -> float:
@@ -1572,6 +2185,13 @@ def kernel_entries(launches: dict, errs: dict, times: dict, extras: dict) -> lis
             for name, source, replaces in KERNELS]
 
 
+def launches_by_path(paths: dict) -> dict:
+    """K1's and ``seq_cumsum``'s launches on each path that runs them (the
+    counts set to 0 just before the path, read just after)."""
+    return {name: {path: got[name] for path, got in paths.items() if name in got}
+            for name in ("schedule_dp", "seq_cumsum")}
+
+
 def main() -> int:
     import torch
 
@@ -1605,17 +2225,32 @@ def main() -> int:
         seconds=time.perf_counter() - t0, build_dir=str(_build.build_dir()))
     phase_ptxas(sorted(_build.KERNEL_SOURCES))
 
-    worst = phase_kernels(device)
-    model_err = phase_model_kernels(device)
-    launches, max_rows, main_wall = phase_main_path()
-    device_launches = phase_device_path(device, main_wall)
-    cum = phase_seq_cumsum(device, rows=80)
-    model_launches = phase_model_serve(device, ARCH, check_fixed_limit)
-    mamba_launches = phase_model_serve(device, MAMBA_ARCH, check_against_yardstick)
-    timing = phase_timing(device, rows=max_rows)
-    mtime = phase_model_timing(device)
+    phase_s = {}
+
+    def timed(name, fn, *a):
+        t = time.perf_counter()
+        out = fn(*a)
+        phase_s[name] = time.perf_counter() - t
+        return out
+
+    worst = timed("kernels", phase_kernels, device)
+    model_err = timed("model_kernels", phase_model_kernels, device)
+    launches, max_rows, main_wall = timed("main_path", phase_main_path)
+    device_launches = timed("device_path", phase_device_path, device, main_wall)
+    cum = timed("seq_cumsum", phase_seq_cumsum, device, 80)
+    model_launches = timed("model_serve " + ARCH, phase_model_serve, device, ARCH,
+                           check_fixed_limit)
+    mamba_launches = timed("model_serve " + MAMBA_ARCH, phase_model_serve, device, MAMBA_ARCH,
+                           check_against_yardstick)
+    timing = timed("timing", phase_timing, device, max_rows)
+    mtime = timed("model_timing", phase_model_timing, device)
+    # last, so that the earlier phases run as they did before it joined
+    service_launches = timed("solve_service", phase_solve_service, device)
 
     fwd, tails = timing["forward"], timing["tails"]
+    by_path = launches_by_path({"main_path": {"schedule_dp": launches},
+                                "device_path": device_launches,
+                                "solve_service": service_launches})
     fl, rg, sd = mtime["flash_attention"], mtime["rglru_scan"], mtime["ssd_chunked"]
     entries = kernel_entries(
         launches={"schedule_dp": launches, "flash_attention": model_launches["flash_attention"],
@@ -1625,8 +2260,7 @@ def main() -> int:
         errs={"schedule_dp": worst, **model_err, "seq_cumsum": cum["max_abs_err"]},
         times={"schedule_dp": fwd, **mtime, "seq_cumsum": cum},
         extras={
-            "schedule_dp": {"launches_by_path": {"main_path": launches,
-                                                 "device_path": device_launches["schedule_dp"]},
+            "schedule_dp": {"launches_by_path": by_path["schedule_dp"],
                             "chain_ms": fwd["chain_ms"], "shape": [max_rows, sdp.bucket(250)],
                             "dtype": "float64", "call": "forward only",
                             "depth_levels": fwd["depth_levels"],
@@ -1659,13 +2293,15 @@ def main() -> int:
                             "decode_step_device_ms": sd["decode_step_device_ms"],
                             "decode_step_bound_ms": sd["decode_step_bound_ms"]},
             "seq_cumsum": {"shape": cum["shape"], "dtype": "float64",
-                           "path": "device_path", "device_ms": cum["device_ms"],
+                           "path": "device_path", "launches_by_path": by_path["seq_cumsum"],
+                           "device_ms": cum["device_ms"],
                            "chain_ms": cum["chain_ms"],
                            "add_chain_ms_per_add": cum["add_chain_ms_per_add"],
                            "torch_cumsum_on_card_max_abs_err":
                                cum["torch_cumsum_on_card_max_abs_err"]},
         })
-    print(json.dumps({"kernels": entries, "seconds": time.perf_counter() - t_start}), flush=True)
+    print(json.dumps({"kernels": entries, "seconds": time.perf_counter() - t_start,
+                      "phase_seconds": phase_s}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -39,6 +39,19 @@ Static-shape discipline, as in the reference:
   (``launch_cache_info()``); each holds its static instance, state and
   series buffers and its graph, and a run refills them with ``copy_``.
 
+Threads (the solve service runs device work on an executor thread, and a
+watchdog may start a second one beside a hung first): a run holds its
+launch from its first load to its last read, and a run that finds its
+launch shape held by another gets a launch of its own, outside the cache
+(``launch_cache_info()["uncached"]``), so no two runs share buffers.
+Captures are serialised, and each records in ``"thread_local"`` capture
+mode, so another thread's CUDA calls cannot break it; the capture's first,
+eager round runs with every synchronising call an error (the proof that a
+round reads nothing back), and every host read of this module waits for
+it, since that debug mode is process-wide.  The kernels' launch counters
+are process-wide too: under concurrency ``device_stats["k1_replayed"]`` /
+``["seq_cumsum_replayed"]`` are a run's own.
+
 Parity contract (``tests/test_torch_device_search.py``): in float64, with
 ``mem_update_period >= MEM_UPDATE_DISABLED`` (Algorithm 3 never fires
 inside the horizon) and outside the perturbation branch, the trajectory —
@@ -65,6 +78,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
+import threading
 import time
 import types
 
@@ -72,6 +86,7 @@ import numpy as np
 import torch
 
 from .._device import resolve_device
+from ..faults import inject as _inject
 from ..instances.batch import InstanceBatch, InstancePack, ia_from_pack, pack_instance
 from ..kernels import schedule_dp as sdp
 from .eval_batch import APPROX_WINDOW, LRUCache
@@ -116,26 +131,38 @@ class DeviceConfig:
     perturb: bool = True          # one random move per stalled walk and round
 
 
-# sized for serving traffic: a few signature classes × quantized batch
-# sizes must coexist without thrashing
-_LAUNCHES = LRUCache(maxsize=16)
+# sized for serving traffic: the signature classes of a serving trace ×
+# its quantized batch sizes × the two warmed chunk counts (8 × 4 × 2 at the
+# reference's serving profile) and the solo shapes beside them must coexist
+# without thrashing
+_LAUNCHES = LRUCache(maxsize=128)
+# guards the cache together with every launch's ``owner``, and the counters
+_LAUNCH_LOCK = threading.Lock()
+# held by a capture, and by every host read / write of a launch's buffers:
+# the capture's eager round sets a process-wide sync debug mode
+_SYNC_LOCK = threading.RLock()
 
 # overflow→relaunch escalations (critical-set bucket or chunk count) since
 # process start; each costs a fresh capture mid-run
 _OVERFLOW_RELAUNCHES = 0
+# launches built beside a cached one another run held (never cached)
+_UNCACHED = 0
 
 
 def launch_cache_info() -> dict:
-    """Captured-launch cache counters
-    (`{hits, misses, evictions, currsize, maxsize, overflow_relaunches}`)."""
-    info = _LAUNCHES.info()
-    info["overflow_relaunches"] = _OVERFLOW_RELAUNCHES
+    """Captured-launch cache counters (`{hits, misses, evictions, currsize,
+    maxsize, overflow_relaunches, uncached}`)."""
+    with _LAUNCH_LOCK:
+        info = _LAUNCHES.info()
+        info["overflow_relaunches"] = _OVERFLOW_RELAUNCHES
+        info["uncached"] = _UNCACHED
     return info
 
 
 def _note_overflow_relaunch() -> None:
     global _OVERFLOW_RELAUNCHES
-    _OVERFLOW_RELAUNCHES += 1
+    with _LAUNCH_LOCK:
+        _OVERFLOW_RELAUNCHES += 1
 
 
 # --------------------------------------------------------------------------- #
@@ -288,12 +315,15 @@ _IA_INT = ("pred_mat", "succ_mat", "in_blk", "out_blk", "in_idx", "in_owner",
 
 
 def _csr_cap(batch: InstanceBatch) -> int:
-    """Bucketed link count of the graphs' CSR forms, predecessor and
-    successor alike (the DAG's edges): K1's shared-memory layout is fixed at
-    capture, so the buffers are sized for the bucket."""
+    """Link capacity of the graphs' CSR forms, predecessor and successor
+    alike: K1's shared-memory layout is fixed at capture, so the buffers are
+    sized for the bucket.  It is a function of the shape alone (a DAG of
+    ``n_b`` tasks whose in- / out-degrees fit the dense widths has at most
+    ``n_b`` x the smaller width edges), so every batch of one
+    ``bucket_key`` fits one launch, whatever its edge counts."""
     from ..instances.batch import _padded_edge_len
 
-    return _padded_edge_len(max(len(i.pred_idx) for i in batch.instances))
+    return _padded_edge_len(batch.n_b * min(batch.widths[0], batch.widths[1]))
 
 
 def _launch_key(batch: InstanceBatch, w_count: int, params: TSParams,
@@ -326,6 +356,7 @@ class _Launch:
         self.M_n7 = 2 * self.C
         self.M = self.M_n7 + self.C * self.p_b * (self.NPOS + 1)
         self.batch = None           # the InstanceBatch the buffers hold
+        self.owner = None           # the run holding the buffers (under _LAUNCH_LOCK)
         self.graph = None           # torch.cuda.CUDAGraph once captured
         self.capture_seconds = 0.0
         self.k1_per_round = self.cumsum_per_round = 0
@@ -386,6 +417,12 @@ class _Launch:
         """Copy ``batch``'s arrays into the instance buffers."""
         if self.batch is batch:
             return
+        self.batch = None           # until the copy is whole
+        with _SYNC_LOCK:
+            self._copy_instances(batch)
+        self.batch = batch
+
+    def _copy_instances(self, batch: InstanceBatch) -> None:
         for a, ip in zip(self.ia, batch.packs):
             for k, v in ia_from_pack(ip).items():
                 a[k].copy_(torch.as_tensor(np.asarray(v)))
@@ -395,12 +432,12 @@ class _Launch:
                 a[f"{nm}_ptr"].copy_(torch.from_numpy(indptr))
                 a[f"{nm}_idx"].zero_()
                 a[f"{nm}_idx"][: len(idx)].copy_(torch.from_numpy(idx))
-        self.batch = batch
 
     def load_state(self, src: dict) -> None:
         """Copy a state (stacked host NumPy, or another launch's tensors)."""
-        for k, v in self.state.items():
-            v.copy_(torch.as_tensor(src[k]))
+        with _SYNC_LOCK:
+            for k, v in self.state.items():
+                v.copy_(torch.as_tensor(src[k]))
 
     # -- running ------------------------------------------------------------- #
     def run(self, rounds: int) -> bool:
@@ -421,13 +458,8 @@ class _Launch:
         captured = self.graph is None
         if captured:
             self._capture()
-        prev = torch.cuda.get_sync_debug_mode()
-        torch.cuda.set_sync_debug_mode("error")   # no replay reads the host
-        try:
-            for _ in range(rounds):
-                self.graph.replay()
-        finally:
-            torch.cuda.set_sync_debug_mode(prev)
+        for _ in range(rounds):
+            self.graph.replay()
         sdp.count_replays(self.k1_per_round, self.cumsum_per_round, rounds)
         return captured
 
@@ -440,7 +472,12 @@ class _Launch:
         eager round on a side stream (its effects undone) initializes what
         the round's operations set up lazily and proves it syncs nothing;
         then the capture, whose K1 / seq_cumsum nodes are counted against
-        what the round's code implies."""
+        what the round's code implies.  One capture at a time (the node
+        counts are process-wide), in ``"thread_local"`` mode."""
+        with _SYNC_LOCK:
+            self._capture_locked()
+
+    def _capture_locked(self) -> None:
         t0 = time.monotonic()
         dev = self.dev
         cur = torch.cuda.current_stream(dev)
@@ -462,8 +499,15 @@ class _Launch:
         cur.wait_stream(side)
         k1_0, cs_0 = sdp.sweep.captured, sdp.seq_cumsum.captured
         graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(graph):
-            self._round_all()
+        # recorded on the side stream without torch.cuda.graph's device-wide
+        # synchronize and cache release, which would reach into the work and
+        # the memory of other threads' runs
+        with torch.cuda.stream(side):
+            graph.capture_begin(capture_error_mode="thread_local")
+            try:
+                self._round_all()
+            finally:
+                graph.capture_end()
         self.k1_per_round = sdp.sweep.captured - k1_0
         self.cumsum_per_round = sdp.seq_cumsum.captured - cs_0
         want = self.n_inst * (1 + self.J + (1 if self.perturb else 0))
@@ -969,20 +1013,39 @@ class _Launch:
 
 
 def _get_launch(batch: InstanceBatch, w_count: int, params: TSParams, crit_cap: int,
-                chunk_cap: int, cfg: DeviceConfig, dev, cap=None):
+                chunk_cap: int, cfg: DeviceConfig, dev, *, owner=None):
     """Fetch/allocate the launch for these buckets (bounded LRU).  The
     instance arrays are refilled into the launch's buffers on every use,
     never baked in: two instances that share buckets share one captured
-    round.  ``cap`` is the CSR capacity (default: ``batch``'s).
+    round.  ``owner`` (a dict standing for one run) takes the launch for
+    that run until :func:`_release`; a cached launch another owner holds is
+    left to it, and the caller gets a launch of its own that is not cached
+    (kept in ``owner`` by key, so the run finds it again).
     Returns ``(launch, fresh)``."""
-    cap = cap or _csr_cap(batch)
+    global _UNCACHED
+    cap = _csr_cap(batch)
     key = _launch_key(batch, w_count, params, crit_cap, chunk_cap, cfg, dev, cap)
-    launch = _LAUNCHES.get(key)
-    if launch is not None:
-        return launch, False
-    launch = _Launch(batch, w_count, params, crit_cap, chunk_cap, cfg, dev, cap)
-    _LAUNCHES.put(key, launch)
-    return launch, True
+    with _LAUNCH_LOCK:
+        launch, fresh = _LAUNCHES.get(key), False
+        if launch is None:
+            launch, fresh = _Launch(batch, w_count, params, crit_cap, chunk_cap, cfg, dev,
+                                    cap), True
+            _LAUNCHES.put(key, launch)
+        elif owner is not None and launch.owner is not None and launch.owner is not owner:
+            launch = owner.get(key)
+            if launch is None:
+                launch, fresh = _Launch(batch, w_count, params, crit_cap, chunk_cap, cfg,
+                                        dev, cap), True
+                owner[key] = launch
+                _UNCACHED += 1
+        if owner is not None:
+            launch.owner = owner
+    return launch, fresh
+
+
+def _release(launch: "_Launch") -> None:
+    with _LAUNCH_LOCK:
+        launch.owner = None
 
 
 # --------------------------------------------------------------------------- #
@@ -1010,7 +1073,10 @@ def _drive(batch: InstanceBatch, cur_sols, scheds, seeds, params: TSParams,
 
     ``solo`` is :func:`device_multiwalk`'s call: its callbacks fire at every
     sync, and its walks' incumbents are certified at syncs when sanitize
-    mode is on."""
+    mode is on.  The run holds its launch (:func:`_get_launch`'s ``owner``)
+    until its last read.  At the end of each sync period's host
+    work the ``device_search.sync`` fault point fires, keyed on the count of
+    such periods (1, 2, …), as the reference's ``device_multiwalk`` does."""
     t0 = time.monotonic()
     dev = resolve_device(params.torch_device)
     instances, packs = list(batch.instances), list(batch.packs)
@@ -1032,142 +1098,166 @@ def _drive(batch: InstanceBatch, cur_sols, scheds, seeds, params: TSParams,
     timed_out = False
     compile_s = 0.0
     k1_0, cs_0 = sdp.sweep.launches, sdp.seq_cumsum.launches
-    rounds = it_min = 0
-    current = None
+    rounds = it_min = sync_index = own_k1 = own_cs = 0
+    current, me = None, {}          # ``me``: this run, as a launch's owner
 
-    def host(keys, launch):
-        return {k: launch.state[k].cpu().numpy() for k in keys}
+    def host(src: dict, keys=None):
+        with _SYNC_LOCK:
+            return {k: src[k].cpu().numpy() for k in (keys or src)}
 
-    while True:
-        if time.monotonic() - t0 > params.time_limit:
-            timed_out = True
-            break
-        launch, _ = _get_launch(batch, w_count, params, crit_cap, chunk_cap, cfg, dev)
-        launch.load_instances(batch)
-        if current is not launch:
-            launch.load_state(live if current is None else current.state)
-            current = launch
-        # no round past the iteration budget commits: replay no more of them
-        n_rounds = cfg.sync_every if params.max_iters is None else \
-            max(1, min(cfg.sync_every, params.max_iters - it_min))
-        if launch.run(n_rounds):
-            compile_s += launch.capture_seconds
-        if dev.type == "cuda":
-            rounds += n_rounds
-        ser = {k: v.cpu().numpy() for k, v in launch.series.items()}
-        flags = host(("overflow", "chunk_overflow", "active", "stop", "it", "n_exact",
-                      "n_approx", "cur_mk", "best_mk"), launch)
-        it_min = int(flags["it"].min())
+    try:
+        while True:
+            if time.monotonic() - t0 > params.time_limit:
+                timed_out = True
+                break
+            # this run's launch for the buckets, held to its last read
+            launch, _ = _get_launch(batch, w_count, params, crit_cap, chunk_cap, cfg, dev,
+                                    owner=me)
+            if current is not launch:
+                try:
+                    launch.load_instances(batch)
+                    launch.load_state(live if current is None else current.state)
+                except BaseException:
+                    _release(launch)        # ``finally`` below releases ``current`` only
+                    raise
+                if current is not None:
+                    _release(current)
+                current = launch
+            # no round past the iteration budget commits: replay no more of them
+            n_rounds = cfg.sync_every if params.max_iters is None else \
+                max(1, min(cfg.sync_every, params.max_iters - it_min))
+            if launch.run(n_rounds):
+                compile_s += launch.capture_seconds
+            if dev.type == "cuda":
+                rounds += n_rounds
+                own_k1 += launch.k1_per_round * n_rounds
+                own_cs += launch.cumsum_per_round * n_rounds
+            ser = host(launch.series)
+            flags = host(launch.state, ("overflow", "chunk_overflow", "active", "stop", "it",
+                                        "n_exact", "n_approx", "cur_mk", "best_mk"))
+            it_min = int(flags["it"].min())
 
-        sync_improved = np.zeros(n_inst, dtype=bool)
-        for i in range(n_inst):
-            for r in range(cfg.sync_every):
-                if not ser["ran"][i, r]:
-                    continue
-                it_r = int(ser["it"][i, r])
-                for w in range(w_count):
-                    bmk = float(ser["best_mk"][i, r, w])
-                    if bmk < histories[i][w][-1][1] - 1e-9:
-                        histories[i][w].append((it_r, bmk))
-                nb = float(ser["best_mk"][i, r].min())
-                if nb < g_best[i]:
-                    g_best[i] = nb
-                    g_hist[i].append((it_r, nb))
-                    sync_improved[i] = True
-
-        if flags["overflow"].any() or flags["chunk_overflow"].any():
-            # the overflowing round was not committed: relaunch with the next
-            # bucket from the same state
-            # neither can overflow at its largest bucket: the critical set
-            # holds at most n_b tasks, and a walk passes its admissible moves
-            # in ceil(M / K) chunks, plus one where the eval budget cuts a chunk
-            before = (crit_cap, chunk_cap)
-            if flags["overflow"].any():
-                crit_cap = min(max(crit_cap * 2, 32), batch.n_b)
-            else:
-                chunk_cap = min(chunk_cap * 2, -(-launch.M // launch.K) + 1)
-            if (crit_cap, chunk_cap) == before:
-                raise RuntimeError(f"the round overflowed at crit_cap={crit_cap}, "
-                                   f"chunk_cap={chunk_cap}")
-            launch.state["overflow"].zero_()
-            launch.state["chunk_overflow"].zero_()
-            _note_overflow_relaunch()
-            continue
-
-        if callbacks is not None:
-            # per-instance anytime hooks at the sync boundary (after overflow
-            # handling, before Alg-3); a truthy return stops that instance
+            sync_improved = np.zeros(n_inst, dtype=bool)
             for i in range(n_inst):
-                cb = callbacks[i]
-                if cb is None or cb_stop[i]:
-                    continue
-                act = flags["active"][i]
-                if not solo and not act.any() and not sync_improved[i]:
-                    continue
-                cur_min = float(flags["cur_mk"][i][act].min()) if act.any() else g_best[i]
-                ev = TSEvent(iteration=int(flags["it"][i]), best_makespan=g_best[i],
-                             current_makespan=cur_min, elapsed=time.monotonic() - t0,
-                             n_exact_evals=int(flags["n_exact"][i]) + int(n_exact_host[i]),
-                             n_approx_evals=int(flags["n_approx"][i]),
-                             improved=bool(sync_improved[i]))
-                on_imp = getattr(cb, "on_improvement", None)
-                if sync_improved[i] and on_imp is not None and on_imp(ev):
-                    cb_stop[i] = True
-                on_it = getattr(cb, "on_iteration", None)
-                if not cb_stop[i] and on_it is not None and on_it(ev):
-                    cb_stop[i] = True
-                if cb_stop[i]:
-                    launch.state["stop"][i] = True    # freezes the instance's rounds
-
-        done = ~flags["active"].any(axis=1) | flags["stop"] | cb_stop
-        if params.max_iters is not None:
-            done |= flags["it"] >= params.max_iters
-        if params.max_evals is not None:
-            done |= flags["n_exact"] >= params.max_evals
-        if done.all():
-            break
-
-        if mem_updates_on:
-            rows = host(_WALK_ROWS, launch)
-            for i in range(n_inst):
-                if done[i]:
-                    continue
-                it_now = int(flags["it"][i])
-                for w in range(w_count):
-                    if not flags["active"][i, w]:
+                for r in range(cfg.sync_every):
+                    if not ser["ran"][i, r]:
                         continue
-                    sub = {k: rows[k][i, w:w + 1].copy() for k in _WALK_ROWS}
-                    sol_w = unpack_solution(packs[i], sub["seq"], sub["seq_len"],
-                                            sub["assign"], sub["mem"], 0)
-                    sol_w = memory_update(instances[i], sol_w,
-                                          refresh_every=params.mem_refresh_every,
-                                          scalar=params.mem_update_scalar)
-                    sched_w = exact_schedule(instances[i], sol_w)
-                    if sched_w is None:
-                        raise RuntimeError("memory_update returned a cyclic solution")
-                    n_exact_host[i] += 1
-                    _write_walk(packs[i], sub, 0, sol_w, sched_w)
-                    for k in _WALK_ROWS:
-                        launch.state[k][i, w:w + 1].copy_(torch.from_numpy(sub[k]))
-                    if sched_w.makespan < flags["best_mk"][i, w] - 1e-9:
-                        launch.state["best_mk"][i, w] = float(sched_w.makespan)
-                        for best, cur in _BEST:
-                            launch.state[best][i, w].copy_(launch.state[cur][i, w])
-                        histories[i][w].append((it_now, float(sched_w.makespan)))
-                        if solo:
-                            _maybe_sanitize(instances[i], sol_w,
-                                            f"device_multiwalk sync incumbent walk {w}",
-                                            params, mk=float(sched_w.makespan))
-                        if sched_w.makespan < g_best[i]:
-                            g_best[i] = float(sched_w.makespan)
-                            g_hist[i].append((it_now, g_best[i]))
+                    it_r = int(ser["it"][i, r])
+                    for w in range(w_count):
+                        bmk = float(ser["best_mk"][i, r, w])
+                        if bmk < histories[i][w][-1][1] - 1e-9:
+                            histories[i][w].append((it_r, bmk))
+                    nb = float(ser["best_mk"][i, r].min())
+                    if nb < g_best[i]:
+                        g_best[i] = nb
+                        g_hist[i].append((it_r, nb))
+                        sync_improved[i] = True
 
-    state = live if current is None else {k: v.cpu().numpy() for k, v in current.state.items()}
+            if flags["overflow"].any() or flags["chunk_overflow"].any():
+                # the overflowing round was not committed: relaunch with the next
+                # bucket from the same state
+                # neither can overflow at its largest bucket: the critical set
+                # holds at most n_b tasks, and a walk passes its admissible moves
+                # in ceil(M / K) chunks, plus one where the eval budget cuts a chunk
+                before = (crit_cap, chunk_cap)
+                if flags["overflow"].any():
+                    crit_cap = min(max(crit_cap * 2, 32), batch.n_b)
+                else:
+                    chunk_cap = min(chunk_cap * 2, -(-launch.M // launch.K) + 1)
+                if (crit_cap, chunk_cap) == before:
+                    raise RuntimeError(f"the round overflowed at crit_cap={crit_cap}, "
+                                       f"chunk_cap={chunk_cap}")
+                launch.state["overflow"].zero_()
+                launch.state["chunk_overflow"].zero_()
+                _note_overflow_relaunch()
+                continue
+
+            if callbacks is not None:
+                # per-instance anytime hooks at the sync boundary (after overflow
+                # handling, before Alg-3); a truthy return stops that instance
+                for i in range(n_inst):
+                    cb = callbacks[i]
+                    if cb is None or cb_stop[i]:
+                        continue
+                    act = flags["active"][i]
+                    if not solo and not act.any() and not sync_improved[i]:
+                        continue
+                    cur_min = float(flags["cur_mk"][i][act].min()) if act.any() else g_best[i]
+                    ev = TSEvent(iteration=int(flags["it"][i]), best_makespan=g_best[i],
+                                 current_makespan=cur_min, elapsed=time.monotonic() - t0,
+                                 n_exact_evals=int(flags["n_exact"][i]) + int(n_exact_host[i]),
+                                 n_approx_evals=int(flags["n_approx"][i]),
+                                 improved=bool(sync_improved[i]))
+                    on_imp = getattr(cb, "on_improvement", None)
+                    if sync_improved[i] and on_imp is not None and on_imp(ev):
+                        cb_stop[i] = True
+                    on_it = getattr(cb, "on_iteration", None)
+                    if not cb_stop[i] and on_it is not None and on_it(ev):
+                        cb_stop[i] = True
+                    if cb_stop[i]:
+                        launch.state["stop"][i] = True    # freezes the instance's rounds
+
+            done = ~flags["active"].any(axis=1) | flags["stop"] | cb_stop
+            if params.max_iters is not None:
+                done |= flags["it"] >= params.max_iters
+            if params.max_evals is not None:
+                done |= flags["n_exact"] >= params.max_evals
+            if done.all():
+                break
+
+            if mem_updates_on:
+                rows = host(launch.state, _WALK_ROWS)
+                for i in range(n_inst):
+                    if done[i]:
+                        continue
+                    it_now = int(flags["it"][i])
+                    for w in range(w_count):
+                        if not flags["active"][i, w]:
+                            continue
+                        sub = {k: rows[k][i, w:w + 1].copy() for k in _WALK_ROWS}
+                        sol_w = unpack_solution(packs[i], sub["seq"], sub["seq_len"],
+                                                sub["assign"], sub["mem"], 0)
+                        sol_w = memory_update(instances[i], sol_w,
+                                              refresh_every=params.mem_refresh_every,
+                                              scalar=params.mem_update_scalar)
+                        sched_w = exact_schedule(instances[i], sol_w)
+                        if sched_w is None:
+                            raise RuntimeError("memory_update returned a cyclic solution")
+                        n_exact_host[i] += 1
+                        _write_walk(packs[i], sub, 0, sol_w, sched_w)
+                        with _SYNC_LOCK:
+                            for k in _WALK_ROWS:
+                                launch.state[k][i, w:w + 1].copy_(torch.from_numpy(sub[k]))
+                        if sched_w.makespan < flags["best_mk"][i, w] - 1e-9:
+                            launch.state["best_mk"][i, w] = float(sched_w.makespan)
+                            for best, cur in _BEST:
+                                launch.state[best][i, w].copy_(launch.state[cur][i, w])
+                            histories[i][w].append((it_now, float(sched_w.makespan)))
+                            if solo:
+                                _maybe_sanitize(instances[i], sol_w,
+                                                f"device_multiwalk sync incumbent walk {w}",
+                                                params, mk=float(sched_w.makespan))
+                            if sched_w.makespan < g_best[i]:
+                                g_best[i] = float(sched_w.makespan)
+                                g_hist[i].append((it_now, g_best[i]))
+
+            sync_index += 1
+            # chaos harness: a seeded plan can lose the device at a sync
+            # boundary (the reference's point and keying)
+            _inject.fire("device_search.sync", key=sync_index)
+
+        state = live if current is None else host(current.state)
+    finally:
+        if current is not None:
+            _release(current)
     stats = {
         "crit_cap": crit_cap, "chunk_cap": chunk_cap,
         "k1_launches": sdp.sweep.launches - k1_0,
         "seq_cumsum_launches": sdp.seq_cumsum.launches - cs_0,
         "rounds_replayed": rounds,
+        # this run's own replayed launches (the counters above are
+        # process-wide, so under concurrency they hold other runs' too)
+        "k1_replayed": own_k1, "seq_cumsum_replayed": own_cs,
         "k1_per_round": current.k1_per_round if current is not None else 0,
         "seq_cumsum_per_round": current.cumsum_per_round if current is not None else 0,
     }
@@ -1243,12 +1333,13 @@ def device_multiwalk(
     ``compile_seconds`` (the capture time of its launches) and
     ``device_stats`` (buckets, K1 / ``seq_cumsum`` launches, rounds
     replayed).  ``on_checkpoint`` / ``resume_from`` belong to the fault
-    layer, which is not ported yet (ROADMAP A6): passing either raises.
+    layer's checkpointing, which is not ported yet (ROADMAP A6): passing
+    either raises.
     """
     if on_checkpoint is not None or resume_from is not None:
         raise NotImplementedError(
-            "on_checkpoint / resume_from need repro_torch.faults (checkpointing), "
-            "not ported yet (ROADMAP A6)")
+            "on_checkpoint / resume_from need the fault layer's checkpointing "
+            "(repro_torch.faults.checkpoint), not ported yet (ROADMAP A6)")
     params = params or TSParams()
     cfg = config or DeviceConfig()
     w_count = len(inits)
@@ -1370,8 +1461,12 @@ def warm_launches(
     the batch widths to warm.  Each missing launch is allocated and, on the
     card, captured on replicas of the first instance with its walks'
     starting state (nothing is replayed).  The crit-set bucket is
-    ``config.crit_cap`` or the batch's task bucket, and one exact-evaluation
-    chunk.  Returns per-size seconds and launch-cache counter deltas.
+    ``config.crit_cap`` or the batch's task bucket.  Each size is warmed at
+    one exact-evaluation chunk, where a run starts, and at two, the first
+    rung of the chunk-overflow relaunch (a round whose first ``top_k``
+    candidates are all refused needs it); a round that needs more than two
+    still captures its launch when it comes.  Returns per-size seconds and
+    launch-cache counter deltas.
     """
     from .api import multiwalk_inits  # lazy: api imports this module lazily
 
@@ -1394,14 +1489,20 @@ def warm_launches(
         rep = InstanceBatch.from_instances(
             [inst] * bs, n_b=batch.n_b, p_b=batch.p_b, d_b=batch.d_b,
             widths=batch.widths, e_b=batch.e_b, validate=False)
-        launch, fresh = _get_launch(rep, walks, params, crit, 1, cfg, dev,
-                                    cap=_csr_cap(batch))
-        if fresh:
-            launch.load_instances(rep)
-            launch.load_state({k: np.stack([v] * bs) for k, v in state.items()})
-            if dev.type == "cuda":
-                launch._capture()
-        per_size[bs] = {"fresh": fresh, "seconds": time.monotonic() - t0}
+        any_fresh = False
+        # ``_drive`` relaunches at min(2 J, ceil(M / K) + 1) chunks: 2 after 1
+        for j in (1, 2):
+            launch, fresh = _get_launch(rep, walks, params, crit, j, cfg, dev, owner={})
+            try:
+                if fresh:
+                    launch.load_instances(rep)
+                    launch.load_state({k: np.stack([v] * bs) for k, v in state.items()})
+                    if dev.type == "cuda":
+                        launch._capture()
+            finally:
+                _release(launch)
+            any_fresh |= fresh
+        per_size[bs] = {"fresh": any_fresh, "seconds": time.monotonic() - t0}
     after = launch_cache_info()
     return {
         "bucket_key": batch.bucket_key,

@@ -41,6 +41,7 @@ which has no per-batch evaluator.
 from __future__ import annotations
 
 import dataclasses
+import threading
 from typing import Sequence
 
 import numpy as np
@@ -90,40 +91,46 @@ class LRUCache:
 
     Keyed on *shape buckets* upstream; evicts least-recently-used entries
     past ``maxsize`` and counts hits/misses so callers can report cache
-    behavior.
+    behavior.  Each operation holds the cache's lock, so threads that share
+    a cache see every entry and count every lookup.
     """
 
     def __init__(self, maxsize: int = 16):
         self.maxsize = int(maxsize)
         self._d: "dict" = {}
+        self._lock = threading.Lock()
         self.hits = 0
         self.misses = 0
         self.evictions = 0
 
     def get(self, key):
-        try:
-            val = self._d.pop(key)
-        except KeyError:
-            self.misses += 1
-            return None
-        self._d[key] = val  # move to MRU position
-        self.hits += 1
-        return val
+        with self._lock:
+            try:
+                val = self._d.pop(key)
+            except KeyError:
+                self.misses += 1
+                return None
+            self._d[key] = val  # move to MRU position
+            self.hits += 1
+            return val
 
     def put(self, key, val) -> None:
-        self._d.pop(key, None)
-        self._d[key] = val
-        while len(self._d) > self.maxsize:
-            self._d.pop(next(iter(self._d)))
-            self.evictions += 1
+        with self._lock:
+            self._d.pop(key, None)
+            self._d[key] = val
+            while len(self._d) > self.maxsize:
+                self._d.pop(next(iter(self._d)))
+                self.evictions += 1
 
     def __len__(self) -> int:
-        return len(self._d)
+        with self._lock:
+            return len(self._d)
 
     def info(self) -> dict:
-        return {"hits": self.hits, "misses": self.misses,
-                "evictions": self.evictions,
-                "currsize": len(self._d), "maxsize": self.maxsize}
+        with self._lock:
+            return {"hits": self.hits, "misses": self.misses,
+                    "evictions": self.evictions,
+                    "currsize": len(self._d), "maxsize": self.maxsize}
 
 
 # --------------------------------------------------------------------------- #

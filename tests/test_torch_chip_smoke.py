@@ -610,3 +610,167 @@ def test_checks_hold_the_served_logits_to_their_limits(smoke):
         "teacher_forced_limit": smoke.TEACHER_FORCED_LIMIT}
     with pytest.raises(AssertionError, match="limit"):
         smoke.check_fixed_limit(cfg, model, prompts, ids, cpu, [5e-3], plain)
+
+
+# --------------------------------------------------------------------------- #
+# solve_service: the profile, the parity helper, the lanes on the CPU         #
+# --------------------------------------------------------------------------- #
+def test_serve_profile_and_trace_are_the_references(smoke):
+    from benchmarks import serve_bench
+
+    from repro_torch.core.device_search import MEM_UPDATE_DISABLED
+
+    ref = serve_bench.profile(smoke=False)
+    prof = smoke.SERVE_PROFILE
+    assert (prof.families, prof.n_requests, prof.walks, prof.rate, prof.batch_sizes,
+            prof.sync_every, prof.crit_cap) == (ref.families, ref.n_requests, ref.walks,
+                                                ref.rate, ref.batch_sizes, ref.sync_every,
+                                                ref.crit_cap)
+    assert (ref.budget.max_iters, ref.budget.time_limit, ref.budget.max_evals) == \
+        (prof.max_iters, None, None)
+    mine, want = smoke.serve_params(), serve_bench.serve_params()
+    for f in ("max_unimproved", "time_limit", "top_k", "mem_update_period", "mem_refresh_every",
+              "n_change_core_positions", "seed", "max_iters", "max_evals"):
+        assert getattr(mine, f) == getattr(want, f), f
+    assert mine.mem_update_period == MEM_UPDATE_DISABLED
+    items, arrivals = smoke.serve_trace(prof, seed=0)
+    ref_items, ref_arrivals = serve_bench.build_trace(ref, 0)
+    assert np.array_equal(arrivals, ref_arrivals) and len(items) == 36
+    for a, b in zip(items, ref_items):
+        assert (a["family"], a["seed"]) == (b["family"], b["seed"])
+        for f in ("proc_time", "data_size", "mem_cap", "access_time", "task_edges",
+                  "in_idx", "out_idx", "data_mem_ok"):
+            assert np.array_equal(getattr(a["instance"], f), getattr(b["instance"], f)), f
+
+
+def test_same_report_compares_what_parity_means(smoke):
+    import dataclasses
+
+    from repro_torch import Budget
+
+    inst = random_instance(0, n_tasks=24, n_data=60)
+    kw = dict(walks=2, budget=Budget(max_iters=4), backend="numpy", seed=1)
+    a, b = (solve(inst, "tabu_multiwalk", **kw) for _ in range(2))
+    assert smoke.same_report(a, b)
+    sol = a.solution
+    assign = sol.assign.copy()
+    assign[0] += 1
+    seqs = [list(s) for s in sol.proc_seq]
+    moved = next(i for i, s in enumerate(seqs) if s)
+    seqs[moved], seqs[(moved + 1) % len(seqs)] = seqs[(moved + 1) % len(seqs)], seqs[moved]
+    for changed in (dataclasses.replace(a, makespan=a.makespan + 1e-9),
+                    dataclasses.replace(a, history=a.history[:-1]),
+                    dataclasses.replace(a, n_exact_evals=a.n_exact_evals + 1),
+                    dataclasses.replace(a, solution=dataclasses.replace(sol, assign=assign)),
+                    dataclasses.replace(a, solution=dataclasses.replace(sol, proc_seq=seqs))):
+        assert not smoke.same_report(changed, b)
+
+
+def test_launches_by_path_adds_the_service(smoke):
+    by = smoke.launches_by_path({"main_path": {"schedule_dp": 30},
+                                 "device_path": {"schedule_dp": 177, "seq_cumsum": 236},
+                                 "solve_service": {"schedule_dp": 960, "seq_cumsum": 1280}})
+    assert by == {"schedule_dp": {"main_path": 30, "device_path": 177, "solve_service": 960},
+                  "seq_cumsum": {"device_path": 236, "solve_service": 1280}}
+
+
+TINY = dict(families=(("random_layered", {"n_tasks": 24, "n_data": 60}),
+                      ("out_tree", {"n_tasks": 20}), ("fft", {"width": 4, "stages": 2})),
+            walks=2, max_iters=4, rate=50.0, batch_sizes=(1, 2), sync_every=2, crit_cap=32)
+
+
+def test_service_lane_on_the_cpu(smoke, monkeypatch):
+    import asyncio
+
+    monkeypatch.setenv("REPRO_SANITIZE", "1")
+    prof = smoke.ServeProfile(n_requests=5, **TINY)
+    params = smoke.serve_params()
+    items, arrivals = smoke.serve_trace(prof, seed=0)
+    started = []
+    out = asyncio.run(smoke.run_service(items, arrivals, prof, params, "cpu",
+                                        on_start=started.append))
+    assert started == [out["service"]] and len(out["outcomes"]) == 5
+    smoke.check_served(out["outcomes"])
+    assert out["metrics"]["warmup"]["signatures"] == out["signatures"] >= 2
+    assert out["rids"] == list(range(5))
+    for rr in out["outcomes"]:                                   # no replay on the CPU
+        assert rr.metrics["launch_cache"]["k1_replayed"] == 0
+    for item, rr in zip(items, out["outcomes"]):
+        assert smoke.same_report(rr.report, smoke.solo_solve(item, prof, params, "cpu"))
+    with pytest.raises(AssertionError, match="failed"):
+        smoke.check_served([ValueError("x")])
+
+
+def test_fault_lane_on_the_cpu(smoke, monkeypatch):
+    """The first requests under the seeded plan of every kind, its hang
+    longer than the watchdog: every request ends in one terminal state,
+    survivors equal their solo solves, and the plan's patch is undone."""
+    from repro_torch.faults import inject as finj
+
+    monkeypatch.setenv("REPRO_SANITIZE", "1")
+    prof = smoke.ServeProfile(n_requests=6, **TINY)
+    params = smoke.serve_params()
+    items, _ = smoke.serve_trace(prof, seed=0)
+    solos = [smoke.solo_solve(item, prof, params, "cpu") for item in items]
+    fire = finj.fire
+    out = smoke.fault_lane(items, prof, params, solos, "cpu",
+                           plan_kw={**smoke.FAULT_PLAN, "hang_seconds": 1.5}, watchdog=1.0)
+    assert finj.fire is fire
+    assert out["requests"] == 6 == out["survivors"] + sum(out["failed"].values())
+    assert out["resilience"]["watchdog_kills"] >= 1
+    assert out["device_search_sync_fires"].get("compile_hang", 0) >= 1   # key 1 hangs
+    assert out["executes"] >= out["executes_raised"]
+    assert out["device_lanes_returned"] >= out["survivors_by_backend"].get("device", 0)
+    with pytest.raises(ValueError, match="watchdog"):
+        smoke.fault_lane(items, prof, params, solos, "cpu", watchdog=9.0)
+
+
+def test_race_plan_hangs_one_launch_alone(smoke):
+    from repro_torch.faults import FaultPlan, would_fire
+
+    kw = smoke.race_plan(12, 2.5)
+    plan = FaultPlan(**kw)
+    assert kw["hang_seconds"] == 2.5 and plan.kinds == ("compile_hang",)
+    fired = {r: would_fire(plan, "fire", "engine.execute.launch", r) for r in range(12)}
+    assert {r for r, k in fired.items() if k} == {smoke.RACE_HUNG_RID}
+    assert fired[smoke.RACE_HUNG_RID] == "compile_hang"
+    assert all(would_fire(plan, "fire", p, 1) is None
+               for p in ("device_search.sync", "engine.warmup.compile"))
+
+
+def test_race_lane_on_the_cpu(smoke, monkeypatch):
+    """Requests of one launch shape, one hung at its launch: the stale run
+    wakes beside the fresh lane's runs of the same shape, takes (or leaves
+    to them) an uncached launch, and every lane equals its solo solve."""
+    monkeypatch.setenv("REPRO_SANITIZE", "1")
+    prof = smoke.ServeProfile(n_requests=24, **TINY)
+    params = smoke.serve_params()
+    items, _ = smoke.serve_trace(prof, seed=0)
+    ks = smoke.one_shape(items, prof)[:8]
+    assert len(ks) == 8
+    items = [items[k] for k in ks]
+    solos = [smoke.solo_solve(item, prof, params, "cpu") for item in items]
+    out = smoke.race_lane(items, prof, params, solos, "cpu", hang_seconds=1.2, watchdog=1.0)
+    # the hung request fails once; a cut slowed past the watchdog on a busy
+    # host would fail the same way, and the checks above hold either way
+    assert set(out["failed"]) == {"CompileTimeout"}
+    assert out["survivors_by_backend"]["device"] + out["failed"]["CompileTimeout"] == 8
+    assert out["device_lanes_returned"] > out["survivors"] and out["uncached_launches"] >= 1
+    assert out["resilience"]["watchdog_kills"] >= 1
+
+
+def test_check_sweep_refuses_what_the_phase_must_not_pass(smoke):
+    import types
+
+    row = {"name": "a", "certified": True, "makespan": 10.0, "lb": 9.0,
+           "initial_makespan": 12.0}
+    ok = types.SimpleNamespace(compiles=1, buckets=1, rows=[row])
+    smoke.check_sweep(ok, types.SimpleNamespace(rows=[dict(row)]))
+    bad = [types.SimpleNamespace(compiles=2, buckets=1, rows=[row]),
+           types.SimpleNamespace(compiles=1, buckets=1, rows=[{**row, "makespan": 8.0}]),
+           types.SimpleNamespace(compiles=1, buckets=1, rows=[{**row, "certified": False}])]
+    for rep in bad:
+        with pytest.raises(AssertionError):
+            smoke.check_sweep(rep, types.SimpleNamespace(rows=[dict(row)]))
+    with pytest.raises(AssertionError, match="starts at"):
+        smoke.check_sweep(ok, types.SimpleNamespace(rows=[{**row, "initial_makespan": 11.0}]))

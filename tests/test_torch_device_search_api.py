@@ -190,7 +190,9 @@ def test_warm_launches_allocates_each_batch_size_once():
     assert sorted(first["per_size"]) == [1, 2]
     again = ds.warm_launches([inst], 2, params, config=cfg, batch_sizes=(2,))
     assert again["per_size"][2]["fresh"] is False
-    assert again["cache_delta"]["misses"] == 0 and again["cache_delta"]["hits"] == 1
+    # one launch at one exact-evaluation chunk, one at two (the relaunch's rung)
+    assert first["cache_delta"]["misses"] == 4
+    assert again["cache_delta"]["misses"] == 0 and again["cache_delta"]["hits"] == 2
     with pytest.raises(ValueError, match="positive"):
         ds.warm_launches([inst], 2, params, config=cfg, batch_sizes=(0,))
 

@@ -10,7 +10,9 @@ smoke-size recurrentgemma-2b and mamba2-780m models served on the card
 against the CPU (same ids, logits within 1e-4), and the device-resident
 search (its round captured as a CUDA graph) against the same search on the
 CPU, bit for bit, with its sequential prefix-sum kernel against
-``np.cumsum``.  They import the port only
+``np.cumsum``; the solve service served on the card against solo solves on
+the card, and two threads running one launch shape at once.  They import
+the port only
 (no JAX, no reference package), skip with a reason where there is no GPU,
 and run on the card with::
 
@@ -836,9 +838,9 @@ def test_warm_launches_captures_what_solve_instances_then_replays(cuda_device):
     cpu = ds.solve_instances([inst], [[s.copy() for s in inits[0]]],
                              TSParams(torch_device="cpu", **kw), config=cfg)[0]
     assert res.history == cpu.history and res.n_exact_evals == cpu.n_exact_evals
-    # the warmed round served the run: nothing was captured again, unless
-    # its one exact-evaluation chunk overflowed
-    assert res.compile_seconds == 0.0 or res.device_stats["chunk_cap"] > 1
+    # the warmed rounds served the run: nothing was captured again, unless
+    # a round overflowed both warmed chunk counts (one and two)
+    assert res.compile_seconds == 0.0 or res.device_stats["chunk_cap"] > 2
 
 
 @pytest.mark.parametrize("width", [1, 31, 128, 255, 256, 257, 1280, 3072, 4096])
@@ -851,3 +853,107 @@ def test_seq_cumsum_kernel_equals_plain_version_and_numpy(cuda_device, width):
     want = np.concatenate([np.zeros((80, 1)), np.cumsum(v, axis=1)], axis=1)
     assert np.array_equal(got.cpu().numpy(), want)
     assert torch.equal(got.cpu(), sdp.seq_cumsum_torch(torch.from_numpy(v)))
+
+
+# --------------------------------------------------------------------------- #
+# the solve service and the device engine under threads, on the card          #
+# --------------------------------------------------------------------------- #
+SERVE_KW = dict(max_unimproved=10**9, time_limit=1e9, top_k=5,
+                mem_update_period=ds.MEM_UPDATE_DISABLED)
+
+
+def _outcome(res):
+    return (res.best_makespan, res.history, res.iterations, res.n_exact_evals,
+            res.best.assign.tolist(), res.best.mem.tolist(),
+            [list(map(int, s)) for s in res.best.proc_seq])
+
+
+def test_served_on_the_card_equals_solo_on_the_card(cuda_device):
+    import asyncio
+
+    from repro_torch import Budget, solve
+    from repro_torch.serve import BatchPolicy, EngineConfig, SolveService, WarmSpec
+
+    insts = [random_instance(s, n_tasks=40, n_data=100) for s in range(3)]
+    budget = Budget(max_iters=8)
+    params = TSParams(**SERVE_KW)
+    cfg = EngineConfig(backend="device", sync_every=4, crit_cap=32, batch_sizes=(1, 2, 4))
+
+    async def go():
+        svc = SolveService(config=cfg, policy=BatchPolicy(max_batch=4, max_wait=0.01),
+                           params=params, warm=[WarmSpec(i, 2, budget) for i in insts])
+        await svc.start()
+        rids = [await svc.submit(i, budget, seed=s, walks=2) for s, i in zip((3, 9, 4), insts)]
+        out = [await svc.result(r) for r in rids]
+        await svc.shutdown()
+        return out, svc.metrics()
+
+    results, metrics = asyncio.run(go())
+    assert metrics["warmup"]["compile_seconds"] > 0 and not metrics["errors"]
+    for seed, inst, rr in zip((3, 9, 4), insts, results):
+        solo = solve(inst, "tabu_device", walks=2, budget=budget, seed=seed, params=params,
+                     device={"sync_every": 4, "crit_cap": 32})
+        assert rr.metrics["backend"] == "device"
+        assert rr.metrics["launch_cache"]["misses"] == 0
+        assert (rr.report.makespan, rr.report.history, rr.report.n_exact_evals) == \
+            (solo.makespan, solo.history, solo.n_exact_evals)
+        assert np.array_equal(rr.report.solution.assign, solo.solution.assign)
+        assert rr.report.solution.proc_seq == solo.solution.proc_seq
+        assert rr.metrics["launch_cache"]["k1_replayed"] == \
+            rr.report.extras["device_stats"]["k1_replayed"] > 0
+
+
+def test_two_threads_on_one_launch_shape_on_the_card(cuda_device):
+    """Two runs of one launch shape at once, held at their first sync
+    until both are inside: the second runs a launch of its own (captured
+    while the first replays), and each equals its run alone."""
+    import threading
+
+    from repro_torch.core.api import multiwalk_inits
+
+    params = TSParams(max_iters=16, **SERVE_KW)
+    cfg = ds.DeviceConfig(sync_every=4, crit_cap=32)
+    a = random_instance(0, n_tasks=30, n_data=70)
+    b = random_instance(1, n_tasks=30, n_data=70)
+    both = ds.InstanceBatch.from_instances([a, b])
+    pin = dict(n_b=both.n_b, p_b=both.p_b, d_b=both.d_b, widths=both.widths, e_b=both.e_b)
+    ba, bb = (ds.InstanceBatch.from_instances([i], **pin) for i in (a, b))
+    assert ba.bucket_key == bb.bucket_key
+
+    def go(batch, inst, seed, cbs=None):
+        inits = [multiwalk_inits(inst, 3, seed)[0]]
+        return ds.solve_instances(batch, inits, params, config=cfg, seeds=[seed],
+                                  callbacks=cbs)[0]
+
+    want = [_outcome(go(ba, a, 3)), _outcome(go(bb, b, 5))]
+    barrier = threading.Barrier(2)
+
+    class Meet:
+        on_improvement = None
+        met = False
+
+        def on_iteration(self, ev):
+            if not self.met:
+                self.met = True
+                barrier.wait(timeout=120)
+
+    got, errors = [None, None], []
+    uncached = ds.launch_cache_info()["uncached"]
+
+    def worker(k, batch, inst, seed):
+        try:
+            got[k] = _outcome(go(batch, inst, seed, [Meet()]))
+        except BaseException as e:  # noqa: BLE001 — reported below
+            errors.append(e)
+            barrier.abort()
+
+    threads = [threading.Thread(target=worker, args=(0, ba, a, 3)),
+               threading.Thread(target=worker, args=(1, bb, b, 5))]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(300)
+    torch.cuda.synchronize()
+    assert not errors, errors
+    assert got == want
+    assert ds.launch_cache_info()["uncached"] == uncached + 1

@@ -1,11 +1,13 @@
 """The port stands alone: importing and running it (the solvers, the
-device-resident search and its instance packing among them) pulls in
-neither JAX nor the reference package, and no source file of it names
-either."""
+device-resident search and its instance packing, the suites, the fault
+layer and the solve service among them) pulls in neither JAX nor the
+reference package, and no source file of it names either."""
 import pathlib
 import re
 import subprocess
 import sys
+
+import pytest
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 PORT = ROOT / "src" / "repro_torch"
@@ -14,7 +16,11 @@ _PROBE = """
 import sys
 import repro_torch
 import repro_torch.core.device_search
+import repro_torch.faults
+import repro_torch.faults.inject
 import repro_torch.instances.batch
+import repro_torch.instances.suites
+import repro_torch.serve
 import repro_torch.kernels.ops
 import repro_torch.kernels.ssd
 import repro_torch.launch.model_serve
@@ -28,6 +34,17 @@ rep = solve(inst, "tabu_multiwalk", walks=2, budget=Budget(max_iters=3),
 assert rep.makespan > 0
 rep = solve(inst, "tabu_device", walks=2, budget=Budget(max_iters=3), torch_device="cpu")
 assert rep.extras["backend"] == "device"
+import asyncio
+from repro_torch.serve import EngineConfig, SolveService
+async def served():
+    svc = SolveService(config=EngineConfig(backend="numpy"))
+    await svc.start()
+    rid = await svc.submit(inst, Budget(max_iters=3), seed=1, walks=2)
+    rr = await svc.result(rid)
+    await svc.shutdown()
+    return rr
+rr = asyncio.run(served())
+assert rr.metrics["backend"] == "numpy" and rr.report.makespan > 0
 ids = repro_torch.launch.model_serve.serve_main(
     ["--smoke", "--device", "cpu", "--batch", "2", "--prompt-len", "70", "--gen", "3"])
 assert ids.shape == (2, 3)
@@ -88,3 +105,27 @@ def test_public_surface_matches_reference():
 
     assert set(repro.__all__) == set(repro_torch.__all__)
     assert set(repro_torch.list_solvers()) == set(repro.list_solvers())
+
+
+def test_the_service_and_the_sweep_default_to_the_card():
+    """The new entry points go to the GPU unless asked for the CPU, through
+    ``_device.resolve_device``: without a card they raise instead of
+    carrying on on the host."""
+    import inspect
+
+    import torch
+
+    from repro_torch import Budget
+    from repro_torch.core import random_instance
+    from repro_torch.instances import suites
+    from repro_torch.serve import Engine, EngineConfig, WarmSpec
+
+    assert EngineConfig().torch_device == "cuda"
+    assert inspect.signature(suites.sweep).parameters["torch_device"].default == "cuda"
+    if torch.cuda.is_available():
+        return
+    inst = random_instance(0, n_tasks=12, n_data=30)
+    with pytest.raises(RuntimeError, match="torch.cuda.is_available"):
+        Engine(EngineConfig()).warmup([WarmSpec(inst, 2, Budget(max_iters=1))])
+    with pytest.raises(RuntimeError, match="torch.cuda.is_available"):
+        suites.sweep([inst], backend="device", budget=Budget(max_iters=1))
