@@ -3,8 +3,9 @@ reduced smoke variants (same family, tiny dims) for CPU tests.
 
 All ten architecture names of the system are known here, but only those
 whose layer kinds the port runs today are registered (recurrentgemma-2b:
-rec + attn_local; mamba2-780m: ssm); asking for another one raises a
-``KeyError`` that names the slice it waits for.
+rec + attn_local; mamba2-780m: ssm; the global-attention decoders
+qwen2.5-14b, codeqwen1.5-7b and qwen1.5-32b: attn); asking for another one
+raises a ``KeyError`` that names the slice it waits for.
 """
 from __future__ import annotations
 
@@ -26,13 +27,16 @@ ARCH_IDS = (
     "internvl2-26b",
 )
 
-# archs whose layer kinds (rec, attn_local, ssm) the port runs
-PORTED_ARCH_IDS = ("recurrentgemma-2b", "mamba2-780m")
+# archs whose layer kinds (rec, attn_local, ssm, attn) the port runs
+PORTED_ARCH_IDS = ("recurrentgemma-2b", "mamba2-780m", "qwen2.5-14b", "codeqwen1.5-7b",
+                   "qwen1.5-32b")
 
 _LATER = {
-    "whisper-medium": "a later slice (encoder-decoder)",
     "mixtral-8x7b": "a later slice (MoE blocks)",
     "granite-moe-1b-a400m": "a later slice (MoE blocks)",
+    "whisper-medium": "a later slice (encoder-decoder)",
+    "internvl2-26b": "a later slice (vision tokens)",
+    "llama3-405b": "a later slice (the multi-device pieces)",
 }
 
 _MODULE_OF = {a: a.replace(".", "_").replace("-", "_") for a in PORTED_ARCH_IDS}
@@ -42,7 +46,7 @@ def get_config(arch_id: str) -> ModelConfig:
     if arch_id not in ARCH_IDS:
         raise KeyError(f"unknown arch {arch_id!r}; known: {ARCH_IDS}")
     if arch_id not in _MODULE_OF:
-        later = _LATER.get(arch_id, "a later slice (global-attention decoders)")
+        later = _LATER[arch_id]
         raise KeyError(
             f"arch {arch_id!r} is not ported yet: it comes with {later}; "
             f"the port runs {PORTED_ARCH_IDS}")

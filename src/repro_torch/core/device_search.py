@@ -1066,39 +1066,62 @@ def _start_walks(instances, inits, params):
 
 
 def _drive(batch: InstanceBatch, cur_sols, scheds, seeds, params: TSParams,
-           cfg: DeviceConfig, callbacks, labels, *, solo: bool) -> list[MultiWalkResult]:
+           cfg: DeviceConfig, callbacks, labels, *, solo: bool, on_checkpoint=None,
+           resume_from=None) -> list[MultiWalkResult]:
     """The run of every instance of ``batch`` to its stop: launch, replay
     ``sync_every`` rounds, read the series and flags, handle overflow,
     callbacks and budgets, Alg-3 on the active walks; then the results.
 
     ``solo`` is :func:`device_multiwalk`'s call: its callbacks fire at every
-    sync, and its walks' incumbents are certified at syncs when sanitize
-    mode is on.  The run holds its launch (:func:`_get_launch`'s ``owner``)
-    until its last read.  At the end of each sync period's host
-    work the ``device_search.sync`` fault point fires, keyed on the count of
-    such periods (1, 2, …), as the reference's ``device_multiwalk`` does."""
+    sync, its walks' incumbents are certified at syncs when sanitize mode is
+    on, and at the end of each sync period's host work it hands
+    ``on_checkpoint`` (if given) the run's fields for a snapshot, then fires
+    the ``device_search.sync`` fault point, keyed on the count of such
+    periods (1, 2, …) — the reference's point, keying and order, so the
+    crash comes after the checkpoint.  A batch run (``solve_instances``, the
+    service's backend) has neither, as in the reference.  ``resume_from``
+    (a checked :class:`~repro_torch.faults.checkpoint.SearchCheckpoint` of a
+    solo run) replaces the starting state: ``cur_sols`` / ``scheds`` are not
+    read.  The run holds its launch (:func:`_get_launch`'s ``owner``) until
+    its last read."""
     t0 = time.monotonic()
     dev = resolve_device(params.torch_device)
     instances, packs = list(batch.instances), list(batch.packs)
-    n_inst, w_count = len(instances), len(cur_sols[0])
-    crit_cap = cfg.crit_cap or max(_auto_crit_cap(i, s, sc)
-                                   for i, s, sc in zip(instances, cur_sols, scheds))
-    chunk_cap = 1
-    states = [pack_state(ip, s, sc, sd)
-              for ip, s, sc, sd in zip(packs, cur_sols, scheds, seeds)]
-    live = {k: np.stack([st[k] for st in states]) for k in states[0]}
-    init_best = live["best_mk"].copy()                        # (I, W)
-    histories = [[[(0, float(init_best[i, w]))] for w in range(w_count)]
-                 for i in range(n_inst)]
-    g_hist = [[(0, float(init_best[i].min()))] for i in range(n_inst)]
-    g_best = [h[0][1] for h in g_hist]
+    n_inst = len(instances)
     mem_updates_on = params.mem_update_period < MEM_UPDATE_DISABLED
     n_exact_host = np.zeros(n_inst, dtype=np.int64)
+    if resume_from is None:
+        w_count = len(cur_sols[0])
+        crit_cap = cfg.crit_cap or max(_auto_crit_cap(i, s, sc)
+                                       for i, s, sc in zip(instances, cur_sols, scheds))
+        chunk_cap = 1
+        states = [pack_state(ip, s, sc, sd)
+                  for ip, s, sc, sd in zip(packs, cur_sols, scheds, seeds)]
+        live = {k: np.stack([st[k] for st in states]) for k in states[0]}
+        init_best = live["best_mk"].copy()                        # (I, W)
+        init_mk = [float(init_best[i].min()) for i in range(n_inst)]
+        histories = [[[(0, float(init_best[i, w]))] for w in range(w_count)]
+                     for i in range(n_inst)]
+        g_hist = [[(0, init_mk[i])] for i in range(n_inst)]
+        g_best = list(init_mk)
+        it_min = sync_index = 0
+    else:
+        ck = resume_from
+        w_count = ck.walks
+        crit_cap, chunk_cap = ck.crit_cap, ck.chunk_cap
+        live = {k: np.asarray(v)[None].copy() for k, v in ck.state.items()}
+        init_mk = [ck.init_mk_min]
+        histories = [[list(h) for h in ck.histories]]
+        g_hist = [list(ck.g_hist)]
+        g_best = [ck.g_best]
+        n_exact_host[0] = ck.n_exact_host
+        it_min, sync_index = ck.iteration, ck.sync_index
+        t0 -= ck.elapsed                    # a time budget carries over
     cb_stop = np.zeros(n_inst, dtype=bool)
     timed_out = False
     compile_s = 0.0
     k1_0, cs_0 = sdp.sweep.launches, sdp.seq_cumsum.launches
-    rounds = it_min = sync_index = own_k1 = own_cs = 0
+    rounds = own_k1 = own_cs = 0
     current, me = None, {}          # ``me``: this run, as a launch's owner
 
     def host(src: dict, keys=None):
@@ -1242,9 +1265,18 @@ def _drive(batch: InstanceBatch, cur_sols, scheds, seeds, params: TSParams,
                                 g_hist[i].append((it_now, g_best[i]))
 
             sync_index += 1
-            # chaos harness: a seeded plan can lose the device at a sync
-            # boundary (the reference's point and keying)
-            _inject.fire("device_search.sync", key=sync_index)
+            if solo:
+                if on_checkpoint is not None:
+                    on_checkpoint(sync_index=sync_index, crit_cap=crit_cap,
+                                  chunk_cap=chunk_cap, iteration=it_min,
+                                  elapsed=time.monotonic() - t0,
+                                  n_exact_host=int(n_exact_host[0]), g_best=g_best[0],
+                                  init_mk_min=init_mk[0], g_hist=g_hist[0],
+                                  histories=histories[0],
+                                  state={k: v[0] for k, v in host(launch.state).items()})
+                # chaos harness: a seeded plan can lose the device at a sync
+                # boundary, after the checkpoint, so the crash is survivable
+                _inject.fire("device_search.sync", key=sync_index)
 
         state = live if current is None else host(current.state)
     finally:
@@ -1299,7 +1331,7 @@ def _drive(batch: InstanceBatch, cur_sols, scheds, seeds, params: TSParams,
             for w in range(w_count)]
         res = MultiWalkResult(
             best=best_sols[gi], best_makespan=float(best_mk[gi]),
-            initial_makespan=float(init_best[i].min()),
+            initial_makespan=init_mk[i],
             iterations=int(state["it"][i]), elapsed=time.monotonic() - t0,
             history=g_hist[i],
             n_exact_evals=int(state["n_exact"][i]) + int(n_exact_host[i]),
@@ -1332,29 +1364,48 @@ def device_multiwalk(
     ``params.mem_update_period < MEM_UPDATE_DISABLED``.  The result carries
     ``compile_seconds`` (the capture time of its launches) and
     ``device_stats`` (buckets, K1 / ``seq_cumsum`` launches, rounds
-    replayed).  ``on_checkpoint`` / ``resume_from`` belong to the fault
-    layer's checkpointing, which is not ported yet (ROADMAP A6): passing
-    either raises.
+    replayed; on a resumed run they count from the resume).
+
+    ``on_checkpoint`` (optional) receives a
+    :class:`~repro_torch.faults.checkpoint.SearchCheckpoint` at every sync
+    boundary (after Alg-3, before the next launch): the launch's walk state,
+    copied to the host once, plus the host trajectory.  ``resume_from``
+    restarts the run from such a checkpoint **bit-identically**: the launch
+    comes back at the checkpoint's buckets with its state, so under
+    iteration / eval budgets the result matches the uncrashed run's field
+    for field (wall-clock fields excepted; a ``time_limit`` budget carries
+    the checkpoint's elapsed time over instead of restarting).  ``inits`` is
+    not read on a resume.  Both are None by default and cost nothing then.
     """
-    if on_checkpoint is not None or resume_from is not None:
-        raise NotImplementedError(
-            "on_checkpoint / resume_from need the fault layer's checkpointing "
-            "(repro_torch.faults.checkpoint), not ported yet (ROADMAP A6)")
     params = params or TSParams()
     cfg = config or DeviceConfig()
-    w_count = len(inits)
+    emit = None
+    if on_checkpoint is not None or resume_from is not None:
+        from ..faults import checkpoint as _ckpt
+
+        fps = {"instance_fp": _ckpt.instance_fingerprint(inst),
+               "params_fp": _ckpt.params_fingerprint(params)}
+        if resume_from is not None:
+            _ckpt.check_compatible(resume_from, walks=getattr(resume_from, "walks", None),
+                                   **fps)
+    w_count = len(inits) if resume_from is None else int(resume_from.walks)
     if w_count < 1:
         raise ValueError("device_multiwalk needs at least one init")
     labels = init_labels or [f"walk{w}" for w in range(w_count)]
     resolve_device(params.torch_device)
     batch = InstanceBatch.from_instances([inst])
-    cur_sols, scheds = _start_walks([inst], [inits], params)
+    if on_checkpoint is not None:
+        def emit(**fields):
+            on_checkpoint(_ckpt.snapshot(walks=w_count, **fps, **fields))
+    cur_sols = scheds = None
+    if resume_from is None:
+        cur_sols, scheds = _start_walks([inst], [inits], params)
     cb = None
     if on_iteration is not None or on_improvement is not None:
         cb = [types.SimpleNamespace(on_iteration=on_iteration,
                                     on_improvement=on_improvement)]
     return _drive(batch, cur_sols, scheds, [params.seed], params, cfg, cb, labels,
-                  solo=True)[0]
+                  solo=True, on_checkpoint=emit, resume_from=resume_from)[0]
 
 
 def _repair_bests(inst: Instance, params: TSParams, best_sols, best_mk):

@@ -1,17 +1,19 @@
 """Batched LLM token serving on the port: prefill a prompt batch, then decode
 with the caches.  Parameters and prompts are random, drawn from ``--seed``.
 
+    PYTHONPATH=src python -m repro_torch.launch.model_serve --smoke --device cpu
+    PYTHONPATH=src python -m repro_torch.launch.model_serve \\
+        --batch 4 --prompt-len 4096 --gen 32          # qwen2.5-14b, full width, on the GPU
     PYTHONPATH=src python -m repro_torch.launch.model_serve --arch recurrentgemma-2b \\
-        --smoke --device cpu
-    PYTHONPATH=src python -m repro_torch.launch.model_serve --arch recurrentgemma-2b \\
-        --batch 4 --prompt-len 4096 --gen 32          # full width, on the GPU
-    PYTHONPATH=src python -m repro_torch.launch.model_serve --arch mamba2-780m \\
         --smoke --device cpu
     PYTHONPATH=src python -m repro_torch.launch.model_serve --arch mamba2-780m \\
         --batch 4 --prompt-len 4096 --gen 32          # full width, on the GPU
 
-The archs it serves are ``configs.PORTED_ARCH_IDS`` (recurrentgemma-2b and
-mamba2-780m); another ``--arch`` raises a ``KeyError`` naming its slice.
+The default ``--arch`` is the reference's, qwen2.5-14b.  The archs it serves
+are ``configs.PORTED_ARCH_IDS`` (recurrentgemma-2b, mamba2-780m, qwen2.5-14b,
+codeqwen1.5-7b, qwen1.5-32b; the last needs more memory than one 80 GB card
+holds at full width); another ``--arch`` raises a ``KeyError`` naming its
+slice.
 """
 from __future__ import annotations
 
@@ -82,7 +84,7 @@ def serve(cfg: ModelConfig, model, prompts: torch.Tensor, gen: int, *,
 
 def serve_main(argv=None) -> np.ndarray:
     ap = argparse.ArgumentParser()
-    ap.add_argument("--arch", choices=ARCH_IDS, default="recurrentgemma-2b")
+    ap.add_argument("--arch", choices=ARCH_IDS, default="qwen2.5-14b")
     ap.add_argument("--smoke", action="store_true")
     ap.add_argument("--batch", type=int, default=4)
     ap.add_argument("--prompt-len", type=int, default=64)

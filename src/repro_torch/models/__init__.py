@@ -1,5 +1,6 @@
 """Model facade of the port: one API over the decoder-only archs it runs
-(recurrentgemma-2b and mamba2-780m, ``configs.PORTED_ARCH_IDS``).
+(recurrentgemma-2b, mamba2-780m and the global-attention decoders
+qwen2.5-14b, codeqwen1.5-7b and qwen1.5-32b: ``configs.PORTED_ARCH_IDS``).
 
 ``batch`` dicts carry ``tokens (B, S)``.  Parameters live in a
 :class:`~repro_torch.models.decoder.Decoder` module; every entry point takes

@@ -1,5 +1,7 @@
-"""Attention layers: MQA/GQA projections + RoPE + the flash kernel for the
-prompt, and single-token decode against a ring KV cache.
+"""Attention layers: GQA/MHA/MQA projections (with the qkv biases where the
+config has them) + RoPE + the flash kernel for the prompt, and single-token
+decode against a KV cache: a ring of ``window`` slots for a sliding-window
+layer, a linear cache of ``max_len`` slots for a global one.
 
 One card holds the whole cache, so decode is the reference's single-shard
 branch (``_local_decode``); its sequence-sharded ``shard_map`` form belongs
@@ -23,31 +25,46 @@ _NEG = -1e30
 
 def attn_defs(cfg: ModelConfig) -> dict[str, ParamDef]:
     d, h, kvh, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
-    return {
+    defs = {
         "wq": ParamDef((d, h, hd)),
         "wk": ParamDef((d, kvh, hd)),
         "wv": ParamDef((d, kvh, hd)),
         "wo": ParamDef((h, hd, d)),
     }
+    if cfg.qkv_bias:
+        # the reference's four biases; ``bo`` is the reference's own (the
+        # published Qwen models have no output-projection bias)
+        defs["bq"] = ParamDef((h, hd), init="zeros")
+        defs["bk"] = ParamDef((kvh, hd), init="zeros")
+        defs["bv"] = ParamDef((kvh, hd), init="zeros")
+        defs["bo"] = ParamDef((d,), init="zeros")
+    return defs
 
 
-def _project_qkv(p, x):
-    """x: (B, S, E) -> q (B,S,H,HD), k/v (B,S,KVH,HD)."""
+def _project_qkv(cfg: ModelConfig, p, x):
+    """x: (B, S, E) -> q (B,S,H,HD), k/v (B,S,KVH,HD), biased before RoPE."""
     q = torch.einsum("bse,ehd->bshd", x, p.wq)
     k = torch.einsum("bse,ehd->bshd", x, p.wk)
     v = torch.einsum("bse,ehd->bshd", x, p.wv)
+    if cfg.qkv_bias:
+        q, k, v = q + p.bq, k + p.bk, v + p.bv
     return q, k, v
+
+
+def _out(cfg: ModelConfig, p, y):
+    return y + p.bo if cfg.qkv_bias else y
 
 
 def attention(cfg: ModelConfig, p, x: torch.Tensor, *, positions: torch.Tensor,
               causal: bool = True, window: int | None = None, return_kv: bool = False):
     """Full-sequence attention (prefill): x (B, S, E) -> (B, S, E)
-    [+ the roped k and the v, (B, S, KVH, HD) each]."""
-    q, k, v = _project_qkv(p, x)
+    [+ the roped k and the v, (B, S, KVH, HD) each].  ``window=None`` is
+    global attention."""
+    q, k, v = _project_qkv(cfg, p, x)
     q = apply_rope(q, positions, cfg.rope_theta)
     k = apply_rope(k, positions, cfg.rope_theta)
     out = ops.flash_attention(q, k, v, causal=causal, window=window)
-    y = torch.einsum("bshd,hde->bse", out, p.wo)
+    y = _out(cfg, p, torch.einsum("bshd,hde->bse", out, p.wo))
     return (y, (k, v)) if return_kv else y
 
 
@@ -57,20 +74,27 @@ def kv_cache_defs(cfg: ModelConfig, batch: int, slots: int):
     return {"k": (shape, False), "v": (shape, False)}
 
 
-def decode_attention(cfg: ModelConfig, p, x: torch.Tensor, cache: dict, pos: int):
-    """One token against a ring cache of ``S_max`` slots: x (B, 1, E), cache
+def decode_attention(cfg: ModelConfig, p, x: torch.Tensor, cache: dict, pos: int, *,
+                     window: int | None = None):
+    """One token against a cache of ``S_max`` slots: x (B, 1, E), cache
     {"k","v"}: (B, S_max, KVH, HD), ``pos`` the token's absolute position.
-    The token goes to slot ``pos % S_max``; slots up to it are live, and every
-    slot is once the ring has wrapped (``pos >= S_max``).  Returns
-    ((B, 1, E), cache) with the cache updated in place."""
+
+    With a ``window`` the cache is a ring: the token goes to slot
+    ``pos % S_max``, slots up to it are live, and every slot is once the ring
+    has wrapped (``pos >= S_max``).  Without one it is linear: the token goes
+    to slot ``pos`` (which must be inside the cache) and slots ``<= pos`` are
+    live.  Returns ((B, 1, E), cache) with the cache updated in place."""
     b = x.shape[0]
-    q, k_new, v_new = _project_qkv(p, x)
+    q, k_new, v_new = _project_qkv(cfg, p, x)
     pos_t = torch.arange(pos, pos + 1, device=x.device)   # made on the card: no host wait
     q = apply_rope(q, pos_t, cfg.rope_theta)
     k_new = apply_rope(k_new, pos_t, cfg.rope_theta)
     k_cache, v_cache = cache["k"], cache["v"]
     _, s_max, kvh, hd = k_cache.shape
-    slot = pos % s_max
+    ring = window is not None
+    if not ring and pos >= s_max:
+        raise ValueError(f"position {pos} is past the linear cache's {s_max} slots")
+    slot = pos % s_max if ring else pos
     k_cache[:, slot] = k_new[:, 0]
     v_cache[:, slot] = v_new[:, 0]
 
@@ -78,7 +102,7 @@ def decode_attention(cfg: ModelConfig, p, x: torch.Tensor, cache: dict, pos: int
     qg = (q[:, 0] * hd ** -0.5).float().reshape(b, kvh, h // kvh, hd)
     logits = torch.einsum("bcgd,bkcd->bcgk", qg, k_cache.float())
     valid = torch.arange(s_max, device=x.device) <= slot
-    if pos >= s_max:
+    if ring and pos >= s_max:
         valid = torch.ones_like(valid)
     logits = torch.where(valid, logits, _NEG)
     m = logits.amax(dim=-1, keepdim=True)
@@ -86,5 +110,5 @@ def decode_attention(cfg: ModelConfig, p, x: torch.Tensor, cache: dict, pos: int
     s = e.sum(dim=-1)
     o = torch.einsum("bcgk,bkcd->bcgd", e, v_cache.float())
     out = (o / s.clamp_min(1e-30)[..., None]).reshape(b, h, hd).to(x.dtype)
-    y = torch.einsum("bhd,hde->be", out, p.wo)
+    y = _out(cfg, p, torch.einsum("bhd,hde->be", out, p.wo))
     return y[:, None], cache

@@ -1,13 +1,17 @@
 """The decoder-only LM of the port, as far as the ported layer kinds go:
 RecurrentGemma's pattern of RG-LRU blocks ("rec") and sliding-window
-attention ("attn_local"), each followed by a GLU MLP, and Mamba-2's stack of
-SSD blocks ("ssm"), which have no MLP; tied embeddings.
+attention ("attn_local"), each followed by a GLU MLP; Mamba-2's stack of SSD
+blocks ("ssm"), which have no MLP; and the Qwen decoders' stack of global
+attention layers ("attn", with qkv biases) and GLU MLPs.  Embeddings are
+tied, or untied with an ``lm_head (d_model, padded_vocab)``.
 
 The reference stacks whole pattern periods (or, for a uniform stack, all
 layers) for ``lax.scan``; here the layers are one ``nn.ModuleList`` in order,
 and ``repro_torch.convert`` maps between the layouts.  The decode cache is a
-list with one dict per layer: a ring {"k", "v"} of ``min(max_len, window)``
-slots for attention, {"h" (fp32), "conv"} for a recurrent or SSM layer.
+list with one dict per layer: {"k", "v"} for attention, a ring of
+``min(max_len, window)`` slots for "attn_local" and a linear cache of
+``max_len`` slots for "attn"; {"h" (fp32), "conv"} for a recurrent or SSM
+layer.
 """
 from __future__ import annotations
 
@@ -34,7 +38,8 @@ __all__ = [
     "init_cache",
 ]
 
-KINDS = ("rec", "attn_local", "ssm")
+KINDS = ("rec", "attn_local", "ssm", "attn")
+_ATTN = ("attn", "attn_local")
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 
 
@@ -56,8 +61,7 @@ def check_supported(cfg: ModelConfig) -> None:
                                   f"(the port runs {KINDS})")
     unsupported = {
         "encoder_layers": cfg.encoder_layers, "n_experts": cfg.n_experts,
-        "n_vis_tokens": cfg.n_vis_tokens, "qkv_bias": cfg.qkv_bias,
-        "mlp_bias": cfg.mlp_bias, "untied embeddings": not cfg.tie_embeddings,
+        "n_vis_tokens": cfg.n_vis_tokens, "mlp_bias": cfg.mlp_bias,
         "non-GLU MLP": not cfg.glu, "layernorm": cfg.norm != "rmsnorm",
         "no attention window": "attn_local" in cfg.kinds and cfg.attn_window is None,
     }
@@ -91,14 +95,17 @@ class Layer(DefModule):
 
 
 class Decoder(DefModule):
-    """Embedding (tied with the output projection), the layers, the final norm."""
+    """Embedding, the layers, the final norm, and the output projection: the
+    embedding's transpose where the config ties them, else ``lm_head``."""
 
     def __init__(self, cfg: ModelConfig, device: str | torch.device = "cuda"):
         check_supported(cfg)
         dtype = working_dtype(cfg)
         device = resolve_device(device)
-        super().__init__({"tok_emb": ParamDef((cfg.padded_vocab, cfg.d_model), scale=1.0),
-                          "ln_f_w": _norm(cfg)}, dtype, device)
+        defs = {"tok_emb": ParamDef((cfg.padded_vocab, cfg.d_model), scale=1.0)}
+        if not cfg.tie_embeddings:
+            defs["lm_head"] = ParamDef((cfg.d_model, cfg.padded_vocab))
+        super().__init__({**defs, "ln_f_w": _norm(cfg)}, dtype, device)
         self.cfg = cfg
         self.layers = nn.ModuleList(Layer(cfg, kind, dtype, device) for kind in cfg.kinds)
 
@@ -116,7 +123,10 @@ def _embed(cfg: ModelConfig, model: Decoder, tokens: torch.Tensor) -> torch.Tens
 
 
 def _logits(cfg: ModelConfig, model: Decoder, x: torch.Tensor) -> torch.Tensor:
-    return torch.einsum("bse,ve->bsv", rms_norm(x, model.ln_f_w), model.tok_emb)
+    x = rms_norm(x, model.ln_f_w)
+    if cfg.tie_embeddings:
+        return torch.einsum("bse,ve->bsv", x, model.tok_emb)
+    return torch.einsum("bse,ev->bsv", x, model.lm_head)
 
 
 def _ring_from_full(k: torch.Tensor, window: int) -> torch.Tensor:
@@ -131,16 +141,33 @@ def _ring_from_full(k: torch.Tensor, window: int) -> torch.Tensor:
     return torch.cat([k, pad], dim=1)
 
 
+def _pad_cache(k: torch.Tensor, max_len: int) -> torch.Tensor:
+    """(B,S,KVH,D) -> a linear cache of ``max_len`` slots (position p in slot p)."""
+    s = k.shape[1]
+    if s == max_len:
+        return k
+    pad = torch.zeros((k.shape[0], max_len - s, *k.shape[2:]), dtype=k.dtype, device=k.device)
+    return torch.cat([k, pad], dim=1)
+
+
+def _window(cfg: ModelConfig, kind: str) -> int | None:
+    """The attention window of a layer kind: none for global attention."""
+    return cfg.attn_window if kind == "attn_local" else None
+
+
 def _layer(cfg: ModelConfig, layer: Layer, x: torch.Tensor, positions, max_len):
     """One layer over the whole sequence; with ``max_len`` also its cache entry."""
     h = rms_norm(x, layer.ln1_w)
     entry = None
-    if layer.kind == "attn_local":
+    if layer.kind in _ATTN:
+        win = _window(cfg, layer.kind)
         out, (k, v) = attention(cfg, layer.attn, h, positions=positions, causal=True,
-                                window=cfg.attn_window, return_kv=True)
-        if max_len is not None:
-            slots = min(max_len, cfg.attn_window)
+                                window=win, return_kv=True)
+        if max_len is not None and win is not None:
+            slots = min(max_len, win)
             entry = {"k": _ring_from_full(k, slots), "v": _ring_from_full(v, slots)}
+        elif max_len is not None:
+            entry = {"k": _pad_cache(k, max_len), "v": _pad_cache(v, max_len)}
     else:
         state = None
         if max_len is not None:   # prefill starts from a zero state, as a decode would
@@ -182,14 +209,15 @@ def prefill(cfg: ModelConfig, model: Decoder, tokens: torch.Tensor, *,
 def decode_step(cfg: ModelConfig, model: Decoder, cache: list, tokens: torch.Tensor,
                 pos: int):
     """One decode step: tokens (B, 1) at absolute position ``pos``.  Returns
-    (logits (B, padded_vocab), the new cache); attention rings are updated in
+    (logits (B, padded_vocab), the new cache); attention caches are updated in
     place."""
     x = _embed(cfg, model, tokens)
     new_cache = []
     for layer, entry in zip(model.layers, cache):
         h = rms_norm(x, layer.ln1_w)
-        if layer.kind == "attn_local":
-            out, entry = decode_attention(cfg, layer.attn, h, entry, pos)
+        if layer.kind in _ATTN:
+            out, entry = decode_attention(cfg, layer.attn, h, entry, pos,
+                                          window=_window(cfg, layer.kind))
         elif layer.kind == "rec":
             out, entry = blocks.rec_decode(cfg, layer.rec, h, entry)
         else:
@@ -202,10 +230,11 @@ def decode_step(cfg: ModelConfig, model: Decoder, cache: list, tokens: torch.Ten
 
 
 def cache_defs(cfg: ModelConfig, batch: int, max_len: int) -> list[dict]:
-    """Per layer, name -> (shape, fp32?) of the decode cache (attention layers
-    get rings of ``min(max_len, window)`` slots)."""
-    return [kv_cache_defs(cfg, batch, min(max_len, cfg.attn_window))
-            if kind == "attn_local" else _STATE_DEFS[kind](cfg, batch)
+    """Per layer, name -> (shape, fp32?) of the decode cache (sliding-window
+    layers get rings of ``min(max_len, window)`` slots, global attention
+    layers linear caches of ``max_len``)."""
+    return [kv_cache_defs(cfg, batch, min(max_len, _window(cfg, kind) or max_len))
+            if kind in _ATTN else _STATE_DEFS[kind](cfg, batch)
             for kind in cfg.kinds]
 
 

@@ -3,8 +3,8 @@ training): the functions the serving launcher calls.
 
 PyTorch runs eagerly, so a factory only fixes the config, the device and the
 sampling temperature and returns a plain function.  The steps are the same
-for every arch the port runs (recurrentgemma-2b, mamba2-780m): what differs
-is the decoder's layers and their cache entries.
+for every arch the port runs (``configs.PORTED_ARCH_IDS``): what differs is
+the decoder's layers and their cache entries.
 """
 from __future__ import annotations
 

@@ -270,6 +270,26 @@ def test_flash_bound_at_the_serving_shape(smoke):
     assert lse["bytes"] == bound["bytes"] + 4 * 4 * 4096 * 10
 
 
+@pytest.mark.parametrize("shape_name, heads, kv_heads", [("FLASH_QWEN", 40, 8),
+                                                          ("FLASH_CODEQWEN", 32, 32)])
+def test_flash_bound_at_the_global_attention_shapes(smoke, shape_name, heads, kv_heads):
+    """qwen2.5-14b's prefill: 1.3425e9 unmasked pairs x 4 x 128 operations,
+    0.695 ms at 989 TFLOP/s; codeqwen1.5-7b's the same pairs per head."""
+    shape = getattr(smoke, shape_name)
+    assert shape == (4, 4096, 4096, heads, kv_heads, 128, True, None, 0)
+    assert shape in smoke.FLASH_BF16_SHAPES
+    meta = torch.device("meta")
+    q = torch.empty((4, 4096, heads, 128), dtype=torch.bfloat16, device=meta)
+    k = torch.empty((4, 4096, kv_heads, 128), dtype=torch.bfloat16, device=meta)
+    bound = smoke.flash_bound(q, k, k, causal=True, window=None, q_offset=0)
+    assert bound["pairs"] == 4096 * 4097 // 2 * 4 * heads
+    assert bound["operations"] == 4 * 128 * bound["pairs"]
+    assert bound["bound_by"] == "operations"
+    if heads == 40:
+        assert bound["pairs"] == 1_342_504_960
+        assert round(bound["bound_ms"], 3) == 0.695
+
+
 def test_rglru_bound_at_the_serving_shape(smoke):
     a = torch.empty((4, 4096, 2560), device="meta")
     bound = smoke.rglru_bound(a, None)
@@ -450,7 +470,8 @@ def test_ssd_bound_of_a_decode_step_is_the_state(smoke):
 
 @pytest.mark.parametrize("arch,want", [
     ("recurrentgemma-2b", {"flash_attention": 8, "rglru_scan": 18 * 32, "ssd_chunked": 0}),
-    ("mamba2-780m", {"flash_attention": 0, "rglru_scan": 0, "ssd_chunked": 48 * 32})])
+    ("mamba2-780m", {"flash_attention": 0, "rglru_scan": 0, "ssd_chunked": 48 * 32}),
+    ("qwen2.5-14b", {"flash_attention": 48, "rglru_scan": 0, "ssd_chunked": 0})])
 def test_expected_launches_of_each_served_arch(smoke, arch, want):
     from repro_torch.configs import get_config
 
@@ -546,6 +567,100 @@ def test_kernels_line_lists_every_kernel_with_its_keys(smoke):
     assert k4["source"] == "src/repro_torch/kernels/csrc/ssd.cu"
 
 
+def test_teacher_forcing_reproduces_the_served_qwen_tokens(smoke):
+    """qwen2.5-14b at its smoke config: global attention (K2 at every prefill
+    layer, a linear cache in the decode), biases and an untied head."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.launch.model_serve import serve
+    from repro_torch.models import arch_init_params
+
+    cfg = get_smoke_config(smoke.QWEN_ARCH)
+    model = arch_init_params(cfg, torch.Generator().manual_seed(4), device="cpu")
+    for layer in model.layers:                      # biases start at zero: draw them
+        for name in ("bq", "bk", "bv", "bo"):
+            getattr(layer.attn, name).normal_(generator=torch.Generator().manual_seed(6))
+    prompts = torch.randint(1, cfg.vocab_size, (2, 70), generator=torch.Generator().manual_seed(5))
+    res = serve(cfg, model, prompts, 5, device="cpu")
+    logits = smoke.teacher_forced_logits(cfg, model, prompts, torch.from_numpy(res.ids), "cpu")
+    greedy = torch.stack([lg[:, :cfg.vocab_size].argmax(-1) for lg in logits], 1)
+    assert np.array_equal(greedy.numpy(), res.ids)
+
+
+def test_memory_reckoning_of_the_qwen_serve(smoke):
+    """The decode cache of qwen2.5-14b at batch 4 x (4096 + 32): 48 layers x
+    k and v x 4 x 4128 x 8 kv heads x 128 x 2 bytes = 3.25 GB; the weights as
+    the model stores them (bf16, 14.77 B parameters: 29.5 GB)."""
+    import types
+
+    from repro_torch.configs import get_config
+
+    cfg = get_config(smoke.QWEN_ARCH)
+    fake = types.SimpleNamespace(parameters=lambda: [
+        torch.empty(14_770_279_424, dtype=torch.bfloat16, device="meta")])
+    got = smoke.memory_reckoning(cfg, fake)
+    assert got["decode_cache_bytes"] == 48 * 2 * 4 * 4128 * 8 * 128 * 2 == 3_246_391_296
+    assert got["weights_bytes"] == 2 * 14_770_279_424
+
+
+def test_crash_plan_loses_the_device_at_a_middle_sync(smoke):
+    from repro_torch.faults import FaultPlan, would_fire
+
+    kw, sync = smoke.crash_plan(3)
+    plan = FaultPlan(**kw)
+    assert sync == 2 and kw["rate"] == smoke.CRASH_RATE == 0.25
+    assert [would_fire(plan, "fire", "device_search.sync", k) for k in (1, 2)] == \
+        [None, "device_lost"]
+    with pytest.raises(ValueError, match="inside"):
+        smoke.crash_plan(2)
+
+
+def test_crash_resume_phase_on_the_cpu(smoke, monkeypatch, tmp_path, capsys):
+    """The phase at a small size on the CPU (its round eager, no profiler):
+    lost at the middle sync, resumed from the file, equal to the uncrashed
+    run; the wrapped ``_Launch.run`` is restored."""
+    import json
+
+    from repro_torch.core import TSParams, random_instance
+    from repro_torch.core import device_search as ds
+    from repro_torch.core.api import multiwalk_inits
+
+    inst = random_instance(0, n_tasks=30, n_data=70)
+    params = TSParams(top_k=5, max_unimproved=10**9, time_limit=10**9, max_iters=30,
+                      torch_device="cpu")
+    ctx = {"inst": inst, "inits": multiwalk_inits(inst, 2, 0)[0], "params": params}
+    windows = []
+
+    def no_profiler(fn, top=0):
+        fn()
+        windows.append(fn)
+        return {"by_class": {}}
+
+    monkeypatch.setattr(smoke, "device_breakdown", no_profiler)
+    run = ds._Launch.run
+    got = smoke.phase_crash_resume(torch.device("cpu"), ctx, tmp_path)
+    assert ds._Launch.run is run and len(windows) == 1
+    assert got == {"schedule_dp": 0, "seq_cumsum": 0}
+    line = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert line["phase"] == "crash_resume" and line["resumed_identical"]
+    assert (line["syncs"], line["crash_sync"], line["resumed_from_iteration"]) == (3, 2, 16)
+    assert line["iterations"] == 30 and line["first_period"]["rounds"] == 8
+    assert (tmp_path / "crash_resume.ckpt.npz").is_file()
+
+
+def test_same_result_compares_the_best_solution_too(smoke):
+    import types
+
+    sol = types.SimpleNamespace(assign=np.array([0, 1]), mem=np.array([1]), proc_seq=[[0], [1]])
+    walk = types.SimpleNamespace(history=[(0, 5.0)])
+    res = types.SimpleNamespace(best_makespan=5.0, history=[(0, 5.0)], n_exact_evals=3,
+                                n_approx_evals=9, iterations=2, stop_reason="max_iters",
+                                per_walk=[walk], best=sol)
+    assert smoke.same_result(res, res)
+    other = types.SimpleNamespace(**{**vars(res), "best": types.SimpleNamespace(
+        **{**vars(sol), "mem": np.array([0])})})
+    assert smoke.same_trajectory(other, res) and not smoke.same_result(other, res)
+
+
 def test_teacher_forcing_reproduces_the_served_mamba2_tokens(smoke):
     from repro_torch.configs import get_smoke_config
     from repro_torch.launch.model_serve import serve
@@ -610,6 +725,52 @@ def test_checks_hold_the_served_logits_to_their_limits(smoke):
         "teacher_forced_limit": smoke.TEACHER_FORCED_LIMIT}
     with pytest.raises(AssertionError, match="limit"):
         smoke.check_fixed_limit(cfg, model, prompts, ids, cpu, [5e-3], plain)
+
+
+@pytest.mark.parametrize("case", [(2, 300, 300, 10, 2, 32, True, None, 0),
+                                  (1, 200, 260, 4, 4, 16, True, None, 60),
+                                  (2, 130, 130, 4, 1, 32, True, 64, 0),
+                                  (1, 90, 150, 2, 2, 8, False, None, 0)])
+def test_tpu_order_attention_is_the_plain_function_in_another_order(smoke, case):
+    """The yardstick of the qwen2.5-14b check: the TPU kernel's blockwise
+    online softmax (128 keys a block), fp32, equal to the plain version up
+    to the order of its sums, at GQA / MHA / MQA, offsets and windows."""
+    from repro_torch.kernels import flash_attention as fa
+
+    q, k, v, kw = smoke.flash_operands(case, torch.float32, torch.device("cpu"), seed=3)
+    got = smoke.tpu_order_attention(q, k, v, **kw)
+    want = fa.flash_attention_torch(q, k, v, **kw)
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+    if case[2] > smoke.TPU_BLOCK_KV:
+        assert not torch.equal(got, want)           # another order of the sums
+    with smoke.plain_kernels(flash=smoke.tpu_order_attention):
+        from repro_torch.kernels import ops
+
+        assert ops.flash_attention is smoke.tpu_order_attention
+    assert ops.flash_attention is fa.flash_attention
+
+
+def test_attention_yardstick_check_on_the_smoke_qwen(smoke):
+    """qwen2.5-14b's limit is measured in the run: twice the plain versions'
+    worst step against themselves in the TPU kernel's order; the fixed 4e-3
+    is reported beside it, not held."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models import arch_init_params
+
+    cpu = torch.device("cpu")
+    cfg = get_smoke_config(smoke.QWEN_ARCH)
+    model = arch_init_params(cfg, torch.Generator().manual_seed(8), device="cpu")
+    prompts = torch.randint(1, cfg.vocab_size, (2, 300), generator=torch.Generator().manual_seed(9))
+    ids = torch.randint(1, cfg.vocab_size, (2, 3), generator=torch.Generator().manual_seed(10))
+    plain = smoke.teacher_forced_logits(cfg, model, prompts, ids, cpu)
+    out = smoke.check_attention_yardstick(cfg, model, prompts, ids, cpu, [0.0] * 3, plain)
+    yardstick = out["plain_vs_plain_tpu_order_rel_err"]
+    assert len(yardstick) == 3 and 0.0 < max(yardstick) < 1e-5
+    assert out["teacher_forced_limit"] == smoke.YARDSTICK_FACTOR * max(yardstick)
+    assert out["fixed_limit"] == smoke.TEACHER_FORCED_LIMIT and out["fixed_limit_held"]
+    with pytest.raises(AssertionError, match="TPU kernel's order"):
+        smoke.check_attention_yardstick(cfg, model, prompts, ids, cpu,
+                                        [0.0, 2.5 * max(yardstick), 0.0], plain)
 
 
 # --------------------------------------------------------------------------- #
@@ -718,7 +879,10 @@ def test_fault_lane_on_the_cpu(smoke, monkeypatch):
     assert finj.fire is fire
     assert out["requests"] == 6 == out["survivors"] + sum(out["failed"].values())
     assert out["resilience"]["watchdog_kills"] >= 1
-    assert out["device_search_sync_fires"].get("compile_hang", 0) >= 1   # key 1 hangs
+    # served runs do not reach device_search.sync (the reference's points):
+    # rid 1's launch hangs at engine.execute.launch instead
+    assert out["device_search_sync_fires"] == {}
+    assert out["fires"].get("engine.execute.launch:compile_hang", 0) >= 1
     assert out["executes"] >= out["executes_raised"]
     assert out["device_lanes_returned"] >= out["survivors_by_backend"].get("device", 0)
     with pytest.raises(ValueError, match="watchdog"):

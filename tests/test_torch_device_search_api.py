@@ -102,12 +102,21 @@ def test_device_config_has_no_donate_field():
 
 
 def test_checkpoint_hooks_are_not_ported_yet():
+    """The name is older than the hooks (faults.checkpoint is in now): a
+    checkpoint comes at every sync, and a resume from what is not one
+    raises before any launch."""
+    from repro_torch.faults.checkpoint import CheckpointMismatch, SearchCheckpoint
+
     inst = random_instance(0, n_tasks=31, n_data=60)
     init = port_greedy(inst, "slack_first", rng=0)
     params = TSParams(torch_device="cpu", max_iters=2)
-    for kw in ({"on_checkpoint": print}, {"resume_from": object()}):
-        with pytest.raises(NotImplementedError, match="A6"):
-            ds.device_multiwalk(inst, [init], params, **kw)
+    got = []
+    ds.device_multiwalk(inst, [init], params, config=ds.DeviceConfig(sync_every=1),
+                        on_checkpoint=got.append)
+    assert len(got) == 1 and isinstance(got[0], SearchCheckpoint)
+    assert (got[0].sync_index, got[0].iteration, got[0].walks) == (1, 1, 1)
+    with pytest.raises(CheckpointMismatch, match="version"):
+        ds.device_multiwalk(inst, [init], params, resume_from=object())
 
 
 # --------------------------------------------------------------------------- #

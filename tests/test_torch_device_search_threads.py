@@ -4,9 +4,11 @@ point, on the CPU (where the round runs eagerly with the plain K1).
 A launch owns the buffers every batch of its shape reuses, so two
 ``solve_instances`` of one launch shape running at once must not share
 them: each result must equal the same call run alone.  The
-``device_search.sync`` fault point fires at the end of a sync period's host
-work with the reference package's keying, so ``repro``'s ``would_fire``
-predicts the sync a plan loses the device at."""
+``device_search.sync`` fault point fires in ``device_multiwalk`` at the end
+of a sync period's host work with the reference package's keying, so
+``repro``'s ``would_fire`` predicts the sync a plan loses the device at;
+a batch run (``solve_instances``) never fires it, as in the reference."""
+import dataclasses
 import threading
 
 import pytest
@@ -128,26 +130,25 @@ def sync_plan():
 
 
 def test_sync_fault_point_loses_the_device_where_the_reference_predicts():
-    (a, batch_a), _ = same_shape_pair()
+    """Driven through ``device_multiwalk``, where the reference fires the
+    point (a batch run of ``solve_instances`` does not fire it)."""
+    (a, _), _ = same_shape_pair()
     plan, key = sync_plan()
+    inits = multiwalk_inits(a, 3, 3)[0]
+    params = dataclasses.replace(PARAMS, seed=3)
     syncs = []
-
-    class Count:
-        on_improvement = None
-
-        def on_iteration(self, ev):
-            syncs.append(ev.iteration)
 
     with finj.plan_context(finj.FaultPlan(**plan)):
         with pytest.raises(DeviceLost, match=rf"device_search\.sync \(key {key}\)") as err:
-            run(batch_a, a, 3, [Count()])
+            ds.device_multiwalk(a, inits, params, config=CFG,
+                                on_iteration=lambda ev: syncs.append(ev.iteration))
     assert err.value.injected
     # callbacks fire before the fault point: the device is lost at the end
     # of the key-th sync period's host work
     assert len(syncs) == key
     assert syncs == [4 * (k + 1) for k in range(key)]
     # no plan: the same run goes to its end
-    assert run(batch_a, a, 3).iterations == PARAMS.max_iters
+    assert ds.device_multiwalk(a, inits, params, config=CFG).iterations == PARAMS.max_iters
 
 
 @pytest.mark.parametrize("method", ["load_state", "load_instances"])

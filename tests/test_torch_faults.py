@@ -3,8 +3,8 @@ deterministic injection) against the reference's (``repro.faults``): the
 same classes with the same retryability, the same error mapping, and the
 same decision at every registered point and key, so a chaos seed fires at
 the same place in both; then the numpy-backend service under a plan,
-every request ending in exactly one terminal state.  Checkpointing is not
-ported yet (ROADMAP A6)."""
+every request ending in exactly one terminal state.  Checkpointing is held
+against the reference in ``tests/test_torch_checkpoint.py``."""
 import asyncio
 
 import numpy as np
@@ -40,11 +40,14 @@ CLASSES = ("ReproError", "CompileTimeout", "LaunchFailure", "DeviceLost", "Certi
 # taxonomy                                                                    #
 # --------------------------------------------------------------------------- #
 def test_exports_are_the_references_without_checkpointing():
+    """The name is older than ``faults.checkpoint``: the exports are now the
+    reference's, checkpointing included."""
     import repro.faults
+    from repro.faults import checkpoint as ref_checkpoint
 
-    ckpt = {"CheckpointMismatch", "SearchCheckpoint", "instance_fingerprint",
-            "params_fingerprint"}
-    assert set(faults.__all__) == set(repro.faults.__all__) - ckpt
+    assert set(faults.__all__) == set(repro.faults.__all__)
+    assert set(faults.checkpoint.__all__) == set(ref_checkpoint.__all__) | {
+        "STATE_FIELDS", "check_compatible"}
     assert set(faults.errors.__all__) == set(ref_errors.__all__)
     assert set(finj.__all__) == set(ref_inject.__all__)
 
@@ -247,6 +250,9 @@ def test_env_parsing_rejects_unknown_keys(monkeypatch):
 
 
 def test_checkpointing_is_not_ported_yet():
+    """The name is older than ``faults.checkpoint``, which is ported now
+    (tests/test_torch_checkpoint.py holds it against the reference): the
+    hooks take and give checkpoints, and what is not one is refused."""
     from repro_torch.core import device_search as ds
     from repro_torch.core.tabu import TSParams
 
@@ -254,9 +260,14 @@ def test_checkpointing_is_not_ported_yet():
     from repro_torch.core.greedy import construct_greedy
 
     init = construct_greedy(inst, "slack_first", rng=0)
-    for kw in ({"on_checkpoint": print}, {"resume_from": object()}):
-        with pytest.raises(NotImplementedError, match="A6"):
-            ds.device_multiwalk(inst, [init], TSParams(torch_device="cpu"), **kw)
+    params = TSParams(torch_device="cpu", max_iters=4)
+    got = []
+    ds.device_multiwalk(inst, [init], params, config=ds.DeviceConfig(sync_every=2),
+                        on_checkpoint=got.append)
+    assert [c.sync_index for c in got] == [1]
+    assert isinstance(got[0], faults.SearchCheckpoint)
+    with pytest.raises(faults.CheckpointMismatch):
+        ds.device_multiwalk(inst, [init], params, resume_from=object())
 
 
 # --------------------------------------------------------------------------- #

@@ -6,10 +6,11 @@ float32 on the CUDA cores), the RG-LRU scan kernel (bit for bit) and the
 Mamba-2 SSD kernel (1e-4 relative in float32; y 2e-2 relative, h_last 1e-4
 with bfloat16 x/B/C, a prefill on the tensor cores) against their plain
 versions, which kernel each input takes (the entry point its wrapper resolves), and
-smoke-size recurrentgemma-2b and mamba2-780m models served on the card
-against the CPU (same ids, logits within 1e-4), and the device-resident
-search (its round captured as a CUDA graph) against the same search on the
-CPU, bit for bit, with its sequential prefix-sum kernel against
+smoke-size recurrentgemma-2b, mamba2-780m and qwen2.5-14b models served on
+the card against the CPU (same ids, logits within 1e-4), and the
+device-resident search (its round captured as a CUDA graph) against the same
+search on the CPU, bit for bit, crashed and resumed from a checkpoint on the
+card, with its sequential prefix-sum kernel against
 ``np.cumsum``; the solve service served on the card against solo solves on
 the card, and two threads running one launch shape at once.  They import
 the port only
@@ -321,13 +322,17 @@ def test_flash_kernel_matches_plain_version(cuda_device, case, dtype, tol):
 
 
 # bf16 on the tensor cores: a ragged head_dim (72, 40: zero-padded to 80, 48),
-# groups of 2 and 10 q heads per kv head, the serving head_dim with MQA
+# groups of 2 and 10 q heads per kv head, the serving head_dim with MQA, and
+# the global-attention decoders' d 128, causal, no window: qwen2.5-14b's
+# 40:8 heads (a group of 5 straddles the 128-row tile) and an MHA 32:32
 FLASH_BF16_CASES = [
     (2, 200, 200, 4, 2, 72, True, None, 0),
     (2, 130, 130, 4, 2, 64, True, 64, 0),
     (1, 333, 333, 10, 1, 72, True, 100, 0),
     (2, 150, 150, 4, 2, 40, False, None, 0),
     (1, 512, 512, 10, 1, 256, True, 256, 0),
+    (2, 300, 300, 40, 8, 128, True, None, 0),
+    (1, 257, 257, 32, 32, 128, True, None, 0),
 ]
 
 
@@ -494,6 +499,40 @@ def test_smoke_model_served_on_the_card_matches_the_cpu(cuda_device):
     assert np.array_equal(res.ids, ref.ids)
     # the logits themselves, teacher-forced with the served ids past the ring
     # wrap (window 64 < 80 + 6): within 1e-4 of max |logit| (float32)
+    ids = torch.from_numpy(res.ids)
+    on_card = _teacher_forced(cfg, model, prompts.to(cuda_device), ids.to(cuda_device),
+                              cuda_device)
+    on_cpu = _teacher_forced(cfg, cpu_model, prompts, ids, "cpu")
+    for i, (got, want) in enumerate(zip(on_card, on_cpu)):
+        err = float((got.cpu() - want).abs().max() / want.abs().max())
+        assert err <= 1e-4, f"step {i}: card vs CPU {err:.3g} of max |logit|"
+
+
+def test_qwen_smoke_model_served_on_the_card_matches_the_cpu(cuda_device):
+    """qwen2.5-14b's smoke config (global attention through K2, a linear
+    cache, nonzero qkv and output biases, an untied head) on the card and on
+    the CPU: the same ids, the logits within 1e-4 of max |logit| (float32)."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.launch.model_serve import serve
+    from repro_torch.models import Decoder, arch_init_params
+
+    cfg = get_smoke_config("qwen2.5-14b")
+    model = arch_init_params(cfg, torch.Generator(device=cuda_device).manual_seed(3),
+                             device=cuda_device)
+    with torch.no_grad():
+        for layer in model.layers:
+            for name in ("bq", "bk", "bv", "bo"):
+                getattr(layer.attn, name).normal_(
+                    generator=torch.Generator(device=cuda_device).manual_seed(4))
+    cpu_model = Decoder(cfg, device="cpu")
+    cpu_model.load_state_dict({k: v.cpu() for k, v in model.state_dict().items()})
+    prompts = torch.randint(1, cfg.vocab_size, (2, 80), generator=torch.Generator().manual_seed(0))
+    before = fa.flash_attention.launches
+    res = serve(cfg, model, prompts.to(cuda_device), 6, device=cuda_device)
+    assert fa.flash_attention.launches - before == cfg.n_layers   # every layer's prefill
+    ref = serve(cfg, cpu_model, prompts, 6, device="cpu")
+    assert np.array_equal(res.ids, ref.ids)
     ids = torch.from_numpy(res.ids)
     on_card = _teacher_forced(cfg, model, prompts.to(cuda_device), ids.to(cuda_device),
                               cuda_device)
@@ -742,6 +781,53 @@ def test_device_search_with_alg3_at_syncs_equals_the_cpu(cuda_device):
     gpu = ds.device_multiwalk(inst, [s.copy() for s in inits],
                               TSParams(torch_device="cuda", **kw), config=cfg)
     _same_result(gpu, cpu)
+
+
+@pytest.mark.parametrize("walks", [1, 8])
+def test_crash_resume_on_the_card_equals_the_uncrashed_run(cuda_device, walks, tmp_path):
+    """Lost at the first sync (after its checkpoint), saved, loaded and
+    resumed on the card: equal to the run that never crashed, and to the
+    same run on the CPU."""
+    from repro_torch.faults import FaultPlan, plan_context
+    from repro_torch.faults import checkpoint as ckpt
+    from repro_torch.faults.errors import DeviceLost
+
+    inst = random_instance(0, n_tasks=40, n_data=100)
+    inits = [construct_greedy(inst, STRATEGIES[w % 4], rng=3 + w) for w in range(walks)]
+    kw = dict(seed=3, max_unimproved=10**9, time_limit=1e9, top_k=5, max_iters=40,
+              mem_update_period=ds.MEM_UPDATE_DISABLED)
+    cfg = ds.DeviceConfig(sync_every=16, crit_cap=32)
+    params = TSParams(torch_device="cuda", **kw)
+    ref = ds.device_multiwalk(inst, [s.copy() for s in inits], params, config=cfg)
+    got = []
+    with plan_context(FaultPlan(seed=0, rate=1.0, kinds=("device_lost",),
+                                points=("device_search.sync",))):
+        with pytest.raises(DeviceLost):
+            ds.device_multiwalk(inst, [s.copy() for s in inits], params, config=cfg,
+                                on_checkpoint=got.append)
+    path = ckpt.save(got[-1], str(tmp_path / "crash.npz"))
+    resumed = ds.device_multiwalk(inst, [], params, config=cfg, resume_from=ckpt.load(path))
+    _same_result(resumed, ref)
+    assert resumed.device_stats["rounds_replayed"] == kw["max_iters"] - got[-1].iteration
+    cpu = ds.device_multiwalk(inst, [s.copy() for s in inits],
+                              TSParams(torch_device="cpu", **kw), config=cfg)
+    _same_result(resumed, cpu)
+
+
+def test_a_checkpoint_taken_on_the_cpu_resumes_on_the_card(cuda_device):
+    """Where a run executes is not in the fingerprints: a CPU checkpoint
+    resumes on the card to the CPU run's result, Algorithm 3 at syncs."""
+    inst = random_instance(5, n_tasks=64, n_data=150)
+    inits = [construct_greedy(inst, STRATEGIES[w % 4], rng=5 + w) for w in range(4)]
+    kw = dict(seed=5, max_unimproved=12, time_limit=1e9, top_k=4, max_iters=24)
+    cfg = ds.DeviceConfig(sync_every=8)
+    got = []
+    cpu = ds.device_multiwalk(inst, [s.copy() for s in inits],
+                              TSParams(torch_device="cpu", **kw), config=cfg,
+                              on_checkpoint=got.append)
+    resumed = ds.device_multiwalk(inst, [], TSParams(torch_device="cuda", **kw), config=cfg,
+                                  resume_from=got[0])
+    _same_result(resumed, cpu)
 
 
 def test_replayed_round_reads_nothing_back_and_launches_k1_as_its_code_says(cuda_device):

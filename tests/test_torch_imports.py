@@ -68,6 +68,51 @@ def test_import_solve_and_serve_leave_jax_and_repro_unloaded():
     assert "LEAKED=\n" in out.stdout + "\n", out.stdout
 
 
+_PROBE_SLICE = """
+import os, sys, tempfile
+import repro_torch.faults.checkpoint as ck
+import repro_torch.configs.qwen2_5_14b
+import repro_torch.configs.codeqwen1_5_7b
+import repro_torch.configs.qwen1_5_32b
+from repro_torch.configs import get_config
+from repro_torch.core import random_instance
+from repro_torch.core.device_search import DeviceConfig, device_multiwalk
+from repro_torch.core.greedy import construct_greedy
+from repro_torch.core.tabu import TSParams
+from repro_torch.launch.model_serve import serve_main
+assert [get_config(a).n_layers for a in ("qwen2.5-14b", "codeqwen1.5-7b", "qwen1.5-32b")] \\
+    == [48, 32, 64]
+inst = random_instance(0, n_tasks=24, n_data=50)
+params = TSParams(max_iters=4, torch_device="cpu")
+got = []
+full = device_multiwalk(inst, [construct_greedy(inst, "slack_first", rng=0)], params,
+                        config=DeviceConfig(sync_every=2), on_checkpoint=got.append)
+path = ck.save(got[0], os.path.join(tempfile.mkdtemp(), "c.npz"))
+res = device_multiwalk(inst, [], params, config=DeviceConfig(sync_every=2),
+                       resume_from=ck.load(path))
+assert res.history == full.history
+ids = serve_main(["--arch", "qwen2.5-14b", "--smoke", "--device", "cpu", "--batch", "2",
+                  "--prompt-len", "16", "--gen", "3"])
+assert ids.shape == (2, 3)
+bad = sorted(m for m in sys.modules
+             if m == "jax" or m.startswith("jax.") or m == "jaxlib"
+             or m == "repro" or m.startswith("repro."))
+print("LEAKED=" + ",".join(bad))
+"""
+
+
+def test_checkpoint_and_the_qwen_configs_leave_jax_and_repro_unloaded():
+    """This slice's modules (faults.checkpoint and the three global-attention
+    configs), imported and run: a crash-resume round trip through a file and
+    a qwen2.5-14b smoke serve."""
+    out = subprocess.run(
+        [sys.executable, "-c", _PROBE_SLICE], capture_output=True, text=True,
+        env={"PYTHONPATH": str(ROOT / "src"), "PATH": "/usr/bin:/bin"},
+        timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert "LEAKED=\n" in out.stdout + "\n", out.stdout
+
+
 _FORBIDDEN = re.compile(
     r"^\s*(import\s+jax\b|from\s+jax\b|import\s+repro\b(?!_)|from\s+repro\b(?!_)"
     r"|from\s+repro\.)"

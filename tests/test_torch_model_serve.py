@@ -71,8 +71,11 @@ def test_config_matches_reference_field_by_field():
         ref_get_smoke_config(ARCH))
 
 
-@pytest.mark.parametrize("arch", ["qwen2.5-14b", "mixtral-8x7b", "no-such-arch"])
+@pytest.mark.parametrize("arch", ["mixtral-8x7b", "granite-moe-1b-a400m", "whisper-medium",
+                                  "internvl2-26b", "llama3-405b", "no-such-arch"])
 def test_other_archs_raise_a_clear_key_error(arch):
+    """The archs still missing (qwen2.5-14b, once a case here, is ported:
+    tests/test_torch_qwen_serve.py)."""
     with pytest.raises(KeyError, match="not ported|unknown arch"):
         get_config(arch)
 
@@ -157,8 +160,8 @@ def test_serve_is_the_steps_it_is_made_of():
 
 
 def test_serve_main_on_the_cpu(capsys):
-    ids = serve_main(["--smoke", "--device", "cpu", "--batch", "2", "--prompt-len", "16",
-                      "--gen", "3", "--seed", "3"])
+    ids = serve_main(["--arch", ARCH, "--smoke", "--device", "cpu", "--batch", "2",
+                      "--prompt-len", "16", "--gen", "3", "--seed", "3"])
     assert ids.shape == (2, 3) and (ids < get_smoke_config(ARCH).vocab_size).all()
     out = capsys.readouterr().out
     assert "prefill 2x16" in out and "tok/s" in out and "[sample ids]" in out

@@ -453,13 +453,22 @@ def test_service_device_backend_on_the_cpu_equals_solo_tabu_device():
 
 def test_poisoned_signature_falls_back_to_the_numpy_engine():
     """Two launch failures poison a signature; its requests then run the
-    NumPy engine, equal to solo NumPy solves."""
+    NumPy engine, equal to solo NumPy solves.  The plan fails the launches
+    of request 0 at ``engine.execute.launch``, the reference's point for a
+    served launch (a served run never fires ``device_search.sync``): its
+    device attempts poison the signature, and the requests that come after
+    it run on NumPy."""
     from repro_torch.faults import inject as finj
+    from repro_torch.faults.errors import DeviceLost
     from repro_torch.serve import ResiliencePolicy, RetryPolicy
 
-    insts = [small_instance(s) for s in range(2)]
-    plan = finj.FaultPlan(seed=0, rate=1.0, kinds=("device_lost",),
-                          points=("device_search.sync",))
+    insts = [INST] * 3                       # one signature, three requests
+    seeds = (7, 1, 2)
+    plan = next(p for p in (finj.FaultPlan(seed=k, rate=0.5, kinds=("device_lost",),
+                                           points=("engine.execute.launch",))
+                            for k in range(200))
+                if [finj.would_fire(p, "fire", "engine.execute.launch", r)
+                    for r in range(3)] == ["device_lost", None, None])
     cfg = EngineConfig(backend="device", sync_every=2, crit_cap=32, batch_sizes=(1, 2),
                        torch_device="cpu")
 
@@ -469,16 +478,78 @@ def test_poisoned_signature_falls_back_to_the_numpy_engine():
                            resilience=ResiliencePolicy(retry=RetryPolicy(
                                max_attempts=4, backoff_base=0.0, poison_after=2)))
         with finj.plan_context(plan):
-            out = await serve_all(svc, insts, BUDGET, (1, 2))
-        return out, svc
+            await svc.start()
+            first = await svc.submit(insts[0], BUDGET, seed=seeds[0], walks=2)
+            with pytest.raises(DeviceLost) as err:
+                await svc.result(first)          # its every attempt is lost
+            rids = [await svc.submit(inst, BUDGET, seed=s, walks=2)
+                    for inst, s in zip(insts[1:], seeds[1:])]
+            results = [await svc.result(rid) for rid in rids]
+            metrics = svc.metrics()
+            await svc.shutdown()
+        return err.value, results, metrics
 
-    (rids, _, results, metrics), svc = run(go())
+    lost, results, metrics = run(go())
+    assert lost.injected and lost.rid == 0
     assert metrics["resilience"]["poisoned_signatures"] >= 1
-    for inst, seed, rr in zip(insts, (1, 2), results):
-        assert rr.metrics["backend"] == "numpy" and rr.metrics["attempts"] >= 2
+    for inst, seed, rr in zip(insts[1:], seeds[1:], results):
+        assert rr.metrics["backend"] == "numpy" and rr.metrics["attempts"] == 1
         solo = solve(inst, "tabu_multiwalk", walks=2, budget=BUDGET, seed=seed,
                      params=DEVICE_PARAMS, backend="numpy")
         assert (rr.report.makespan, rr.report.history) == (solo.makespan, solo.history)
+
+
+def test_a_sync_only_plan_spares_served_runs_and_crashes_device_multiwalk(monkeypatch):
+    """``device_search.sync`` fires where the reference fires it: under a plan
+    whose only point it is, at rate 1, a served device run (``solve_instances``
+    and a ``SolveService`` request) completes, equal to its solo solve, and
+    the ledger of the plan's decisions holds no ``device_search.sync`` entry;
+    the same plan loses the device of a ``device_multiwalk`` at its first
+    sync."""
+    import collections
+    import dataclasses
+
+    from repro_torch.core import device_search as ds
+    from repro_torch.core.api import multiwalk_inits
+    from repro_torch.faults import inject as finj
+    from repro_torch.faults.errors import DeviceLost
+
+    plan = finj.FaultPlan(seed=0, rate=1.0, kinds=("device_lost",),
+                          points=("device_search.sync",))
+    fires = collections.Counter()       # every decision of the plan, by point
+    real = finj.fire
+
+    def ledger(point, key=0, *, rid=None):
+        if finj.active() is plan and finj.would_fire(plan, "fire", point, key):
+            fires[point] += 1
+        return real(point, key, rid=rid)
+
+    monkeypatch.setattr(finj, "fire", ledger)
+    inst = small_instance(3, n_tasks=30, n_data=70)
+    budget = Budget(max_iters=6)
+    params = dataclasses.replace(DEVICE_PARAMS, max_iters=6, seed=3, torch_device="cpu")
+    dcfg = ds.DeviceConfig(sync_every=4, crit_cap=32)
+    inits = multiwalk_inits(inst, 2, 3)[0]
+    solo = ds.device_multiwalk(inst, inits, params, config=dcfg)
+    cfg = EngineConfig(backend="device", sync_every=4, crit_cap=32, batch_sizes=(1,),
+                       torch_device="cpu")
+    with finj.plan_context(plan):
+        served = ds.solve_instances([inst], [inits], params, config=dcfg, seeds=[3])[0]
+        _, _, results, metrics = run(serve_all(
+            SolveService(config=cfg, policy=BatchPolicy(max_batch=1, max_wait=0.01),
+                         params=DEVICE_PARAMS), [inst], budget, (3,)))
+    assert served.iterations == 6 and served.device_stats["rounds_replayed"] == 0
+    assert (served.best_makespan, served.history, served.n_exact_evals) == \
+        (solo.best_makespan, solo.history, solo.n_exact_evals)
+    rr = results[0]
+    assert rr.metrics["backend"] == "device" and not metrics["errors"]
+    assert (rr.report.makespan, rr.report.history) == (solo.best_makespan, solo.history)
+    assert rr.report.solution.proc_seq == solo.best.proc_seq
+    assert "device_search.sync" not in fires
+    with finj.plan_context(plan):
+        with pytest.raises(DeviceLost, match=r"device_search\.sync \(key 1\)"):
+            ds.device_multiwalk(inst, inits, params, config=dcfg)
+    assert fires == {"device_search.sync": 1}
 
 
 def test_service_shutdown_drains_queue():

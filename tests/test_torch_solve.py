@@ -125,7 +125,7 @@ def test_unported_engine_names_raise():
     """The device engine routes now (``backend="device"``, ``"tabu_device"``);
     what of its surface the port still lacks raises, naming its ROADMAP
     item, and its options need the engine."""
-    from repro_torch.core.device_search import device_multiwalk
+    from repro_torch.core.device_search import DeviceConfig, device_multiwalk
     from repro_torch.core.greedy import construct_greedy
 
     inst = repro_torch.core.random_instance(0, n_tasks=31, n_data=60)
@@ -138,6 +138,9 @@ def test_unported_engine_names_raise():
     with pytest.raises(ValueError, match="requires backend='device'"):
         repro_torch.solve(inst, "tabu_multiwalk", device={"sync_every": 8},
                           torch_device="cpu")
-    with pytest.raises(NotImplementedError, match="A6"):
-        device_multiwalk(inst, [construct_greedy(inst, "slack_first", rng=0)],
-                         TSParams(torch_device="cpu"), on_checkpoint=print)
+    # the checkpoint hooks are in (faults.checkpoint): a sync hands one over
+    ckpts = []
+    device_multiwalk(inst, [construct_greedy(inst, "slack_first", rng=0)],
+                     TSParams(torch_device="cpu", max_iters=3),
+                     config=DeviceConfig(sync_every=1), on_checkpoint=ckpts.append)
+    assert [c.sync_index for c in ckpts] == [1, 2]
