@@ -31,7 +31,12 @@ every kernel against its plain PyTorch version on the card:
   and a linear KV cache for the decode;
 * crash / resume of the device search: the device path's solve lost at a
   sync by a seeded plan, its checkpoint saved, loaded and resumed, equal to
-  the run that never crashed.
+  the run that never crashed;
+* training: recurrentgemma-2b at its published width and depth (fp32
+  masters, bf16 compute, random from seed 0), batch 1 of 4096-token
+  sequences, AdamW, under the HDATS planner's residency plan for one H100,
+  through ``repro_torch.launch.train``'s path: K2 and K3 forward and their
+  hand-written backwards (K2 bwd, K3 bwd) in every step.
 
 Phases, one JSON line each:
 
@@ -46,7 +51,11 @@ Phases, one JSON line each:
                  and K4 (f32 1e-4; bf16 x/B/C: y 2e-2, h_last 1e-4) against
                  their plain versions, at the reference's test shapes, ragged
                  ones, T = 1 and the serving shapes (K2 also in bf16 at
-                 qwen2.5-14b's and codeqwen1.5-7b's causal d-128 prefills)
+                 qwen2.5-14b's and codeqwen1.5-7b's causal d-128 prefills);
+                 K2 bwd (dq, dk, dv: f32 1e-5, bf16 2e-2 of max |grad|; rows
+                 that see no key get zero dq) at the reference's gradient test
+                 shapes, ragged ones and the training shape, and K3 bwd (bit
+                 for bit, with and without a last-state gradient)
   main_path      the solve on the card, against the port's NumPy backend,
                  certified, with the host time of each phase of the search round
   device_path    ``tabu_device`` at the same configuration: without Algorithm 3
@@ -83,7 +92,9 @@ Phases, one JSON line each:
                  prefill shapes), K3 and K4 at the serving shapes: kernel, plain version,
                  bound (K4's at the precision it computes in, and at the fp32
                  rate), for K2 PyTorch's scaled_dot_product_attention, and
-                 the K3 and K4 decode steps beside their bounds
+                 the K3 and K4 decode steps beside their bounds; K2 bwd and
+                 K3 bwd at the training shape (K2 bwd beside the backward of
+                 scaled_dot_product_attention through autograd)
   solve_service  the solve service: warm-up (one WarmSpec per signature
                  class), the Poisson trace with no capture during traffic,
                  the K1 / seq_cumsum launches of the served run, one served
@@ -96,6 +107,21 @@ Phases, one JSON line each:
                  failing but by an injected fault), and the table2 sweep on
                  the device engine against the NumPy engine
 
+  train          (last) recurrentgemma-2b at full width: the plan (scan group,
+                 save / offload / remat per class, estimated step time), step
+                 1's loss and gradients held against the same step on the
+                 plain versions (loss 1e-3, every gradient 2e-2 of its max
+                 |grad|, or within twice the plain versions against
+                 themselves in another summation order; both printed), 4
+                 steps through launch/train.py's path with K2 / K3 forward
+                 and backward launches per step held to what the plan
+                 implies, step time, tokens/s, model FLOPs / time / 989e12,
+                 peak memory beside the reckoned peak, offloaded bytes, the
+                 card's time by kernel class over one more step, and the
+                 recovery drill at the smoke size (a run lost at steps 3 and
+                 6, restored from its checkpoints: losses and parameters
+                 bit-identical to the run that never failed)
+
 then a ``{"kernels": [...]}`` line, the card's ``nvidia-smi`` line, and last
 ``{"ok": true, "device": {...}}``.  Any failure raises: the exit code is
 non-zero and the last line is not printed.  Without a GPU it exits non-zero.
@@ -107,6 +133,7 @@ import collections
 import contextlib
 import functools
 import json
+import math
 import re
 import statistics
 import subprocess
@@ -1494,14 +1521,17 @@ def cuda_median_ms(fn, reps: int, warmup: int) -> float:
     return statistics.median(times)
 
 
-def profiled_device_ms(fn, kernel: str, reps: int) -> float:
+def profiled_device_ms(fn, kernel: str, reps: int, per_call: int = 1) -> float:
     """Mean device time of the kernels whose name holds ``kernel`` over
     ``reps`` calls of ``fn``, from torch.profiler (host and device activity,
     as ``device_breakdown`` records them).  For a launch of a few
     microseconds, CUDA events around one call time the wrapper's host work.
     The profiler may miss records of a window (46 of 50 were seen once on an
     H100), so the mean is over the launches it saw, and a window that saw
-    fewer than half is taken again, at most three in all."""
+    fewer than half is taken again, at most three in all.  ``per_call``: the
+    kernels one call launches, each named once: the mean of each name is
+    taken over its own records and the means are summed, so a record the
+    profiler misses does not shift the others."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -1513,12 +1543,18 @@ def profiled_device_ms(fn, kernel: str, reps: int) -> float:
             for _ in range(reps):
                 fn()
             torch.cuda.synchronize()
-        total_us, n = 0.0, 0
+        total_us, n, by_name = 0.0, 0, {}
         for e in prof.key_averages():
             if kernel in e.key and str(e.device_type).endswith("CUDA"):
                 us = getattr(e, "self_device_time_total", None)
-                total_us += us if us is not None else getattr(e, "self_cuda_time_total", 0)
+                us = us if us is not None else getattr(e, "self_cuda_time_total", 0)
+                total_us += us
                 n += e.count
+                by_name[e.key] = (by_name.get(e.key, (0.0, 0))[0] + us,
+                                  by_name.get(e.key, (0.0, 0))[1] + e.count)
+        if per_call > 1:
+            n = min(c for _, c in by_name.values()) if len(by_name) == per_call else 0
+            total_us = n * sum(us / c for us, c in by_name.values()) if n else 0.0
         seen.append(n)
         if n > reps:
             break
@@ -1698,6 +1734,40 @@ QWEN_ARCH = "qwen2.5-14b"
 FLASH_QWEN = (SERVE_BATCH, SERVE_PROMPT, SERVE_PROMPT, 40, 8, 128, True, None, 0)
 FLASH_CODEQWEN = (SERVE_BATCH, SERVE_PROMPT, SERVE_PROMPT, 32, 32, 128, True, None, 0)
 FLASH_BF16_SHAPES = (FLASH_QWEN, FLASH_CODEQWEN)
+# training: recurrentgemma-2b at its published width and depth, batch 1 of
+# 4096-token sequences (every attention layer reaches its 2048-token window)
+TRAIN_ARCH = "recurrentgemma-2b"
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 1, 4096, 4
+FLASH_TRAIN = (TRAIN_BATCH, TRAIN_SEQ, TRAIN_SEQ, 10, 1, 256, True, 2048, 0)
+RGLRU_TRAIN = (TRAIN_BATCH, TRAIN_SEQ, 2560, False)
+# K2's backward against its plain version: the reference's gradient test
+# shapes (tests/test_kernels.py::test_flash_xla_custom_vjp_grads: 2 x 512, 4
+# heads over 2, d 32, windows None and 128), ragged shapes, rows that see no
+# key (q_offset -5), and the training shape; max |diff| / max |grad| per
+# gradient: 1e-5 in float32 (the reference's own bar), 2e-2 in bf16 (K2's)
+FLASH_BWD_SHAPES = (
+    (2, 512, 512, 4, 2, 32, True, None, 0),
+    (2, 512, 512, 4, 2, 32, True, 128, 0),
+    (1, 300, 300, 6, 3, 40, True, 64, 0),
+    (2, 77, 90, 6, 3, 40, False, None, 0),
+    (1, 96, 96, 8, 1, 256, True, None, -5),
+    (1, 100, 1000, 2, 1, 32, True, 300, 900),
+    FLASH_TRAIN,
+)
+FLASH_BWD_TOL = {"float32": 1e-5, "bfloat16": 2e-2}
+# the step-1 gate of the full-width train against the same step on the plain
+# versions (written before the first run): the loss within TRAIN_LOSS_LIMIT
+# relative, every gradient tensor within TRAIN_GRAD_LIMIT of its max |grad|;
+# if bf16 noise defeats them, the limit is the plain versions against
+# themselves in another summation order (attention in the TPU kernel's order,
+# the backward's kv sums in blocks of TRAIN_YARDSTICK_CHUNK q rows) times
+# YARDSTICK_FACTOR, and both readings are printed
+TRAIN_LOSS_LIMIT = 1e-3
+TRAIN_GRAD_LIMIT = 2e-2
+TRAIN_YARDSTICK_CHUNK = 64
+# recovery drill at the smoke size: the run lost at these steps, restored from
+# its checkpoints, against the run that never failed
+RECOVERY_STEPS, RECOVERY_FAIL_AT, RECOVERY_CKPT_EVERY = 8, (3, 6), 2
 FLASH_TOL = {"float32": 2e-5, "bfloat16": 2e-2}       # tests/test_kernels.py
 # the fp32 LSE, |diff| <= tol (1 + |lse|), in both input types: bf16 scores are
 # exact products summed in fp32 (by the tensor cores), so only the order of
@@ -1941,6 +2011,8 @@ def phase_model_kernels(device):
             worst_rg = max(worst_rg, _within(y, want_y, 0.0)[1], _within(h, want_h, 0.0)[1])
             if not (torch.equal(y, want_y) and torch.equal(h, want_h)):
                 raise AssertionError(f"rglru_scan differs from its plain version: {shape} {dtype}")
+    bwd = flash_bwd_checks(device)
+    rg_bwd = rglru_bwd_checks(device)
     ssd_err = {"float32": 0.0, "bfloat16": 0.0}
     ssd_rel = {"float32": 0.0, "bfloat16": 0.0}
     ssd_h_err = 0.0
@@ -1980,9 +2052,92 @@ def phase_model_kernels(device):
         ssd_h_last_max_abs_err=ssd_h_err,
         ssd_tolerance={"y": SSD_TOL, "h_last": SSD_H_TOL,
                        "measure": "y: max |diff| / max |y|; h_last: |diff| <= tol (1 + |h|)"},
-        ssd_shapes=[list(s) for s in SSD_SHAPES])
+        ssd_shapes=[list(s) for s in SSD_SHAPES],
+        flash_bwd_checks=bwd["checks"], flash_bwd_max_rel_err=bwd["rel"],
+        flash_bwd_max_abs_err=bwd["abs"], flash_bwd_no_key_rows_zero=bwd["no_key_rows_zero"],
+        flash_bwd_tolerance={**FLASH_BWD_TOL, "measure": "max |diff| / max |grad| per "
+                                                         "gradient (dq, dk, dv)"},
+        flash_bwd_shapes=[list(s) for s in FLASH_BWD_SHAPES],
+        rglru_bwd_checks=rg_bwd["checks"], rglru_bwd_max_abs_err=rg_bwd["abs"],
+        rglru_bwd_tolerance="0 (torch.equal) on da, dx~ and dh0, with and without dh_last",
+        rglru_bwd_shapes=[list(s) for s in RGLRU_SHAPES])
     return {"flash_attention": max(worst.values()), "flash_f32": worst["float32"],
-            "rglru_scan": worst_rg, "ssd_chunked": max(max(ssd_err.values()), ssd_h_err)}
+            "rglru_scan": worst_rg, "ssd_chunked": max(max(ssd_err.values()), ssd_h_err),
+            "flash_attention_bwd": max(bwd["abs"].values()),
+            "flash_attention_bwd_f32": bwd["abs"]["float32"],
+            "rglru_scan_bwd": rg_bwd["abs"]}
+
+
+def flash_bwd_checks(device) -> dict:
+    """K2's backward against its plain version on the same (q, k, v, out,
+    lse, dO): both input types at every ``FLASH_BWD_SHAPES`` shape.  Rows
+    that see no key must get zero dq."""
+    import torch
+
+    from repro_torch.kernels import flash_attention as fa
+
+    rel = {"float32": 0.0, "bfloat16": 0.0}
+    err = {"float32": 0.0, "bfloat16": 0.0}
+    checks, no_key = 0, True
+    for i, shape in enumerate(FLASH_BWD_SHAPES):
+        for name, dtype in (("float32", torch.float32), ("bfloat16", torch.bfloat16)):
+            q, k, v, kw = flash_operands(shape, dtype, device, seed=300 + i)
+            out, lse = fa.flash_attention(q, k, v, return_lse=True, **kw)
+            gen = torch.Generator(device=device).manual_seed(400 + i)
+            do = randn(gen, q.shape, device, dtype)
+            before = fa.flash_attention_bwd.launches
+            got = fa.flash_attention_bwd(q, k, v, out, lse, do, **kw)
+            torch.cuda.synchronize()
+            if fa.flash_attention_bwd.launches != before + 1:
+                raise AssertionError("flash_attention_bwd did not launch its kernel")
+            want = fa.flash_attention_bwd_torch(q, k, v, out, lse, do, **kw)
+            for label, a, b in zip(("dq", "dk", "dv"), got, want):
+                if a.dtype != b.dtype or a.shape != b.shape:
+                    raise AssertionError(f"flash_attention_bwd {label}: {a.dtype} {a.shape}")
+                diff = float((a.float() - b.float()).abs().max())
+                r = diff / max(float(b.float().abs().max()), 1e-30)
+                rel[name], err[name] = max(rel[name], r), max(err[name], diff)
+                if not (r < FLASH_BWD_TOL[name] and bool(torch.isfinite(a).all())):
+                    raise AssertionError(
+                        f"flash_attention_bwd {label} differs from its plain version: {shape} "
+                        f"{name} {r:.3g} of max |grad|")
+            if kw["q_offset"] < 0:
+                blind = -kw["q_offset"]
+                no_key = no_key and bool((got[0][:, :blind] == 0).all())
+                if not no_key:
+                    raise AssertionError("a row that sees no key got a nonzero dq")
+            checks += 1
+            del q, k, v, out, lse, do, got, want
+    return {"checks": checks, "rel": rel, "abs": err, "no_key_rows_zero": no_key}
+
+
+def rglru_bwd_checks(device) -> dict:
+    """K3's backward (the reverse scan) bit for bit against its plain version
+    at every ``RGLRU_SHAPES`` shape, with and without a last-state gradient."""
+    import torch
+
+    from repro_torch.kernels import rglru as rg
+
+    worst, checks = 0.0, 0
+    for i, shape in enumerate(RGLRU_SHAPES):
+        x, a_param, ig, ag, h0 = rglru_operands(shape, torch.float32, device, seed=500 + i)
+        a, xb = rg.rglru_gates(x, a_param, ig, ag)
+        y = rg.scan_torch(a, xb, h0)
+        gen = torch.Generator(device=device).manual_seed(600 + i)
+        dy = randn(gen, y.shape, device)
+        for dh in (None, randn(gen, (shape[0], shape[2]), device)):
+            before = rg.rglru_scan_bwd.launches
+            got = rg.rglru_scan_bwd(a, y, h0, dy, dh)
+            torch.cuda.synchronize()
+            if rg.rglru_scan_bwd.launches != before + 1:
+                raise AssertionError("rglru_scan_bwd did not launch its kernel")
+            want = rg.scan_bwd_torch(a, y, h0, dy, dh)
+            worst = max(worst, max_abs_err(got, want))
+            if not all(torch.equal(p, q) for p, q in zip(got, want)):
+                raise AssertionError(f"rglru_scan_bwd differs from its plain version: {shape} "
+                                     f"dh_last={dh is not None}")
+            checks += 1
+    return {"checks": checks, "abs": worst}
 
 
 def model_kernel_wrappers() -> dict:
@@ -2006,7 +2161,8 @@ def expected_launches(cfg, gen: int) -> dict:
 
 
 def tpu_order_attention(q, k, v, *, causal: bool = True, window=None, q_offset: int = 0,
-                        block: int = TPU_BLOCK_KV):
+                        block: int = TPU_BLOCK_KV, return_lse: bool = False,
+                        name: str | None = None):
     """The reference TPU kernel's algorithm (``flash_attention_pallas``) in
     plain PyTorch and fp32: per block of ``block`` keys the masked scores, a
     running max, ``p = exp(s - m)``, the rescaled sum and accumulator; the
@@ -2018,7 +2174,7 @@ def tpu_order_attention(q, k, v, *, causal: bool = True, window=None, q_offset: 
     skv, kvh = k.shape[1], k.shape[2]
     g = h // kvh
     scale = d ** -0.5
-    outs = []
+    outs, lses = [], []
     for s0 in range(0, sq, 1024):
         qg = (q[:, s0:s0 + 1024].float() * scale).reshape(b, -1, kvh, g, d)
         n = qg.shape[1]
@@ -2043,7 +2199,10 @@ def tpu_order_attention(q, k, v, *, causal: bool = True, window=None, q_offset: 
             m = m_new
         o = acc / l_sum.clamp_min(1e-30)
         outs.append(o.permute(0, 3, 1, 2, 4).reshape(b, n, h, d).to(q.dtype))
-    return torch.cat(outs, 1)
+        lses.append((m + torch.log(l_sum.clamp_min(1e-30)))[..., 0].permute(0, 3, 1, 2)
+                    .reshape(b, n, h))
+    out = torch.cat(outs, 1)
+    return (out, torch.cat(lses, 1)) if return_lse else out
 
 
 @contextlib.contextmanager
@@ -2161,6 +2320,10 @@ def rel_err(got, want) -> float:
 
 
 def _kernel_class(name: str) -> str:
+    if "flash_bwd_" in name:         # K2's backward: delta, dk/dv, reduce, dq
+        return "K2 bwd flash_attention_bwd"
+    if "rglru_scan_bwd" in name:     # K3's backward: the reverse scan
+        return "K3 bwd rglru_scan_bwd"
     if "sweep_kernel" in name:       # K1's four instances
         return "K1 schedule_dp"
     if "seq_cumsum" in name:
@@ -2419,6 +2582,8 @@ def phase_model_timing(device):
     s_dec_plain = cuda_median_ms(lambda: ssd.ssd_chunked_torch(*dec), reps=20, warmup=3)
     s_dec_bound = ssd_bound(dec[0], dec[3], dec[5], dec[6], chunk=ssd.CHUNK)
     out = {
+        "flash_attention_bwd": flash_bwd_timing(device, seed=13),
+        "rglru_scan_bwd": rglru_bwd_timing(device, seed=14),
         "flash_attention_qwen2.5-14b": flash_timing(FLASH_QWEN, device, seed=11),
         "flash_attention_codeqwen1.5-7b": flash_timing(FLASH_CODEQWEN, device, seed=12),
         "flash_attention": flash,
@@ -2455,8 +2620,412 @@ def phase_model_timing(device):
              "those over ms, tpu_operations the TPU kernel's count (per head, chunk 128); "
              "decode_step_ms is event-timed around one wrapper call (host work "
              "included), decode_step_device_ms the kernel's own time from "
-             "torch.profiler, mean of 50")
+             "torch.profiler, mean of 50; flash_attention_bwd and rglru_scan_bwd at the "
+             "training shape: ms the median of 10 (20) event-timed wrapper calls, device_ms "
+             "the profiler's time of the call's kernels (K2 bwd: its four), plain_ms 3 calls "
+             "of the plain backward, library_ms (K2 bwd) the backward of "
+             "scaled_dot_product_attention through autograd at the same shape")
     return out
+
+
+def flash_bwd_bound(q, k, v, causal, window, q_offset) -> dict:
+    """Least time for K2's backward: q, k, v, out and dO read and dq, dk, dv
+    written once (lse read, fp32) over the memory rate, against 10 D
+    operations per unmasked pair (the scores again, dP, dV, dK and dQ, 2 D
+    each) over the peak rate of the input type."""
+    b, sq, h, d = q.shape
+    skv = k.shape[1]
+    pairs = flash_pairs(sq, skv, causal, window, q_offset) * b * h
+    ops = 10 * d * pairs
+    nbytes = (4 * q.numel() + 2 * (k.numel() + v.numel())) * q.element_size() + b * sq * h * 4
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / PEAK_FLOPS[str(q.dtype).split(".")[-1]] * 1e3
+    return {"bytes": nbytes, "operations": ops, "pairs": pairs, "bytes_ms": t_bytes,
+            "ops_ms": t_ops, "bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+
+
+def rglru_bwd_bound(a, h0, dh_last) -> dict:
+    """Least time for K3's backward: a, the states y and dy read and dx~, da
+    written once (h0 and dh_last read, dh0 written), all fp32, against an add
+    and two multiplies per element at the fp32 rate."""
+    small = a.shape[0] * a.shape[2] * 4
+    nbytes = 5 * a.numel() * 4 + small * (1 + (h0 is not None) + (dh_last is not None))
+    ops = 3 * a.numel()
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / PEAK_FLOPS["float32"] * 1e3
+    return {"bytes": nbytes, "operations": ops, "bytes_ms": t_bytes, "ops_ms": t_ops,
+            "bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+
+
+def flash_bwd_timing(device, seed: int) -> dict:
+    """K2's backward in bf16 at the training shape: kernel (events, and the
+    profiler's device time of its four kernels), plain version, bound, and
+    the backward of PyTorch's scaled_dot_product_attention through autograd
+    at the same shape (kv heads expanded, the causal band as a mask, the
+    forward run once outside the timing)."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import flash_attention as fa
+
+    q, k, v, kw = flash_operands(FLASH_TRAIN, torch.bfloat16, device, seed=seed)
+    out, lse = fa.flash_attention(q, k, v, return_lse=True, **kw)
+    do = randn(torch.Generator(device=device).manual_seed(seed + 1), q.shape, device,
+               torch.bfloat16)
+
+    def kernel():
+        return fa.flash_attention_bwd(q, k, v, out, lse, do, **kw)
+
+    ms = cuda_median_ms(kernel, reps=10, warmup=2)
+    dev_ms = profiled_device_ms(kernel, "flash_bwd_", reps=10, per_call=4)
+    plain_ms = cuda_median_ms(lambda: fa.flash_attention_bwd_torch(q, k, v, out, lse, do, **kw),
+                              reps=3, warmup=1)
+    # yardstick only: the port never calls it
+    g = q.shape[2] // k.shape[2]
+    qt = q.transpose(1, 2).detach().requires_grad_()
+    kt = k.transpose(1, 2).repeat_interleave(g, dim=1).contiguous().requires_grad_()
+    vt = v.transpose(1, 2).repeat_interleave(g, dim=1).contiguous().requires_grad_()
+    pos = torch.arange(q.shape[1], device=device)
+    band = (pos[None, :] <= pos[:, None]) & (pos[None, :] > pos[:, None] - kw["window"])
+    lib_out = F.scaled_dot_product_attention(qt, kt, vt, attn_mask=band)
+    dot = do.transpose(1, 2)
+    lib_ms = cuda_median_ms(
+        lambda: torch.autograd.grad(lib_out, (qt, kt, vt), dot, retain_graph=True),
+        reps=10, warmup=2)
+    backend = sdpa_backend(qt, kt, vt, band)
+    del qt, kt, vt, lib_out, dot
+    return {"ms": ms, "device_ms": dev_ms, "plain_ms": plain_ms,
+            **flash_bwd_bound(q, k, v, **kw), "library_ms": lib_ms,
+            "library": f"scaled_dot_product_attention backward through autograd ({backend}, "
+                       "band mask), kv heads expanded, forward outside the timing",
+            "shape": list(FLASH_TRAIN), "dtype": "bfloat16"}
+
+
+def rglru_bwd_timing(device, seed: int) -> dict:
+    """K3's backward at the training shape (1 x 4096 x 2560, fp32, no h0 and
+    no last-state gradient, as a training forward calls it)."""
+    import torch
+
+    from repro_torch.kernels import rglru as rg
+
+    x, a_param, ig, ag, h0 = rglru_operands(RGLRU_TRAIN, torch.bfloat16, device, seed=seed)
+    a, xb = rg.rglru_gates(x, a_param, ig, ag)
+    y = rg.scan_torch(a, xb, h0)
+    dy = randn(torch.Generator(device=device).manual_seed(seed + 1), y.shape, device)
+    ms = cuda_median_ms(lambda: rg._launch_bwd_cuda(a, y, h0, dy, None), reps=20, warmup=3)
+    dev_ms = profiled_device_ms(lambda: rg._launch_bwd_cuda(a, y, h0, dy, None),
+                                "rglru_scan_bwd_kernel", reps=20)
+    plain_ms = cuda_median_ms(lambda: rg.scan_bwd_torch(a, y, h0, dy, None), reps=3, warmup=1)
+    return {"ms": ms, "device_ms": dev_ms, "plain_ms": plain_ms,
+            **rglru_bwd_bound(a, h0, None), "library_ms": None,
+            "shape": list(RGLRU_TRAIN[:3]), "dtype": "float32"}
+
+
+class _YardstickFlash:
+    """Attention in the plain versions' yardstick order, differentiable: the
+    forward in the reference TPU kernel's order (``tpu_order_attention``), the
+    plain backward with its kv sums in blocks of ``TRAIN_YARDSTICK_CHUNK`` q
+    rows.  Built at first use (it needs torch)."""
+
+    fn = None
+
+    @classmethod
+    def apply(cls, q, k, v, causal, window):
+        import torch
+
+        from repro_torch.kernels import flash_attention as fa
+
+        if cls.fn is None:
+            class Fn(torch.autograd.Function):
+                @staticmethod
+                def forward(ctx, q, k, v, causal, window):
+                    out, lse = tpu_order_attention(q, k, v, causal=causal, window=window,
+                                                   return_lse=True)
+                    ctx.save_for_backward(q, k, v, out, lse)
+                    ctx.args = (causal, window)
+                    return out
+
+                @staticmethod
+                def backward(ctx, do):
+                    q, k, v, out, lse = ctx.saved_tensors
+                    causal, window = ctx.args
+                    dq, dk, dv = fa.flash_attention_bwd_torch(
+                        q, k, v, out, lse, do, causal=causal, window=window,
+                        chunk=TRAIN_YARDSTICK_CHUNK)
+                    return dq, dk, dv, None, None
+
+            cls.fn = Fn
+        return cls.fn.apply(q, k, v, causal, window)
+
+
+@contextlib.contextmanager
+def plain_training(yardstick: bool = False):
+    """The training path with K2 and K3 (forward and backward) replaced by
+    their plain versions (for the comparison only: the port has no such
+    route); ``yardstick``: attention summed in another order
+    (``_YardstickFlash``)."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import rglru as rg
+
+    def yardstick_flash(q, k, v, *, causal=True, window=None, name=None):
+        return _YardstickFlash.apply(q, k, v, causal, window)
+
+    orig = ops.flash_attention, ops.rglru_scan
+    ops.flash_attention = yardstick_flash if yardstick else fa.flash_attention_torch_grad
+    ops.rglru_scan = rg.rglru_scan_torch_grad
+    try:
+        yield
+    finally:
+        ops.flash_attention, ops.rglru_scan = orig
+
+
+def train_wrappers() -> dict:
+    """The training path's kernel wrappers by name; each counts its launches."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import rglru as rg
+    from repro_torch.kernels import schedule_dp as sdp
+    from repro_torch.kernels import ssd
+
+    return {"flash_attention": fa.flash_attention, "flash_attention_bwd": fa.flash_attention_bwd,
+            "rglru_scan": rg.rglru_scan, "rglru_scan_bwd": rg.rglru_scan_bwd,
+            "ssd_chunked": ssd.ssd_chunked, "schedule_dp": sdp.sweep}
+
+
+def expected_train_launches(cfg, scan_group, policy) -> dict:
+    """Kernel launches of one training step: K2 and K3 forward once per
+    layer plus once per replay the plan implies (none for a held class), and
+    their backwards once per layer."""
+    from repro_torch.models.decoder import kernel_forwards
+
+    fwd = kernel_forwards(cfg, scan_group, policy)
+    return {"flash_attention": fwd["attn_out"],
+            "flash_attention_bwd": cfg.kinds.count("attn_local") + cfg.kinds.count("attn"),
+            "rglru_scan": fwd["rec_out"], "rglru_scan_bwd": cfg.kinds.count("rec"),
+            "ssd_chunked": 0}
+
+
+def train_memory_reckoning(cfg, plan) -> dict:
+    """What a training step must hold at least, from the shapes: fp32
+    parameters, gradients and AdamW moments (16 B a parameter), the bf16
+    casts of the weights autograd keeps (2 B), the planner's named activation
+    classes, and the logits with their gradient (bf16) and one fp32 block of
+    the loss.  Unnamed intermediates (norm and gate values) are not in it."""
+    from repro_torch.configs.base import ShapeCell
+    from repro_torch.plan import H100, layer_costs
+
+    n = cfg.param_count()
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    acts = sum(sum(lc.act_bytes.values()) for lc in layer_costs(
+        cfg, ShapeCell("train_cfg", TRAIN_SEQ, TRAIN_BATCH, "train"), n_data_shards=1,
+        n_model_shards=1, hw=H100))
+    logits = 2 * 2 * tokens * cfg.padded_vocab + 2 * 4 * 1024 * cfg.padded_vocab
+    out = {"state_bytes": 16 * n, "weight_casts_bytes": 2 * n, "named_activations_bytes": acts,
+           "logits_bytes": logits}
+    out["total_bytes"] = sum(out.values())
+    return out
+
+
+def grads_of(tr, batch):
+    """Loss and gradients (by parameter name, on the card) of one step."""
+    import torch
+
+    from repro_torch.models import arch_forward, cross_entropy_loss
+
+    for p in tr.model.parameters():
+        p.grad = None
+    loss = cross_entropy_loss(tr.cfg, arch_forward(tr.cfg, tr.model, batch,
+                                                   scan_group=tr.scan_group,
+                                                   remat_policy=tr.policy), batch["labels"])
+    loss.backward()
+    if tr.policy is not None:
+        tr.policy.clear()
+    torch.cuda.synchronize()
+    return float(loss.detach()), {k: p.grad for k, p in tr.model.named_parameters()}
+
+
+def grad_errors(got: dict, want_host: dict) -> dict:
+    """Per parameter, max |diff| / max |want| (want on the host)."""
+    out = {}
+    for k, g in got.items():
+        w = want_host[k].to(g.device, non_blocking=True)
+        out[k] = float((g - w).abs().max() / w.abs().max().clamp_min(1e-30))
+    return out
+
+
+def train_step1_gate(tr, device) -> dict:
+    """Step 1's loss and gradients on the kernels against the same step on
+    the plain versions, and the plain versions against themselves in another
+    summation order (the yardstick)."""
+    import torch
+
+    from repro_torch.runtime.train import batch_to
+
+    batch = batch_to(tr.batch_at(0), device)
+    wrappers = train_wrappers()
+    before = {k: w.launches for k, w in wrappers.items() if k != "schedule_dp"}
+    t0 = time.perf_counter()
+    with plain_training():
+        plain_loss, g = grads_of(tr, batch)
+        plain = {k: v.to("cpu") for k, v in g.items()}
+    plain_s = time.perf_counter() - t0
+    with plain_training(yardstick=True):
+        yard_loss, g = grads_of(tr, batch)
+        yard = grad_errors(g, plain)
+    if {k: w.launches for k, w in wrappers.items() if k != "schedule_dp"} != before:
+        raise AssertionError("the plain-version training step launched a kernel")
+    t0 = time.perf_counter()
+    kern_loss, g = grads_of(tr, batch)
+    kern_s = time.perf_counter() - t0
+    finite = all(bool(torch.isfinite(v).all()) for v in g.values())
+    kern = grad_errors(g, plain)
+    for p in tr.model.parameters():
+        p.grad = None
+    del g, plain
+    loss_err = abs(kern_loss - plain_loss) / abs(plain_loss)
+    yard_loss_err = abs(yard_loss - plain_loss) / abs(plain_loss)
+    grad_err, yard_grad_err = max(kern.values()), max(yard.values())
+    fixed = loss_err <= TRAIN_LOSS_LIMIT and grad_err <= TRAIN_GRAD_LIMIT
+    by_yardstick = loss_err <= YARDSTICK_FACTOR * max(yard_loss_err, 1e-7) and \
+        grad_err <= YARDSTICK_FACTOR * yard_grad_err
+    if not (finite and math.isfinite(kern_loss) and (fixed or by_yardstick)):
+        raise AssertionError(
+            f"train step 1 differs from the plain versions: loss {loss_err:.3g} (limit "
+            f"{TRAIN_LOSS_LIMIT}, yardstick {yard_loss_err:.3g}), gradients {grad_err:.3g} "
+            f"(limit {TRAIN_GRAD_LIMIT}, yardstick {yard_grad_err:.3g}), finite={finite}")
+    worst = sorted(kern.items(), key=lambda kv: -kv[1])[:5]
+    return {"loss_kernels": kern_loss, "loss_plain": plain_loss, "loss_yardstick": yard_loss,
+            "loss_rel_err": loss_err, "grad_rel_err_max": grad_err,
+            "yardstick_loss_rel_err": yard_loss_err, "yardstick_grad_rel_err_max": yard_grad_err,
+            "within_fixed_limits": fixed, "within_yardstick": by_yardstick,
+            "limits": {"loss": TRAIN_LOSS_LIMIT, "grad": TRAIN_GRAD_LIMIT,
+                       "yardstick_factor": YARDSTICK_FACTOR},
+            "worst_grads": worst, "plain_step_s": plain_s, "kernel_step_s": kern_s,
+            "grad_tensors": len(kern)}
+
+
+def recovery_drill(device) -> dict:
+    """``run_with_recovery`` at the smoke size on the card: a run lost at
+    ``RECOVERY_FAIL_AT`` and restored from its checkpoints against the run
+    that never failed; losses and final parameters must be bit-identical."""
+    import shutil
+
+    import torch
+
+    from repro_torch.launch.train import build_trainer, parse_args
+    from repro_torch.runtime.elastic import FailureInjector, run_with_recovery
+
+    runs = []
+    for name, fail in (("clean", ()), ("failing", RECOVERY_FAIL_AT)):
+        ckpt = ROOT / "build" / f"recovery_{name}"
+        shutil.rmtree(ckpt, ignore_errors=True)
+        tr = build_trainer(parse_args(["--arch", TRAIN_ARCH, "--smoke", "--device", "cuda",
+                                       "--batch", "2", "--seq", "128", "--lr", "3e-3"]))
+        losses = {}
+        state, restarts = run_with_recovery(
+            init_state=tr.state, train_step=tr.step_fn, batch_at=tr.batch_at,
+            n_steps=RECOVERY_STEPS, ckpt_dir=str(ckpt), ckpt_every=RECOVERY_CKPT_EVERY,
+            injector=FailureInjector(fail_at=fail) if fail else None,
+            on_metrics=lambda s, m, losses=losses: losses.__setitem__(s, float(m["loss"])),
+            reinit=tr.reinit)
+        runs.append((state, restarts, losses))
+        shutil.rmtree(ckpt, ignore_errors=True)
+    (a, r0, la), (b, r1, lb) = runs
+    same_params = all(torch.equal(a.params[k], b.params[k]) for k in a.params)
+    if not (r0 == 0 and r1 == len(RECOVERY_FAIL_AT) and la == lb and same_params
+            and a.step == b.step == RECOVERY_STEPS):
+        raise AssertionError(f"recovery drill: restarts {r0}/{r1}, losses equal {la == lb}, "
+                             f"parameters equal {same_params}")
+    return {"steps": RECOVERY_STEPS, "fail_at": list(RECOVERY_FAIL_AT),
+            "ckpt_every": RECOVERY_CKPT_EVERY, "restarts": r1, "losses": [la[s] for s in
+                                                                          sorted(la)],
+            "losses_bit_identical": True, "params_bit_identical": True}
+
+
+def phase_train(device) -> dict:
+    """recurrentgemma-2b trained at its published width and depth through
+    ``launch/train.py``'s path under the planner's residency plan: the
+    step-1 gate against the plain versions, TRAIN_STEPS steps with every
+    training kernel's count set to 0 just before and read just after, one
+    profiled step, and the recovery drill at the smoke size."""
+    import gc
+
+    import torch
+
+    from repro_torch.launch.train import build_trainer, parse_args, train_main
+
+    argv = ["--arch", TRAIN_ARCH, "--device", "cuda", "--steps", str(TRAIN_STEPS),
+            "--batch", str(TRAIN_BATCH), "--seq", str(TRAIN_SEQ), "--log-every", "1",
+            "--ckpt-every", "1000000", "--ckpt-dir", str(ROOT / "build" / "train_ckpt")]
+    t0 = time.perf_counter()
+    tr = build_trainer(parse_args(argv))
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    cfg, plan = tr.cfg, tr.plan
+    gate = train_step1_gate(tr, device)
+
+    wrappers = train_wrappers()
+    for w in wrappers.values():
+        w.launches = 0
+    torch.cuda.reset_peak_memory_stats(device)
+    step_s, losses = [], []
+    state = train_main(argv, trainer=tr,
+                       on_step=lambda s, m, dt: (step_s.append(dt),
+                                                 losses.append(float(m["loss"]))))
+    launches = {k: w.launches for k, w in wrappers.items()}
+    peak = torch.cuda.max_memory_allocated(device)
+    want = expected_train_launches(cfg, tr.scan_group, tr.policy)
+    per_step = {k: launches[k] / TRAIN_STEPS for k in want}
+    if per_step != {k: float(v) for k, v in want.items()}:
+        raise AssertionError(f"train launches per step {per_step}, expected {want}")
+    if not all(math.isfinite(x) for x in losses) or len(losses) != TRAIN_STEPS:
+        raise AssertionError(f"train losses {losses}")
+    profile = device_breakdown(lambda: tr.step_fn(state, tr.batch_at(TRAIN_STEPS)), top=8)
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    steady = statistics.median(step_s[1:]) if len(step_s) > 1 else step_s[0]
+    attn_pairs = flash_pairs(TRAIN_SEQ, TRAIN_SEQ, True, cfg.attn_window, 0) * TRAIN_BATCH
+    model_flops = 6 * cfg.param_count() * tokens + 3 * 4 * cfg.resolved_head_dim * \
+        attn_pairs * cfg.n_heads * cfg.kinds.count("attn_local")
+    offloaded = tr.policy.offloaded_bytes if tr.policy is not None else 0
+    reckoned = train_memory_reckoning(cfg, plan)
+    del tr, state
+    gc.collect()
+    torch.cuda.empty_cache()
+    drill = recovery_drill(device)
+    out = {"arch": TRAIN_ARCH, "layers": cfg.n_layers, "d_model": cfg.d_model,
+           "vocab": cfg.vocab_size, "params": cfg.param_count(), "dtype": cfg.dtype,
+           "masters": "float32", "batch": TRAIN_BATCH, "seq": TRAIN_SEQ, "steps": TRAIN_STEPS,
+           "optimizer": "adamw", "init_s": init_s,
+           "plan": {"planner": plan.planner, "scan_group": plan.scan_group,
+                    "save": list(plan.save_names), "offload": list(plan.offload_names),
+                    "remat": sorted(set(_act_classes(cfg)) - set(plan.save_names)
+                                    - set(plan.offload_names)),
+                    "est_step_time_ms": plan.est_step_time * 1e3,
+                    "hbm_budget_bytes": plan.hbm_budget, "hardware": "h100-sxm"},
+           "step_s": step_s, "step_ms_steady": steady * 1e3,
+           "tokens_per_s": tokens / steady, "losses": losses,
+           "model_flops_per_step": model_flops,
+           "mfu_vs_989_tflops": model_flops / steady / PEAK_FLOPS["bfloat16"],
+           "max_memory_allocated_bytes": peak, "memory_reckoned": reckoned,
+           "offloaded_bytes": offloaded, "launches": launches,
+           "launches_per_step": per_step, "expected_launches_per_step": want,
+           "step1_gate": gate, "step1_loss_reproduced_in_training": gate["loss_kernels"] ==
+           losses[0], "device_profile_one_step": profile, "recovery": drill}
+    say("train", **out,
+        note="step_s: wall per step, synchronised by the loss read (the first includes "
+             "set-up); step_ms_steady: median of the later steps; model_flops: 6 N tokens "
+             "plus the attention scores (4 D per visible pair, x3 for the backward); "
+             "device_profile_one_step: torch.profiler over one more step; recovery: the "
+             "smoke config (a full-width checkpoint would be ~43 GB per save)")
+    return out
+
+
+def _act_classes(cfg) -> set:
+    from repro_torch.models.remat import classes_of
+
+    return classes_of(cfg)
 
 
 # every hand-written kernel: name, its source, the TPU kernel it replaces
@@ -2467,12 +3036,19 @@ KERNELS = (
      "src/repro/kernels/flash_attention.py:99"),
     ("rglru_scan", "src/repro_torch/kernels/csrc/rglru.cu", "src/repro/kernels/rglru.py:41"),
     ("ssd_chunked", "src/repro_torch/kernels/csrc/ssd.cu", "src/repro/kernels/ssd.py:75"),
+    # the backwards of K2 and K3: the reference wrote their math in XLA
+    # (custom VJPs), not in Pallas, so they replace no TPU kernel
+    ("flash_attention_bwd", "src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
+     "src/repro/kernels/flash_xla.py:76"),
+    ("rglru_scan_bwd", "src/repro_torch/kernels/csrc/rglru.cu",
+     "src/repro/kernels/rglru_xla.py:56"),
     # a helper of the device-resident round, with no TPU kernel: it replaces
     # the reference's blocked sequential lax.scan of the durations
     ("seq_cumsum", "src/repro_torch/kernels/csrc/schedule_dp.cu",
      "src/repro/core/device_search.py:199"),
 )
 HELPERS = ("seq_cumsum",)
+BACKWARDS = {"flash_attention_bwd": "flash_attention", "rglru_scan_bwd": "rglru_scan"}
 
 
 def kernel_entries(launches: dict, errs: dict, times: dict, extras: dict) -> list:
@@ -2483,6 +3059,8 @@ def kernel_entries(launches: dict, errs: dict, times: dict, extras: dict) -> lis
     call computes the function)."""
     return [{"name": name, "route": "cuda", "source": source, "replaces": replaces,
              **({"helper": True, "tpu_kernel": None} if name in HELPERS else {}),
+             **({"backward_of": BACKWARDS[name], "tpu_kernel": None}
+                if name in BACKWARDS else {}),
              "launches": launches[name], "max_abs_err": errs[name],
              **{k: times[name].get(k) for k in ("ms", "plain_ms", "bound_ms", "bound_by",
                                                 "library_ms")},
@@ -2552,21 +3130,29 @@ def main() -> int:
                           check_attention_yardstick)
     timing = timed("timing", phase_timing, device, max_rows)
     mtime = timed("model_timing", phase_model_timing, device)
-    # last, so that the earlier phases run as they did before it joined
     service_launches = timed("solve_service", phase_solve_service, device)
+    # last: after its profiled full-width step the profiler has been seen to
+    # drop most kernel records of later windows (6 of 20 launches), which
+    # the earlier phases' profiled gates and timings must not meet
+    train = timed("train", phase_train, device)
 
     fwd, tails = timing["forward"], timing["tails"]
     by_path = launches_by_path({"main_path": {"schedule_dp": launches},
                                 "device_path": device_launches,
                                 "crash_resume": crash_launches,
-                                "solve_service": service_launches})
+                                "solve_service": service_launches,
+                                "train": {"schedule_dp": train["launches"]["schedule_dp"]}})
+    tl = train["launches"]
+    fb, rb = mtime["flash_attention_bwd"], mtime["rglru_scan_bwd"]
     fl, rg, sd = mtime["flash_attention"], mtime["rglru_scan"], mtime["ssd_chunked"]
     fq, fc = mtime["flash_attention_qwen2.5-14b"], mtime["flash_attention_codeqwen1.5-7b"]
     entries = kernel_entries(
         launches={"schedule_dp": launches, "flash_attention": qwen_launches["flash_attention"],
                   "rglru_scan": model_launches["rglru_scan"],
                   "ssd_chunked": mamba_launches["ssd_chunked"],
-                  "seq_cumsum": device_launches["seq_cumsum"]},
+                  "seq_cumsum": device_launches["seq_cumsum"],
+                  "flash_attention_bwd": tl["flash_attention_bwd"],
+                  "rglru_scan_bwd": tl["rglru_scan_bwd"]},
         errs={"schedule_dp": worst, **model_err, "seq_cumsum": cum["max_abs_err"]},
         times={"schedule_dp": fwd, **mtime, "flash_attention": fq, "seq_cumsum": cum},
         extras={
@@ -2586,7 +3172,8 @@ def main() -> int:
                                 "path": "model_serve " + QWEN_ARCH,
                                 "launches_by_path": {
                                     "model_serve " + QWEN_ARCH: qwen_launches["flash_attention"],
-                                    "model_serve " + ARCH: model_launches["flash_attention"]},
+                                    "model_serve " + ARCH: model_launches["flash_attention"],
+                                    "train": tl["flash_attention"]},
                                 "library": fq["library"], "shape": fq["shape"],
                                 "dtype": "bfloat16", "device_ms": fq["device_ms"],
                                 "shape_" + ARCH: {k: fl[k] for k in (
@@ -2595,7 +3182,22 @@ def main() -> int:
                                 "shape_codeqwen1.5-7b": {k: fc[k] for k in (
                                     "shape", "ms", "device_ms", "plain_ms", "bound_ms",
                                     "bound_by", "library_ms", "library")}},
+            "flash_attention_bwd": {
+                "path": "train", "launches_per_step": train["launches_per_step"][
+                    "flash_attention_bwd"],
+                "launches_by_path": {"train": tl["flash_attention_bwd"]},
+                "max_abs_err_f32": model_err["flash_attention_bwd_f32"],
+                "device_ms": fb["device_ms"], "library": fb["library"], "shape": fb["shape"],
+                "dtype": fb["dtype"], "operations": fb["operations"]},
+            "rglru_scan_bwd": {
+                "path": "train", "launches_per_step": train["launches_per_step"][
+                    "rglru_scan_bwd"],
+                "launches_by_path": {"train": tl["rglru_scan_bwd"]},
+                "device_ms": rb["device_ms"], "shape": rb["shape"], "dtype": rb["dtype"]},
             "rglru_scan": {"shape": rg["shape"], "dtype": "float32 scan (bfloat16 model)",
+                           "launches_by_path": {"model_serve " + ARCH:
+                                                model_launches["rglru_scan"],
+                                                "train": tl["rglru_scan"]},
                            "device_ms": rg["device_ms"],
                            "decode_step_ms": rg["decode_step_ms"],
                            "decode_step_device_ms": rg["decode_step_device_ms"],

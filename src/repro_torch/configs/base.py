@@ -153,3 +153,25 @@ class ModelConfig:
         active_per_layer = self.top_k * (self.d_model * self.d_ff * (3 if self.glu else 2))
         n_moe_layers = sum(1 for k in self.kinds if k != "ssm")
         return dense - n_moe_layers * (moe_per_layer - active_per_layer)
+
+
+@dataclasses.dataclass(frozen=True)
+class ShapeCell:
+    """One (input-shape × step-kind) cell from the brief."""
+
+    name: str            # train_4k | prefill_32k | decode_32k | long_500k
+    seq_len: int
+    global_batch: int
+    kind: str            # train | prefill | decode
+
+    @property
+    def is_decode(self) -> bool:
+        return self.kind == "decode"
+
+
+SHAPE_CELLS = (
+    ShapeCell("train_4k", 4_096, 256, "train"),
+    ShapeCell("prefill_32k", 32_768, 32, "prefill"),
+    ShapeCell("decode_32k", 32_768, 128, "decode"),
+    ShapeCell("long_500k", 524_288, 1, "decode"),
+)

@@ -19,10 +19,11 @@ lottery:
 * ``stencil`` — a 1-D stencil / series-parallel layered graph: ``steps``
   rows of ``width`` tasks, each consuming its ``2·radius + 1`` neighbors'
   blocks from the previous row.
-
-The model-derived ``residency`` / ``pipeline`` families need the model
-configs and the plan extractor and are registered once those modules exist
-in this package.
+* ``residency`` / ``pipeline`` — model-derived MDFGs from
+  ``plan/extract.py`` (training-step residency and pipeline-schedule
+  problems for a named architecture).  ``hw`` names the device constants:
+  the reference's ``"tpu-v5e"`` by default, so a suite is the same set of
+  instances in both packages; ``"h100-sxm"`` gives the port's card.
 """
 from __future__ import annotations
 
@@ -438,3 +439,84 @@ def stencil(
         name=name or f"stencil[w{width},t{steps},r{radius}]",
         **platform,
     )
+
+
+# --------------------------------------------------------------------------- #
+# model-derived families (promoted from plan/extract.py)                       #
+# --------------------------------------------------------------------------- #
+def _shape_cell(cell: str):
+    from ..configs.base import SHAPE_CELLS
+
+    cells = {c.name: c for c in SHAPE_CELLS}
+    try:
+        return cells[cell]
+    except KeyError:
+        raise ValueError(
+            f"unknown shape cell {cell!r}; known: {', '.join(sorted(cells))}"
+        ) from None
+
+
+def _model_config(arch: str, smoke: bool):
+    from ..configs.registry import get_config, get_smoke_config
+
+    return get_smoke_config(arch) if smoke else get_config(arch)
+
+
+def _hardware(name: str):
+    from ..plan.cost import H100, TPU_V5E
+
+    by_name = {hw.name: hw for hw in (TPU_V5E, H100)}
+    try:
+        return by_name[name]
+    except KeyError:
+        raise ValueError(f"unknown hardware {name!r}; known: {', '.join(by_name)}") from None
+
+
+@register_family(
+    "residency",
+    description="training-step residency MDFG extracted from a model config "
+                "(plan/extract.residency_instance)",
+    defaults={"arch": "mixtral-8x7b", "cell": "train_4k", "scan_group": 4,
+              "smoke": True},
+)
+def _residency_family(
+    rng: np.random.Generator,
+    *,
+    arch: str = "mixtral-8x7b",
+    cell: str = "train_4k",
+    scan_group: int = 4,
+    smoke: bool = True,
+    hw: str = "tpu-v5e",
+    **kw,
+) -> Instance:
+    from ..plan.extract import residency_instance
+
+    inst, _ = residency_instance(_model_config(arch, smoke), _shape_cell(cell),
+                                 scan_group=scan_group, hw=_hardware(hw), **kw)
+    return inst
+
+
+@register_family(
+    "pipeline",
+    description="pipeline-schedule MDFG extracted from a model config "
+                "(plan/extract.pipeline_instance)",
+    defaults={"arch": "qwen2.5-14b", "cell": "train_4k", "n_stages": 4,
+              "n_microbatches": 8, "smoke": True},
+)
+def _pipeline_family(
+    rng: np.random.Generator,
+    *,
+    arch: str = "qwen2.5-14b",
+    cell: str = "train_4k",
+    n_stages: int = 4,
+    n_microbatches: int = 8,
+    smoke: bool = True,
+    hw: str = "tpu-v5e",
+    **kw,
+) -> Instance:
+    from ..plan.extract import pipeline_instance
+
+    inst, _ = pipeline_instance(_model_config(arch, smoke), _shape_cell(cell),
+                                n_stages=n_stages, n_microbatches=n_microbatches,
+                                hw=_hardware(hw), **kw)
+    return inst

@@ -15,11 +15,6 @@ once per bucket, not once per instance.  Every row is normalized by the
 instance's family-independent lower bound
 (:mod:`repro_torch.instances.bounds`), so "TS lands within x% of LB" is
 comparable across workload families.
-
-The model-derived families (``residency``, ``pipeline``) need the planner,
-which is not ported yet (ROADMAP A11): the suites that name them are
-registered with the same items, and building such an item raises
-``KeyError``.
 """
 from __future__ import annotations
 
@@ -63,10 +58,6 @@ class SuiteItem:
                    params=tuple(sorted(params.items())))
 
     def build(self) -> Instance:
-        if self.family in _AWAITING_PLANNER:
-            raise KeyError(
-                f"family {self.family!r} is extracted from a model config by the "
-                "planner, which is not ported yet (ROADMAP A11)")
         inst = generate(self.family, self.seed, **dict(self.params))
         inst.name = f"{self.family}#{self.seed}[{inst.name}]"
         return inst
@@ -87,9 +78,6 @@ class Suite:
 
 
 _SUITES: dict[str, Suite] = {}
-
-# model-derived families of the reference, registered with the planner
-_AWAITING_PLANNER = ("residency", "pipeline")
 
 
 def register_suite(name: str, items: Sequence[SuiteItem], *,

@@ -35,6 +35,7 @@ KERNEL_SOURCES = {
     "flash_attention": "flash_attention.cu",
     "rglru": "rglru.cu",
     "ssd": "ssd.cu",
+    "flash_attention_bwd": "flash_attention_bwd.cu",
 }
 
 _loaded: dict[str, ctypes.CDLL] = {}

@@ -172,7 +172,13 @@ def ssd_chunked(x, dt, a_log, b_mat, c_mat, d_skip=None, h0=None):
     """Mamba-2 SSD over ``x (B, T, H, P)``, ``dt (B, T, H)``, ``a_log (H,)``,
     ``b_mat``/``c_mat (B, T, G, N)``, optional ``d_skip (H,)`` and ``h0 (B, H,
     P, N)`` (zeros if None): the CUDA kernel for CUDA tensors (asynchronous, on
-    the current stream), the plain version for CPU tensors."""
+    the current stream), the plain version for CPU tensors.  It has no
+    backward yet: an input that requires a gradient raises (ROADMAP A8)."""
+    if torch.is_grad_enabled() and any(
+            t is not None and t.requires_grad for t in (x, dt, a_log, b_mat, c_mat, d_skip, h0)):
+        raise NotImplementedError(
+            "ssd_chunked has no backward yet (K4's backward, ROADMAP A8): "
+            "call it under torch.no_grad() or on tensors that need no gradient")
     shape = _check(x, dt, a_log, b_mat, c_mat, d_skip, h0)
     if x.device.type == "cpu":
         return ssd_chunked_torch(x, dt, a_log, b_mat, c_mat, d_skip, h0)

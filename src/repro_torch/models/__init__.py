@@ -17,24 +17,29 @@ from ..configs.base import ModelConfig
 from . import blocks, common
 from .attention import attention, decode_attention
 from .common import ParamDef, init_params_
-from .decoder import Decoder, cache_defs, decode_step, forward, init_cache
+from .decoder import (Decoder, cache_defs, cross_entropy_loss, decode_step,
+                      default_scan_group, forward, init_cache)
 
 __all__ = [
     "ParamDef", "Decoder", "init_params_",
     "arch_init_params", "arch_forward", "arch_cache_defs", "arch_init_cache",
     "arch_decode_step", "attention", "decode_attention", "blocks", "common",
+    "cross_entropy_loss", "default_scan_group",
 ]
 
 
 def arch_init_params(cfg: ModelConfig, generator: torch.Generator, *,
-                     device: str | torch.device = "cuda") -> Decoder:
+                     device: str | torch.device = "cuda", master: bool = False) -> Decoder:
     """A :class:`Decoder` on ``device`` with random parameters drawn from
-    ``generator`` (which must live on ``device``)."""
-    return init_params_(Decoder(cfg, device=device), generator)
+    ``generator`` (which must live on ``device``); ``master=True`` for
+    training (fp32 masters that require gradients)."""
+    return init_params_(Decoder(cfg, device=device, master=master), generator)
 
 
-def arch_forward(cfg: ModelConfig, model: Decoder, batch: dict[str, Any]) -> torch.Tensor:
-    return forward(cfg, model, batch["tokens"])
+def arch_forward(cfg: ModelConfig, model: Decoder, batch: dict[str, Any], *,
+                 scan_group: int | None = None, remat_policy=None) -> torch.Tensor:
+    return forward(cfg, model, batch["tokens"], scan_group=scan_group,
+                   remat_policy=remat_policy)
 
 
 def arch_cache_defs(cfg: ModelConfig, batch: int, max_len: int) -> list[dict]:

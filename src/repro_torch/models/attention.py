@@ -16,7 +16,7 @@ import torch
 
 from ..configs.base import ModelConfig
 from ..kernels import ops
-from .common import ParamDef, apply_rope
+from .common import ParamDef, apply_rope, tag
 
 __all__ = ["attn_defs", "attention", "decode_attention", "kv_cache_defs"]
 
@@ -61,9 +61,11 @@ def attention(cfg: ModelConfig, p, x: torch.Tensor, *, positions: torch.Tensor,
     [+ the roped k and the v, (B, S, KVH, HD) each].  ``window=None`` is
     global attention."""
     q, k, v = _project_qkv(cfg, p, x)
-    q = apply_rope(q, positions, cfg.rope_theta)
-    k = apply_rope(k, positions, cfg.rope_theta)
-    out = ops.flash_attention(q, k, v, causal=causal, window=window)
+    q = tag(apply_rope(q, positions, cfg.rope_theta), "attn_q")
+    k = tag(apply_rope(k, positions, cfg.rope_theta), "attn_kv")
+    v = tag(v, "attn_kv")
+    out = tag(ops.flash_attention(q, k, v, causal=causal, window=window, name="attn_out"),
+              "attn_out")
     y = _out(cfg, p, torch.einsum("bshd,hde->bse", out, p.wo))
     return (y, (k, v)) if return_kv else y
 

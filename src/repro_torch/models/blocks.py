@@ -8,7 +8,7 @@ import torch.nn.functional as F
 
 from ..configs.base import ModelConfig
 from ..kernels import ops
-from .common import ParamDef, activation, gelu_tanh
+from .common import ParamDef, activation, gelu_tanh, recompute, tag
 
 __all__ = [
     "mlp_defs", "mlp",
@@ -24,7 +24,8 @@ def mlp_defs(cfg: ModelConfig) -> dict[str, ParamDef]:
 
 def mlp(cfg: ModelConfig, p, x: torch.Tensor) -> torch.Tensor:
     """GLU MLP: act(x wg) * (x wi), then wo."""
-    h = activation(cfg.act)(x @ p.wg) * (x @ p.wi)
+    act = activation(cfg.act)
+    h = tag(recompute(lambda g, u: act(g) * u, x @ p.wg, x @ p.wi), "mlp_hidden")
     return h @ p.wo
 
 
@@ -68,8 +69,9 @@ def rec_block(cfg: ModelConfig, p, x: torch.Tensor, state: dict | None = None):
     u, new_conv = _causal_conv(u, p.conv_w, p.conv_b, None if state is None else state["conv"])
     ig = torch.sigmoid(u @ p.w_input_gate + p.b_input_gate)
     ag = torch.sigmoid(u @ p.w_a_gate + p.b_a_gate)
-    y, h_last = ops.rglru_scan(u, p.a_param, ig, ag, None if state is None else state["h"])
-    out = (y * gate) @ p.wo
+    y, h_last = ops.rglru_scan(u, p.a_param, ig, ag, None if state is None else state["h"],
+                               name="rec_out")
+    out = (tag(y, "rec_out") * gate) @ p.wo
     return out, (None if state is None else {"h": h_last, "conv": new_conv})
 
 
@@ -122,7 +124,7 @@ def ssm_block(cfg: ModelConfig, p, x: torch.Tensor, state: dict | None = None):
                                 bmat.reshape(b, t, g, n), cmat.reshape(b, t, g, n), p.d_skip,
                                 None if state is None else state["h"])
     # gated RMSNorm (mamba2), in fp32
-    yf = y.reshape(b, t, di).float() * F.silu(z.float())
+    yf = tag(y.reshape(b, t, di), "ssm_out").float() * F.silu(z.float())
     yf = yf * torch.rsqrt(torch.mean(yf * yf, dim=-1, keepdim=True) + 1e-6) * p.norm_w
     out = yf.to(x.dtype) @ p.wo
     return out, (None if state is None else {"h": h_last, "conv": new_conv})

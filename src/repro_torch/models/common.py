@@ -2,12 +2,22 @@
 initialisation from a ``torch.Generator``, norms, RoPE, activations.
 
 A module lists its parameters as :class:`ParamDef`s (shape, initialiser,
-whether the value stays fp32) and :class:`DefModule` registers them.  Matmul
-weights, embeddings and biases are held in the working type, cast once when
-they are set: the reference keeps fp32 masters and casts at every use, which
-gives the same values.  Norm weights and ``a_param`` stay fp32, as the
-reference reads them in fp32.  Serving needs no gradients, so the parameters
-do not require them.
+whether the value stays fp32) and :class:`DefModule` registers them, in one
+of two layouts:
+
+* serving (``master=False``): matmul weights, embeddings and biases are held
+  in the working type, cast once when they are set (the reference keeps fp32
+  masters and casts at every use, which gives the same values); norm weights
+  and ``a_param`` stay fp32, as the reference reads them in fp32.  Serving
+  needs no gradients, so the parameters do not require them.
+* training (``master=True``): every parameter is an fp32 master that
+  requires a gradient, and reading a working-type parameter as an attribute
+  (``p.wq``) casts it at that use, as the reference does, so the gradient
+  flows back to the fp32 master (an AdamW step is not lost to bf16
+  rounding).  :meth:`DefModule.master` reads the fp32 tensor itself.
+
+:func:`tag` names an activation class (the reference's ``checkpoint_name``)
+for a residency plan (:mod:`.remat`).
 """
 from __future__ import annotations
 
@@ -28,6 +38,8 @@ __all__ = [
     "apply_rope",
     "activation",
     "gelu_tanh",
+    "recompute",
+    "tag",
 ]
 
 
@@ -40,16 +52,33 @@ class ParamDef:
 
 
 class DefModule(nn.Module):
-    """A module whose parameters are given by ``defs()`` (name -> ParamDef)."""
+    """A module whose parameters are given by ``defs`` (name -> ParamDef):
+    in the working type for serving, fp32 masters cast at use for training
+    (``master=True``)."""
 
-    def __init__(self, defs: dict[str, ParamDef], dtype: torch.dtype, device):
+    def __init__(self, defs: dict[str, ParamDef], dtype: torch.dtype, device,
+                 master: bool = False):
         super().__init__()
         self.defs = defs
+        # working-type parameters read through a cast (training only)
+        self._cast = {name: dtype for name, d in defs.items()
+                      if master and not d.fp32 and dtype != torch.float32}
         for name, d in defs.items():
-            dt = torch.float32 if d.fp32 else dtype
+            dt = torch.float32 if (d.fp32 or master) else dtype
             self.register_parameter(
                 name, nn.Parameter(torch.empty(d.shape, dtype=dt, device=device),
-                                   requires_grad=False))
+                                   requires_grad=master))
+
+    def __getattr__(self, name: str):
+        value = super().__getattr__(name)
+        cast = self.__dict__.get("_cast")
+        if cast and name in cast:
+            return value.to(cast[name])
+        return value
+
+    def master(self, name: str) -> torch.Tensor:
+        """The stored parameter ``name`` itself (no cast at use)."""
+        return self._parameters[name]
 
 
 def _draw(d: ParamDef, gen: torch.Generator, device) -> torch.Tensor:
@@ -72,7 +101,7 @@ def init_params_(model: nn.Module, gen: torch.Generator) -> nn.Module:
     for mod in model.modules():
         if isinstance(mod, DefModule):
             for name, d in mod.defs.items():
-                p = getattr(mod, name)
+                p = mod.master(name)
                 p.copy_(_draw(d, gen, p.device))
     return model
 
@@ -109,3 +138,29 @@ def gelu_tanh(x: torch.Tensor) -> torch.Tensor:
 
 def activation(name: str) -> Callable[[torch.Tensor], torch.Tensor]:
     return {"silu": F.silu, "gelu": gelu_tanh, "relu": F.relu}[name]
+
+
+def recompute(fn, *args):
+    """``fn(*args)``; when a gradient is being taken, as a recompute region
+    (a non-reentrant ``torch.utils.checkpoint``): only the inputs are held and
+    ``fn`` runs again in the backward.  For the elementwise work the reference
+    leaves unnamed inside its layer checkpoints (norms, gates, the GLU
+    product), which its residency policies never save."""
+    if torch.is_grad_enabled() and any(isinstance(a, torch.Tensor) and a.requires_grad
+                                       for a in args):
+        from torch.utils.checkpoint import checkpoint
+
+        return checkpoint(fn, *args, use_reentrant=False, preserve_rng_state=False)
+    return fn(*args)
+
+
+def tag(x: torch.Tensor, name: str) -> torch.Tensor:
+    """Name ``x`` as activation class ``name`` (``plan.ACT_CLASSES``), as the
+    reference's ``checkpoint_name`` does: the residency plan of the running
+    layer, if any, counts it (:mod:`.remat`).  Returns ``x``."""
+    from ..kernels import replay
+
+    plan = replay.current()
+    if plan is not None:
+        plan.seen[name] += 1
+    return x

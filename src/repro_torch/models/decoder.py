@@ -12,19 +12,28 @@ list with one dict per layer: {"k", "v"} for attention, a ring of
 ``min(max_len, window)`` slots for "attn_local" and a linear cache of
 ``max_len`` slots for "attn"; {"h" (fp32), "conv"} for a recurrent or SSM
 layer.
+
+Training (:func:`forward` with gradients on a model of fp32 masters,
+``Decoder(cfg, master=True)``) runs the layers under a residency plan
+(:mod:`.remat`): recompute regions per layer nested in regions per pattern
+period or scan group, as the reference's nested ``jax.checkpoint``, unless
+the plan keeps every class.  :func:`cross_entropy_loss` is the reference's
+(padded vocabulary masked, ``z_loss``).  Training runs the rec, attn_local
+and attn kinds; the SSM kind waits for K4's backward (ROADMAP A8).
 """
 from __future__ import annotations
 
 import math
 
 import torch
+import torch.utils.checkpoint as torch_checkpoint
 from torch import nn
 
 from .._device import resolve_device
 from ..configs.base import ModelConfig
-from . import blocks
+from . import blocks, remat
 from .attention import attention, attn_defs, decode_attention, kv_cache_defs
-from .common import DefModule, ParamDef, rms_norm
+from .common import DefModule, ParamDef, recompute, rms_norm, tag
 
 __all__ = [
     "KINDS",
@@ -36,6 +45,10 @@ __all__ = [
     "decode_step",
     "cache_defs",
     "init_cache",
+    "cross_entropy_loss",
+    "default_scan_group",
+    "kernel_forwards",
+    "layer_replays",
 ]
 
 KINDS = ("rec", "attn_local", "ssm", "attn")
@@ -53,8 +66,9 @@ def has_mlp(cfg: ModelConfig, kind: str) -> bool:
     return cfg.d_ff > 0 and kind != "ssm"
 
 
-def check_supported(cfg: ModelConfig) -> None:
-    """Raise for what the port's decoder does not run yet."""
+def check_supported(cfg: ModelConfig, *, training: bool = False) -> None:
+    """Raise for what the port's decoder does not run yet (``training``: for
+    training, which also refuses the SSM kind)."""
     missing = [k for k in sorted(set(cfg.kinds)) if k not in KINDS]
     if missing:
         raise NotImplementedError(f"{cfg.arch_id}: layer kinds {missing} are not ported "
@@ -70,6 +84,10 @@ def check_supported(cfg: ModelConfig) -> None:
         raise NotImplementedError(f"{cfg.arch_id}: not ported: {', '.join(bad)}")
     if cfg.dtype not in _DTYPES:
         raise NotImplementedError(f"{cfg.arch_id}: working type {cfg.dtype!r} not ported")
+    if training and "ssm" in cfg.kinds:
+        raise NotImplementedError(
+            f"{cfg.arch_id}: training the SSM kind needs K4's backward, which is not "
+            "ported yet (ROADMAP A8)")
 
 
 def _norm(cfg: ModelConfig) -> ParamDef:
@@ -80,41 +98,47 @@ class Layer(DefModule):
     """One layer: ln1 -> mixer (rec, attn or ssm) -> residual, then, where the
     layer has one, ln2 -> mlp -> residual."""
 
-    def __init__(self, cfg: ModelConfig, kind: str, dtype, device):
+    def __init__(self, cfg: ModelConfig, kind: str, dtype, device, master: bool = False):
         mlp = has_mlp(cfg, kind)
         norms = {"ln1_w": _norm(cfg), **({"ln2_w": _norm(cfg)} if mlp else {})}
-        super().__init__(norms, dtype, device)
+        super().__init__(norms, dtype, device, master)
         self.kind = kind
         if kind == "rec":
-            self.rec = DefModule(blocks.rec_defs(cfg), dtype, device)
+            self.rec = DefModule(blocks.rec_defs(cfg), dtype, device, master)
         elif kind == "ssm":
-            self.ssm = DefModule(blocks.ssm_defs(cfg), dtype, device)
+            self.ssm = DefModule(blocks.ssm_defs(cfg), dtype, device, master)
         else:
-            self.attn = DefModule(attn_defs(cfg), dtype, device)
-        self.mlp = DefModule(blocks.mlp_defs(cfg), dtype, device) if mlp else None
+            self.attn = DefModule(attn_defs(cfg), dtype, device, master)
+        self.mlp = DefModule(blocks.mlp_defs(cfg), dtype, device, master) if mlp else None
 
 
 class Decoder(DefModule):
     """Embedding, the layers, the final norm, and the output projection: the
-    embedding's transpose where the config ties them, else ``lm_head``."""
+    embedding's transpose where the config ties them, else ``lm_head``.
+    ``master=True``: fp32 master parameters that require gradients, cast to
+    the working type at use (training)."""
 
-    def __init__(self, cfg: ModelConfig, device: str | torch.device = "cuda"):
-        check_supported(cfg)
+    def __init__(self, cfg: ModelConfig, device: str | torch.device = "cuda",
+                 master: bool = False):
+        check_supported(cfg, training=master)
         dtype = working_dtype(cfg)
         device = resolve_device(device)
         defs = {"tok_emb": ParamDef((cfg.padded_vocab, cfg.d_model), scale=1.0)}
         if not cfg.tie_embeddings:
             defs["lm_head"] = ParamDef((cfg.d_model, cfg.padded_vocab))
-        super().__init__({**defs, "ln_f_w": _norm(cfg)}, dtype, device)
+        super().__init__({**defs, "ln_f_w": _norm(cfg)}, dtype, device, master)
         self.cfg = cfg
-        self.layers = nn.ModuleList(Layer(cfg, kind, dtype, device) for kind in cfg.kinds)
+        self.layers = nn.ModuleList(Layer(cfg, kind, dtype, device, master)
+                                    for kind in cfg.kinds)
 
     def forward(self, tokens: torch.Tensor) -> torch.Tensor:
         return forward(self.cfg, self, tokens)
 
 
 def _embed(cfg: ModelConfig, model: Decoder, tokens: torch.Tensor) -> torch.Tensor:
-    x = model.tok_emb[tokens]
+    # gathered from the stored table, then cast (the reference's take-then-cast:
+    # a training model scatters the gradient into its fp32 master)
+    x = model.master("tok_emb")[tokens].to(working_dtype(cfg))
     if cfg.emb_scale:
         # the scale is rounded to the working type first, as the reference does
         # (50.5 in bf16 for d 2560), on the host: no copy to the card, no wait
@@ -123,7 +147,7 @@ def _embed(cfg: ModelConfig, model: Decoder, tokens: torch.Tensor) -> torch.Tens
 
 
 def _logits(cfg: ModelConfig, model: Decoder, x: torch.Tensor) -> torch.Tensor:
-    x = rms_norm(x, model.ln_f_w)
+    x = recompute(rms_norm, x, model.ln_f_w)
     if cfg.tie_embeddings:
         return torch.einsum("bse,ve->bsv", x, model.tok_emb)
     return torch.einsum("bse,ev->bsv", x, model.lm_head)
@@ -157,7 +181,7 @@ def _window(cfg: ModelConfig, kind: str) -> int | None:
 
 def _layer(cfg: ModelConfig, layer: Layer, x: torch.Tensor, positions, max_len):
     """One layer over the whole sequence; with ``max_len`` also its cache entry."""
-    h = rms_norm(x, layer.ln1_w)
+    h = recompute(rms_norm, x, layer.ln1_w)
     entry = None
     if layer.kind in _ATTN:
         win = _window(cfg, layer.kind)
@@ -174,19 +198,176 @@ def _layer(cfg: ModelConfig, layer: Layer, x: torch.Tensor, positions, max_len):
             state = _zeros(_STATE_DEFS[layer.kind](cfg, x.shape[0]), x.dtype, x.device)
         block = blocks.rec_block if layer.kind == "rec" else blocks.ssm_block
         out, entry = block(cfg, getattr(layer, layer.kind), h, state)
-    x = x + out
+    x = tag(x + out, "resid_mid")
     if layer.mlp is not None:
-        x = x + blocks.mlp(cfg, layer.mlp, rms_norm(x, layer.ln2_w))
-    return x, entry
+        x = x + blocks.mlp(cfg, layer.mlp, recompute(rms_norm, x, layer.ln2_w))
+    return tag(x, "resid_out"), entry
 
 
-def forward(cfg: ModelConfig, model: Decoder, tokens: torch.Tensor) -> torch.Tensor:
-    """Token logits (B, S, padded_vocab)."""
+def default_scan_group(cfg: ModelConfig) -> int:
+    """sqrt(L)-ish remat group size that divides n_layers (the reference's)."""
+    L = cfg.n_layers
+    for g in range(max(1, int(math.sqrt(L))), 0, -1):
+        if L % g == 0:
+            return g
+    return 1
+
+
+def _groups(cfg: ModelConfig, scan_group: int | None) -> list[list[int]]:
+    """The layers' outer recompute regions, as the reference nests its
+    checkpoints: pattern periods then single tail layers (``period_scan``),
+    groups of ``scan_group`` layers (a uniform scanned stack), else single
+    layers."""
+    if cfg.period_scan:
+        per = len(cfg.layer_pattern)
+        periods = [list(range(p * per, (p + 1) * per)) for p in range(cfg.n_periods)]
+        return periods + [[i] for i in range(cfg.n_periods * per, cfg.n_layers)]
+    if cfg.uniform and cfg.scan_layers:
+        g = scan_group or default_scan_group(cfg)
+        if cfg.n_layers % g:
+            raise ValueError(f"scan_group {g} does not divide {cfg.n_layers} layers")
+        return [list(range(i, i + g)) for i in range(0, cfg.n_layers, g)]
+    return [[i] for i in range(cfg.n_layers)]
+
+
+def layer_replays(cfg: ModelConfig, scan_group: int | None = None,
+                  remat_policy=None) -> list[int]:
+    """How many times each layer's forward runs again in the backward of a
+    training step under ``remat_policy`` (see :mod:`.remat`): none where the
+    plan recomputes nothing, two for a layer in a period or group of more
+    than one layer (the group's replay, then its own), else one."""
+    plan = remat_policy if remat_policy is not None else remat.Residency()
+    out = [0] * cfg.n_layers
+    if cfg.remat == "none" or plan.recomputes_nothing(cfg):
+        return out
+    for idx in _groups(cfg, scan_group):
+        for i in idx:
+            out[i] = 2 if len(idx) > 1 else 1
+    return out
+
+
+def kernel_forwards(cfg: ModelConfig, scan_group: int | None = None,
+                    remat_policy=None) -> dict:
+    """Kernel outputs computed in one training step, by class: a layer's
+    kernel runs once, plus once per replay unless the plan holds its output
+    class (kept or offloaded)."""
+    plan = remat_policy if remat_policy is not None else remat.Residency()
+    held = set(plan.save_names) | set(plan.offload_names)
+    out = {"attn_out": 0, "rec_out": 0, "ssm_out": 0}
+    for kind, n in zip(cfg.kinds, layer_replays(cfg, scan_group, remat_policy)):
+        name = {"attn": "attn_out", "attn_local": "attn_out", "rec": "rec_out",
+                "ssm": "ssm_out"}[kind]
+        out[name] += 1 + (0 if name in held else n)
+    return out
+
+
+def _region(plan: remat.Residency, fn, x: torch.Tensor) -> torch.Tensor:
+    return torch_checkpoint.checkpoint(fn, x, use_reentrant=False, context_fn=plan.contexts,
+                                       preserve_rng_state=False)
+
+
+def _train_layers(cfg: ModelConfig, model: Decoder, x: torch.Tensor, positions,
+                  scan_group: int | None, plan: remat.Residency) -> torch.Tensor:
+    """The layers of a training forward under ``plan`` (see :mod:`.remat`)."""
+    def one(i):
+        def run(xc):
+            with plan.layer(i):
+                return _layer(cfg, model.layers[i], xc, positions, None)[0]
+        return run
+
+    if plan.recomputes_nothing(cfg):
+        for i in range(cfg.n_layers):
+            x = one(i)(x)
+        return x
+
+    def group(idx):
+        def run(xc):
+            for i in idx:
+                xc = _region(plan, one(i), xc)
+            return xc
+        return run
+
+    with torch_checkpoint.set_checkpoint_early_stop(False):
+        for idx in _groups(cfg, scan_group):
+            x = _region(plan, group(idx) if len(idx) > 1 else one(idx[0]), x)
+    return x
+
+
+def forward(cfg: ModelConfig, model: Decoder, tokens: torch.Tensor, *,
+            scan_group: int | None = None, remat_policy=None) -> torch.Tensor:
+    """Token logits (B, S, padded_vocab).  With gradients enabled and a model
+    of fp32 masters (training) the layers run under the residency plan
+    ``remat_policy`` (a :class:`~.remat.Residency`; None saves nothing beyond
+    the period and layer carries, unless ``cfg.remat == "none"``), in regions
+    of ``scan_group`` layers for a uniform stack."""
     x = _embed(cfg, model, tokens)
     positions = torch.arange(tokens.shape[1], device=tokens.device)
-    for layer in model.layers:
-        x, _ = _layer(cfg, layer, x, positions, None)
+    training = torch.is_grad_enabled() and model.master("tok_emb").requires_grad
+    if training and cfg.remat != "none":
+        plan = remat_policy if remat_policy is not None else remat.Residency()
+        x = _train_layers(cfg, model, x, positions, scan_group, plan)
+    else:
+        for layer in model.layers:
+            x, _ = _layer(cfg, layer, x, positions, None)
     return _logits(cfg, model, x)
+
+
+class _CrossEntropy(torch.autograd.Function):
+    """The reference's loss over (rows, padded_vocab) logits, a block of rows
+    at a time in fp32: the forward keeps only the logits (which the caller
+    holds anyway) and each row's log-partition; the backward recomputes the
+    softmax a block at a time and writes the gradient in the logits' type."""
+
+    ROWS = 512
+
+    @staticmethod
+    def forward(ctx, logits, labels, vocab_size: int, z_loss: float):
+        n, v = logits.shape
+        dead = torch.arange(v, device=logits.device) >= vocab_size
+        mask = (labels >= 0).to(torch.float32)
+        gold_ix = labels.clamp_min(0)[:, None]
+        logz = torch.empty(n, dtype=torch.float32, device=logits.device)
+        nll = torch.empty(n, dtype=torch.float32, device=logits.device)
+        for r0 in range(0, n, _CrossEntropy.ROWS):
+            lf = logits[r0:r0 + _CrossEntropy.ROWS].float().masked_fill_(dead, -1e30)
+            lz = torch.logsumexp(lf, dim=-1)
+            row = lz - torch.gather(lf, 1, gold_ix[r0:r0 + _CrossEntropy.ROWS])[:, 0]
+            if z_loss:
+                row = row + z_loss * torch.square(lz)
+            logz[r0:r0 + len(lz)], nll[r0:r0 + len(lz)] = lz, row
+        denom = torch.clamp_min(mask.sum(), 1.0)
+        ctx.save_for_backward(logits, labels, logz, mask, denom)
+        ctx.vocab_size, ctx.z_loss = vocab_size, z_loss
+        return (nll * mask).sum() / denom
+
+    @staticmethod
+    def backward(ctx, g):
+        logits, labels, logz, mask, denom = ctx.saved_tensors
+        n, v = logits.shape
+        dead = torch.arange(v, device=logits.device) >= ctx.vocab_size
+        scale = g * mask / denom                                        # (n,)
+        grad = torch.empty_like(logits)
+        for r0 in range(0, n, _CrossEntropy.ROWS):
+            r1 = min(n, r0 + _CrossEntropy.ROWS)
+            # softmax of the block, in place in one fp32 buffer
+            p = logits[r0:r1].float().masked_fill_(dead, -1e30)
+            p.sub_(logz[r0:r1, None]).exp_()
+            if ctx.z_loss:
+                p.mul_(1.0 + 2.0 * ctx.z_loss * logz[r0:r1, None])
+            p.scatter_add_(1, labels[r0:r1].clamp_min(0)[:, None],
+                           -torch.ones((r1 - r0, 1), device=p.device))
+            grad[r0:r1] = p.mul_(scale[r0:r1, None])
+        return grad, None, None, None
+
+
+def cross_entropy_loss(cfg: ModelConfig, logits: torch.Tensor, labels: torch.Tensor,
+                       z_loss: float = 1e-4) -> torch.Tensor:
+    """Mean next-token cross-entropy over the labels that are not -1, with
+    the padded vocabulary masked out of the softmax and ``z_loss * logz^2``
+    added, as the reference's ``cross_entropy_loss``.  logits (B, S, V)."""
+    v = logits.shape[-1]
+    return _CrossEntropy.apply(logits.reshape(-1, v), labels.reshape(-1).long(),
+                               cfg.vocab_size, float(z_loss))
 
 
 def prefill(cfg: ModelConfig, model: Decoder, tokens: torch.Tensor, *,

@@ -378,7 +378,12 @@ def test_operands_have_the_asked_shapes_and_types(smoke):
     ("nvjet_tst_128x256_64x4_1x2_h_bz_coopA_NTT", "matmul"),
     ("void at::native::vectorized_elementwise_kernel<4, ...>", "elementwise"),
     ("void (anonymous namespace)::sweep_kernel<double, true>(int const*, ...)", "K1"),
-    ("(anonymous namespace)::seq_cumsum_kernel(double const*, double*, int)", "seq_cumsum")])
+    ("(anonymous namespace)::seq_cumsum_kernel(double const*, double*, int)", "seq_cumsum"),
+    ("void (anonymous namespace)::flash_bwd_dkdv_kernel<__nv_bfloat16, 256>(Params)",
+     "K2 bwd"),
+    ("void (anonymous namespace)::flash_bwd_reduce_kernel<float>(Params)", "K2 bwd"),
+    ("void (anonymous namespace)::rglru_scan_bwd_kernel<true>(float const*, ...)", "K3 bwd"),
+    ("void at::native::reduce_kernel<512, 1, ...>", "elementwise")])
 def test_profile_classes_name_the_kernels(smoke, name, cls):
     assert smoke._kernel_class(name).startswith(cls)
 
@@ -538,11 +543,12 @@ def smoke_report(smoke):
 def test_kernels_line_lists_every_kernel_with_its_keys(smoke):
     names = [k[0] for k in smoke.KERNELS]
     assert names == ["schedule_dp", "flash_attention", "rglru_scan", "ssd_chunked",
-                     "seq_cumsum"]
+                     "flash_attention_bwd", "rglru_scan_bwd", "seq_cumsum"]
     times = {n: {"ms": 1.0 + i, "plain_ms": 2.0, "bound_ms": 0.5, "bound_by": "bytes",
                  "library_ms": None} for i, n in enumerate(names)}
     entries = smoke.kernel_entries(
-        launches=dict(zip(names, (30, 8, 576, 1536, 1000))), errs=dict.fromkeys(names, 0.0),
+        launches=dict(zip(names, (30, 8, 576, 1536, 32, 72, 1000))),
+        errs=dict.fromkeys(names, 0.0),
         times=times, extras={"ssd_chunked": {"decode_step_ms": 0.01}})
     assert [e["name"] for e in entries] == names
     keys = {"name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
@@ -553,10 +559,20 @@ def test_kernels_line_lists_every_kernel_with_its_keys(smoke):
         path, line = e["replaces"].split(":")
         src = (ROOT / path).read_text().splitlines()
         assert src[int(line) - 1].startswith("def "), e["replaces"]
-        # a helper has no TPU kernel: it names the reference function it
-        # replaces, which reaches no pallas_call
-        assert ("pallas_call" in (ROOT / path).read_text()) != e.get("helper", False)
-    helper = entries[4]
+        # a helper and a backward have no TPU kernel: each names the
+        # reference function it replaces, which reaches no pallas_call
+        no_tpu = e.get("helper", False) or "backward_of" in e
+        assert ("pallas_call" in (ROOT / path).read_text()) != no_tpu
+        assert (e["tpu_kernel"] is None) if no_tpu else "tpu_kernel" not in e
+    bwd = {e["name"]: e for e in entries if "backward_of" in e}
+    assert bwd["flash_attention_bwd"]["backward_of"] == "flash_attention"
+    assert bwd["flash_attention_bwd"]["replaces"] == "src/repro/kernels/flash_xla.py:76"
+    assert "def _flash_bwd" in (ROOT / "src/repro/kernels/flash_xla.py").read_text(
+    ).splitlines()[75]
+    assert bwd["rglru_scan_bwd"]["replaces"] == "src/repro/kernels/rglru_xla.py:56"
+    assert "def _scan_bwd" in (ROOT / "src/repro/kernels/rglru_xla.py").read_text(
+    ).splitlines()[55]
+    helper = entries[6]
     assert helper["replaces"] == "src/repro/core/device_search.py:199"
     assert helper["tpu_kernel"] is None and "_seq_cumsum" in (ROOT / "src/repro/core/"
                                                               "device_search.py").read_text(
@@ -938,3 +954,79 @@ def test_check_sweep_refuses_what_the_phase_must_not_pass(smoke):
             smoke.check_sweep(rep, types.SimpleNamespace(rows=[dict(row)]))
     with pytest.raises(AssertionError, match="starts at"):
         smoke.check_sweep(ok, types.SimpleNamespace(rows=[{**row, "initial_makespan": 11.0}]))
+
+
+def test_flash_bwd_bound_at_the_training_shape(smoke):
+    """K2 bwd: 10 D operations per visible pair (the scores again, dP, dV,
+    dK, dQ); q, k, v, out and dO read and dq, dk, dv written once, lse read."""
+    meta = torch.device("meta")
+    q = torch.empty((1, 4096, 10, 256), dtype=torch.bfloat16, device=meta)
+    k = torch.empty((1, 4096, 1, 256), dtype=torch.bfloat16, device=meta)
+    bound = smoke.flash_bwd_bound(q, k, k, causal=True, window=2048, q_offset=0)
+    assert bound["pairs"] == 6_292_480 * 10
+    assert bound["operations"] == 10 * 256 * 6_292_480 * 10          # 161 GFLOP
+    assert bound["bytes"] == 2 * (4 * q.numel() + 4 * k.numel()) + 4 * 4096 * 10
+    assert bound["bound_by"] == "operations"
+    assert bound["bound_ms"] == pytest.approx(0.1629, rel=1e-3)
+
+
+def test_rglru_bwd_bound_at_the_training_shape(smoke):
+    meta = torch.device("meta")
+    a = torch.empty((1, 4096, 2560), dtype=torch.float32, device=meta)
+    bound = smoke.rglru_bwd_bound(a, None, None)
+    assert bound["bytes"] == 5 * a.numel() * 4 + 2560 * 4   # a, y, dy in; dx, da out; dh0
+    assert bound["operations"] == 3 * a.numel()
+    assert bound["bound_by"] == "bytes"
+    assert bound["bound_ms"] == pytest.approx(0.0626, rel=1e-3)
+    with_states = smoke.rglru_bwd_bound(a, a[:, 0], a[:, 0])
+    assert with_states["bytes"] == bound["bytes"] + 2 * 2560 * 4
+
+
+def test_expected_train_launches_follow_the_plan(smoke):
+    """recurrentgemma-2b: 8 periods of (rec, rec, attn_local) and 2 tail rec
+    layers.  The H100 plan keeps every class (no region): 8 / 8 / 18 / 18 a
+    step.  A plan that recomputes: a layer in a period replays twice, a tail
+    layer once, unless its kernel class is held."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.remat import Residency, classes_of
+
+    cfg = get_config("recurrentgemma-2b")
+    keep_all = Residency(tuple(classes_of(cfg)))
+    assert smoke.expected_train_launches(cfg, 1, keep_all) == {
+        "flash_attention": 8, "flash_attention_bwd": 8, "rglru_scan": 18,
+        "rglru_scan_bwd": 18, "ssd_chunked": 0}
+    got = smoke.expected_train_launches(cfg, 1, Residency(("rec_out",)))
+    assert got["flash_attention"] == 8 * 3 and got["rglru_scan"] == 18
+    got = smoke.expected_train_launches(cfg, 1, None)
+    assert got["flash_attention"] == 8 * 3 and got["rglru_scan"] == 16 * 3 + 2 * 2
+
+
+def test_train_memory_reckoning_of_recurrentgemma(smoke):
+    from repro_torch.configs import get_config
+
+    cfg = get_config("recurrentgemma-2b")
+    r = smoke.train_memory_reckoning(cfg, None)
+    assert r["state_bytes"] == 16 * cfg.param_count()                # 42.5 GB
+    assert r["weight_casts_bytes"] == 2 * cfg.param_count()
+    assert r["logits_bytes"] == 4 * 4096 * cfg.padded_vocab + 8 * 1024 * cfg.padded_vocab
+    assert 57e9 < r["total_bytes"] < 59e9
+
+
+def test_plain_training_swaps_the_ops_and_restores_them(smoke):
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import rglru as rg
+
+    orig = ops.flash_attention, ops.rglru_scan
+    with smoke.plain_training():
+        assert ops.flash_attention is fa.flash_attention_torch_grad
+        assert ops.rglru_scan is rg.rglru_scan_torch_grad
+    with smoke.plain_training(yardstick=True):
+        q = torch.randn(1, 70, 2, 16, requires_grad=True)
+        k = torch.randn(1, 70, 1, 16, requires_grad=True)
+        out = ops.flash_attention(q, k, k, causal=True, window=30, name="attn_out")
+        want = fa.flash_attention_torch(q, k, k, causal=True, window=30)
+        assert float((out - want).abs().max()) < 1e-5
+        out.sum().backward()
+        assert q.grad is not None and k.grad is not None
+    assert (ops.flash_attention, ops.rglru_scan) == orig

@@ -6,6 +6,8 @@ float32 on the CUDA cores), the RG-LRU scan kernel (bit for bit) and the
 Mamba-2 SSD kernel (1e-4 relative in float32; y 2e-2 relative, h_last 1e-4
 with bfloat16 x/B/C, a prefill on the tensor cores) against their plain
 versions, which kernel each input takes (the entry point its wrapper resolves), and
+K2's backward (1e-5 / 2e-2 of max |grad|) and K3's (bit for bit) against their
+plain versions, a smoke-size training step on the card against the CPU,
 smoke-size recurrentgemma-2b, mamba2-780m and qwen2.5-14b models served on
 the card against the CPU (same ids, logits within 1e-4), and the
 device-resident search (its round captured as a CUDA graph) against the same
@@ -468,12 +470,15 @@ def test_rglru_kernel_is_bit_equal_to_plain_version(cuda_device, b, t, d, with_h
 
 
 def test_rglru_library_holds_the_pipelined_and_the_step_kernels(cuda_device):
-    """One entry point, three kernels: the pipelined scan with 16-byte and
-    with element copies, and the single step."""
+    """The forward entry point's three kernels: the pipelined scan with
+    16-byte and with element copies, and the single step; and the backward
+    entry point's reverse scan, with either copy."""
     kernels = _entry_kernels("rglru")
     assert sum("rglru_scan_kernelILb1E" in k for k in kernels) == 1
     assert sum("rglru_scan_kernelILb0E" in k for k in kernels) == 1
-    assert sum("rglru_scan_step_kernel" in k for k in kernels) == 1 and len(kernels) == 3
+    assert sum("rglru_scan_step_kernel" in k for k in kernels) == 1
+    assert sum("rglru_scan_bwd_kernelILb1E" in k for k in kernels) == 1
+    assert sum("rglru_scan_bwd_kernelILb0E" in k for k in kernels) == 1 and len(kernels) == 5
 
 
 def test_smoke_model_served_on_the_card_matches_the_cpu(cuda_device):
@@ -1043,3 +1048,79 @@ def test_two_threads_on_one_launch_shape_on_the_card(cuda_device):
     assert not errors, errors
     assert got == want
     assert ds.launch_cache_info()["uncached"] == uncached + 1
+
+
+# ---- the training path: K2's and K3's backwards -------------------------------
+FLASH_BWD_CASES = [(2, 512, 512, 4, 2, 32, True, None, 0), (2, 512, 512, 4, 2, 32, True, 128, 0),
+                   (2, 77, 90, 6, 3, 40, False, None, 0), (1, 96, 96, 8, 1, 256, True, None, -5)]
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5), (torch.bfloat16, 2e-2)])
+@pytest.mark.parametrize("case", FLASH_BWD_CASES)
+def test_flash_bwd_kernel_matches_plain_version(cuda_device, case, dtype, tol):
+    """dq, dk, dv of the backward kernel against the plain backward on the same
+    saved (out, lse), max |diff| / max |grad|; no-key rows get zero dq."""
+    from repro_torch.kernels import flash_attention as fa
+
+    b, sq, skv, h, kvh, d, causal, window, qoff = case
+    g = torch.Generator(device=cuda_device).manual_seed(sq + d)
+    q, k, v, do = (torch.randn(s, generator=g, device=cuda_device).to(dtype)
+                   for s in ((b, sq, h, d), (b, skv, kvh, d), (b, skv, kvh, d), (b, sq, h, d)))
+    kw = dict(causal=causal, window=window, q_offset=qoff)
+    out, lse = fa.flash_attention(q, k, v, return_lse=True, **kw)
+    before = fa.flash_attention_bwd.launches
+    got = fa.flash_attention_bwd(q, k, v, out, lse, do, **kw)
+    torch.cuda.synchronize()
+    assert fa.flash_attention_bwd.launches == before + 1
+    want = fa.flash_attention_bwd_torch(q, k, v, out, lse, do, **kw)
+    for a, w in zip(got, want):
+        assert a.dtype == w.dtype
+        assert float((a.float() - w.float()).abs().max() / w.float().abs().max()) < tol
+    if qoff < 0:
+        assert bool((got[0][:, :-qoff] == 0).all())
+
+
+@pytest.mark.parametrize("b,t,d,with_h0", [(2, 512, 64, True), (3, 1000, 200, False),
+                                           (2, 33, 31, True), (2, 1, 96, True)])
+def test_rglru_bwd_kernel_is_bit_equal_to_plain_version(cuda_device, b, t, d, with_h0):
+    from repro_torch.kernels import rglru as rg
+
+    g = torch.Generator(device=cuda_device).manual_seed(t + d)
+    a = torch.rand((b, t, d), generator=g, device=cuda_device)
+    xb = torch.randn((b, t, d), generator=g, device=cuda_device)
+    h0 = torch.randn((b, d), generator=g, device=cuda_device) if with_h0 else None
+    y = rg.scan_torch(a, xb, h0)
+    dy = torch.randn((b, t, d), generator=g, device=cuda_device)
+    for dh in (None, torch.randn((b, d), generator=g, device=cuda_device)):
+        got = rg.rglru_scan_bwd(a, y, h0, dy, dh)
+        want = rg.scan_bwd_torch(a, y, h0, dy, dh)
+        assert all(torch.equal(x, w) for x, w in zip(got, want))
+
+
+def test_smoke_training_step_on_the_card_matches_the_cpu(cuda_device):
+    """recurrentgemma-2b's smoke config (float32) trained one step on the card
+    and on the CPU from the same parameters and batch: the loss within 1e-4
+    relative and every gradient within 1e-3 of its max |grad|."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import rglru as rg
+    from repro_torch.models import Decoder, arch_forward, cross_entropy_loss, init_params_
+    from repro_torch.runtime import SyntheticLM
+
+    cfg = get_smoke_config("recurrentgemma-2b")
+    cpu = init_params_(Decoder(cfg, device="cpu", master=True), torch.Generator().manual_seed(0))
+    gpu = Decoder(cfg, device=cuda_device, master=True)
+    gpu.load_state_dict(cpu.state_dict())
+    batch = {k: torch.as_tensor(v).long()
+             for k, v in SyntheticLM(cfg, batch=2, seq_len=128, seed=0).batch_at(0).items()}
+    out = []
+    for model, dev in ((cpu, "cpu"), (gpu, cuda_device)):
+        bt = {k: v.to(dev) for k, v in batch.items()}
+        loss = cross_entropy_loss(cfg, arch_forward(cfg, model, bt), bt["labels"])
+        loss.backward()
+        out.append((float(loss.detach()), {k: p.grad.cpu() for k, p in model.named_parameters()}))
+    assert fa.flash_attention_bwd.launches > 0 and rg.rglru_scan_bwd.launches > 0
+    (lc, gc), (lg, gg) = out
+    assert abs(lg - lc) / abs(lc) < 1e-4
+    for k in gc:
+        assert float((gg[k] - gc[k]).abs().max() / gc[k].abs().max().clamp_min(1e-30)) < 1e-3, k

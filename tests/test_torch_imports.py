@@ -113,6 +113,49 @@ def test_checkpoint_and_the_qwen_configs_leave_jax_and_repro_unloaded():
     assert "LEAKED=\n" in out.stdout + "\n", out.stdout
 
 
+_PROBE_TRAIN = """
+import sys, tempfile
+import repro_torch.plan
+import repro_torch.plan.planner
+import repro_torch.runtime
+import repro_torch.runtime.checkpoint
+import repro_torch.runtime.elastic
+import repro_torch.runtime.optimizer
+import repro_torch.launch.train
+import repro_torch.models.remat
+import repro_torch.kernels.replay
+import repro_torch.configs.llama3_405b
+import repro_torch.configs.mixtral_8x7b
+import repro_torch.configs.granite_moe_1b_a400m
+import repro_torch.configs.whisper_medium
+import repro_torch.configs.internvl2_26b
+from repro_torch.instances import generate
+assert generate("residency", 0).n_tasks > 0 and generate("pipeline", 0).n_tasks > 0
+state = repro_torch.launch.train.train_main(
+    ["--arch", "recurrentgemma-2b", "--smoke", "--device", "cpu", "--steps", "3",
+     "--batch", "2", "--seq", "32", "--ckpt-every", "2", "--fail-at", "3",
+     "--ckpt-dir", tempfile.mkdtemp()])
+assert state.step == 3
+bad = sorted(m for m in sys.modules
+             if m == "jax" or m.startswith("jax.") or m == "jaxlib"
+             or m == "repro" or m.startswith("repro."))
+print("LEAKED=" + ",".join(bad))
+"""
+
+
+def test_training_and_the_planner_leave_jax_and_repro_unloaded():
+    """This slice's modules (the planner, the training runtime, the trainer
+    launcher, the residency lowering and the five configs now held as data),
+    imported and run: a smoke training run that plans, checkpoints and
+    recovers from an injected failure."""
+    out = subprocess.run(
+        [sys.executable, "-c", _PROBE_TRAIN], capture_output=True, text=True,
+        env={"PYTHONPATH": str(ROOT / "src"), "PATH": "/usr/bin:/bin"},
+        timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert "LEAKED=\n" in out.stdout + "\n", out.stdout
+
+
 _FORBIDDEN = re.compile(
     r"^\s*(import\s+jax\b|from\s+jax\b|import\s+repro\b(?!_)|from\s+repro\b(?!_)"
     r"|from\s+repro\.)"
