@@ -52,10 +52,12 @@ Phases, one JSON line each:
                  their plain versions, at the reference's test shapes, ragged
                  ones, T = 1 and the serving shapes (K2 also in bf16 at
                  qwen2.5-14b's and codeqwen1.5-7b's causal d-128 prefills);
-                 K2 bwd (dq, dk, dv: f32 1e-5, bf16 2e-2 of max |grad|; rows
-                 that see no key get zero dq) at the reference's gradient test
-                 shapes, ragged ones and the training shape, and K3 bwd (bit
-                 for bit, with and without a last-state gradient)
+                 K2 bwd (dq, dk, dv: f32 1e-5 on the CUDA cores, bf16 2e-2 of
+                 max |grad| on the tensor cores; rows that see no key get zero
+                 dq) at the reference's gradient test shapes, ragged ones and
+                 the training shape, where two bf16 calls must give
+                 bit-identical gradients, and K3 bwd (bit for bit, with and
+                 without a last-state gradient)
   main_path      the solve on the card, against the port's NumPy backend,
                  certified, with the host time of each phase of the search round
   device_path    ``tabu_device`` at the same configuration: without Algorithm 3
@@ -93,8 +95,10 @@ Phases, one JSON line each:
                  bound (K4's at the precision it computes in, and at the fp32
                  rate), for K2 PyTorch's scaled_dot_product_attention, and
                  the K3 and K4 decode steps beside their bounds; K2 bwd and
-                 K3 bwd at the training shape (K2 bwd beside the backward of
-                 scaled_dot_product_attention through autograd)
+                 K3 bwd at the training shape (K2 bwd, its four kernels with
+                 the dk/dv and dq passes on the tensor cores, beside the
+                 backward of scaled_dot_product_attention through autograd,
+                 with its achieved TFLOP/s on the design's 14 D a pair)
   solve_service  the solve service: warm-up (one WarmSpec per signature
                  class), the Poisson trace with no capture during traffic,
                  the K1 / seq_cumsum launches of the served run, one served
@@ -1755,6 +1759,11 @@ FLASH_BWD_SHAPES = (
     FLASH_TRAIN,
 )
 FLASH_BWD_TOL = {"float32": 1e-5, "bfloat16": 2e-2}
+# the kernels one bf16 call of K2's backward launches, in order
+# (csrc/flash_attention_bwd.cu; float32 takes flash_bwd_dkdv_kernel and
+# flash_bwd_dq_kernel on the CUDA cores in place of the two mma kernels)
+FLASH_BWD_KERNELS = ("flash_bwd_delta_kernel", "flash_bwd_dkdv_mma_kernel",
+                     "flash_bwd_reduce_kernel", "flash_bwd_dq_mma_kernel")
 # the step-1 gate of the full-width train against the same step on the plain
 # versions (written before the first run): the loss within TRAIN_LOSS_LIMIT
 # relative, every gradient tensor within TRAIN_GRAD_LIMIT of its max |grad|;
@@ -2055,6 +2064,7 @@ def phase_model_kernels(device):
         ssd_shapes=[list(s) for s in SSD_SHAPES],
         flash_bwd_checks=bwd["checks"], flash_bwd_max_rel_err=bwd["rel"],
         flash_bwd_max_abs_err=bwd["abs"], flash_bwd_no_key_rows_zero=bwd["no_key_rows_zero"],
+        flash_bwd_bit_identical_repeat=bwd["bit_identical_repeat"],
         flash_bwd_tolerance={**FLASH_BWD_TOL, "measure": "max |diff| / max |grad| per "
                                                          "gradient (dq, dk, dv)"},
         flash_bwd_shapes=[list(s) for s in FLASH_BWD_SHAPES],
@@ -2071,7 +2081,9 @@ def phase_model_kernels(device):
 def flash_bwd_checks(device) -> dict:
     """K2's backward against its plain version on the same (q, k, v, out,
     lse, dO): both input types at every ``FLASH_BWD_SHAPES`` shape.  Rows
-    that see no key must get zero dq."""
+    that see no key must get zero dq.  At the training shape in bf16 a second
+    call on the same inputs must give bit-identical dq, dk and dv (the kernels
+    sum in a fixed order, with no atomics)."""
     import torch
 
     from repro_torch.kernels import flash_attention as fa
@@ -2107,8 +2119,16 @@ def flash_bwd_checks(device) -> dict:
                 if not no_key:
                     raise AssertionError("a row that sees no key got a nonzero dq")
             checks += 1
+            if shape == FLASH_TRAIN and dtype == torch.bfloat16:
+                again = fa.flash_attention_bwd(q, k, v, out, lse, do, **kw)
+                torch.cuda.synchronize()
+                if not all(torch.equal(a, b) for a, b in zip(got, again)):
+                    raise AssertionError("two calls of flash_attention_bwd on the same inputs "
+                                         "differ at the training shape")
+                del again
             del q, k, v, out, lse, do, got, want
-    return {"checks": checks, "rel": rel, "abs": err, "no_key_rows_zero": no_key}
+    return {"checks": checks, "rel": rel, "abs": err, "no_key_rows_zero": no_key,
+            "bit_identical_repeat": True}
 
 
 def rglru_bwd_checks(device) -> dict:
@@ -2320,7 +2340,7 @@ def rel_err(got, want) -> float:
 
 
 def _kernel_class(name: str) -> str:
-    if "flash_bwd_" in name:         # K2's backward: delta, dk/dv, reduce, dq
+    if "flash_bwd_" in name:         # K2's backward: delta, dk/dv (_mma_ in bf16), reduce, dq
         return "K2 bwd flash_attention_bwd"
     if "rglru_scan_bwd" in name:     # K3's backward: the reverse scan
         return "K3 bwd rglru_scan_bwd"
@@ -2622,9 +2642,12 @@ def phase_model_timing(device):
              "included), decode_step_device_ms the kernel's own time from "
              "torch.profiler, mean of 50; flash_attention_bwd and rglru_scan_bwd at the "
              "training shape: ms the median of 10 (20) event-timed wrapper calls, device_ms "
-             "the profiler's time of the call's kernels (K2 bwd: its four), plain_ms 3 calls "
+             "the profiler's time of the call's kernels (K2 bwd: delta, the tensor-core "
+             "dk/dv pass, the group sum, the tensor-core dq pass), plain_ms 3 calls "
              "of the plain backward, library_ms (K2 bwd) the backward of "
-             "scaled_dot_product_attention through autograd at the same shape")
+             "scaled_dot_product_attention through autograd at the same shape; K2 bwd's "
+             "kernel_operations is the design's 14 D a visible pair (S and dP in both "
+             "passes), achieved_tflops those over ms")
     return out
 
 
@@ -2632,7 +2655,10 @@ def flash_bwd_bound(q, k, v, causal, window, q_offset) -> dict:
     """Least time for K2's backward: q, k, v, out and dO read and dq, dk, dv
     written once (lse read, fp32) over the memory rate, against 10 D
     operations per unmasked pair (the scores again, dP, dV, dK and dQ, 2 D
-    each) over the peak rate of the input type."""
+    each) over the peak rate of the input type.  ``kernel_operations`` is the
+    work of the kernels' design on the same pairs: 14 D, because the dk / dv
+    pass and the dq pass each recompute S and dP (seven products of 2 D);
+    the masked parts of the edge tiles they also compute are not counted."""
     b, sq, h, d = q.shape
     skv = k.shape[1]
     pairs = flash_pairs(sq, skv, causal, window, q_offset) * b * h
@@ -2640,7 +2666,8 @@ def flash_bwd_bound(q, k, v, causal, window, q_offset) -> dict:
     nbytes = (4 * q.numel() + 2 * (k.numel() + v.numel())) * q.element_size() + b * sq * h * 4
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = ops / PEAK_FLOPS[str(q.dtype).split(".")[-1]] * 1e3
-    return {"bytes": nbytes, "operations": ops, "pairs": pairs, "bytes_ms": t_bytes,
+    return {"bytes": nbytes, "operations": ops, "kernel_operations": 14 * d * pairs,
+            "pairs": pairs, "bytes_ms": t_bytes,
             "ops_ms": t_ops, "bound_ms": max(t_bytes, t_ops),
             "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
 
@@ -2661,10 +2688,12 @@ def rglru_bwd_bound(a, h0, dh_last) -> dict:
 
 def flash_bwd_timing(device, seed: int) -> dict:
     """K2's backward in bf16 at the training shape: kernel (events, and the
-    profiler's device time of its four kernels), plain version, bound, and
-    the backward of PyTorch's scaled_dot_product_attention through autograd
-    at the same shape (kv heads expanded, the causal band as a mask, the
-    forward run once outside the timing)."""
+    profiler's device time of the ``FLASH_BWD_KERNELS`` kernels one call
+    launches, together and each on its own), its achieved rate on the
+    design's operations, plain version, bound, and the backward of PyTorch's
+    scaled_dot_product_attention through autograd at the same shape (kv heads
+    expanded, the causal band as a mask, the forward run once outside the
+    timing)."""
     import torch
     import torch.nn.functional as F
 
@@ -2679,7 +2708,8 @@ def flash_bwd_timing(device, seed: int) -> dict:
         return fa.flash_attention_bwd(q, k, v, out, lse, do, **kw)
 
     ms = cuda_median_ms(kernel, reps=10, warmup=2)
-    dev_ms = profiled_device_ms(kernel, "flash_bwd_", reps=10, per_call=4)
+    dev_ms = profiled_device_ms(kernel, "flash_bwd_", reps=10, per_call=len(FLASH_BWD_KERNELS))
+    by_kernel = {name: profiled_device_ms(kernel, name, reps=10) for name in FLASH_BWD_KERNELS}
     plain_ms = cuda_median_ms(lambda: fa.flash_attention_bwd_torch(q, k, v, out, lse, do, **kw),
                               reps=3, warmup=1)
     # yardstick only: the port never calls it
@@ -2696,8 +2726,11 @@ def flash_bwd_timing(device, seed: int) -> dict:
         reps=10, warmup=2)
     backend = sdpa_backend(qt, kt, vt, band)
     del qt, kt, vt, lib_out, dot
-    return {"ms": ms, "device_ms": dev_ms, "plain_ms": plain_ms,
-            **flash_bwd_bound(q, k, v, **kw), "library_ms": lib_ms,
+    bound = flash_bwd_bound(q, k, v, **kw)
+    return {"ms": ms, "device_ms": dev_ms, "plain_ms": plain_ms, **bound,
+            "achieved_tflops": bound["kernel_operations"] / ms * 1e-9,
+            "kernels": list(FLASH_BWD_KERNELS), "device_ms_by_kernel": by_kernel,
+            "library_ms": lib_ms,
             "library": f"scaled_dot_product_attention backward through autograd ({backend}, "
                        "band mask), kv heads expanded, forward outside the timing",
             "shape": list(FLASH_TRAIN), "dtype": "bfloat16"}
@@ -3188,7 +3221,10 @@ def main() -> int:
                 "launches_by_path": {"train": tl["flash_attention_bwd"]},
                 "max_abs_err_f32": model_err["flash_attention_bwd_f32"],
                 "device_ms": fb["device_ms"], "library": fb["library"], "shape": fb["shape"],
-                "dtype": fb["dtype"], "operations": fb["operations"]},
+                "dtype": fb["dtype"], "operations": fb["operations"],
+                "kernel_operations": fb["kernel_operations"],
+                "achieved_tflops": fb["achieved_tflops"], "kernels": fb["kernels"],
+                "device_ms_by_kernel": fb["device_ms_by_kernel"]},
             "rglru_scan_bwd": {
                 "path": "train", "launches_per_step": train["launches_per_step"][
                     "rglru_scan_bwd"],

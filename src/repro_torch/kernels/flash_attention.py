@@ -13,10 +13,18 @@
 
 * :func:`flash_attention_bwd` — the backward's wrapper: dq, dk and dv from
   ``(q, k, v, out, lse, d_out)``.  For CUDA tensors it launches
-  ``csrc/flash_attention_bwd.cu`` (deterministic: a pass per kv tile and q
-  head for dk / dv, a fixed-order sum over each kv head's group, a pass per q
-  tile for dq; fp32 FMAs on the CUDA cores) and counts the launch in
-  ``flash_attention_bwd.launches``; for CPU tensors it runs
+  ``csrc/flash_attention_bwd.cu`` and counts the launch in
+  ``flash_attention_bwd.launches``: four kernels, deterministic (no atomics,
+  every sum in a fixed order) — delta, a dk / dv pass per (64 kv rows, q
+  head), a fixed-order sum over each kv head's group, a dq pass.  bf16 runs
+  both passes on the tensor cores (``mma.sync`` bf16 -> fp32, ``cp.async``
+  double-buffered tiles): the dk / dv pass computes S^T and dP^T a warp per
+  16 x 32, stages P^T and dS^T in shared memory as bf16 and accumulates dk
+  and dv over all 8 warps (128 fp32 registers a thread at d 256, 222 KB of
+  shared memory); the dq pass is laid out as the forward, a block per 128
+  (position, head) rows of a kv group over 32-key tiles, dq in registers.
+  float32 runs both on the CUDA cores (fp32 FMAs, 32 x 32 tiles), which its
+  1e-5 check needs.  For CPU tensors it runs
   :func:`flash_attention_bwd_torch`, a straight port of the reference's
   ``_flash_bwd`` (src/repro/kernels/flash_xla.py:76), chunked over q rows.
 * When an input requires a gradient, :func:`flash_attention` goes through an

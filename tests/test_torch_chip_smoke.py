@@ -382,6 +382,9 @@ def test_operands_have_the_asked_shapes_and_types(smoke):
     ("void (anonymous namespace)::flash_bwd_dkdv_kernel<__nv_bfloat16, 256>(Params)",
      "K2 bwd"),
     ("void (anonymous namespace)::flash_bwd_reduce_kernel<float>(Params)", "K2 bwd"),
+    ("void (anonymous namespace)::tc::flash_bwd_dkdv_mma_kernel<256>(Params, int)", "K2 bwd"),
+    ("void (anonymous namespace)::tc::flash_bwd_dq_mma_kernel<256>(Params, int)", "K2 bwd"),
+    ("void (anonymous namespace)::flash_bwd_delta_kernel<__nv_bfloat16>(Params)", "K2 bwd"),
     ("void (anonymous namespace)::rglru_scan_bwd_kernel<true>(float const*, ...)", "K3 bwd"),
     ("void at::native::reduce_kernel<512, 1, ...>", "elementwise")])
 def test_profile_classes_name_the_kernels(smoke, name, cls):
@@ -532,6 +535,40 @@ def test_ptxas_gate_refuses_spills_and_stacks_where_it_must(smoke):
         faults = smoke.ptxas_faults({**clean, lib: clean[lib] + [bad]})
         assert len(faults) == 1 and bad["kernel"] in faults[0]
     assert set(smoke.NO_STACK_LIBRARIES) == {"schedule_dp", "rglru"}
+
+
+BWD_PTXAS_LOG = """\
+ptxas info    : Compiling entry function '_ZN55_GLOBAL__N__3b49a283_22_flash_attention_bwd_cu_9d6785b12tc23flash_bwd_dq_mma_kernelILi256EEEvNS_6ParamsEi' for 'sm_90a'
+ptxas info    : Function properties for _ZN55_GLOBAL__N__3b49a283_22_flash_attention_bwd_cu_9d6785b12tc23flash_bwd_dq_mma_kernelILi256EEEvNS_6ParamsEi
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 240 registers, used 1 barriers
+ptxas info    : Compiling entry function '_ZN55_GLOBAL__N__3b49a283_22_flash_attention_bwd_cu_9d6785b12tc25flash_bwd_dkdv_mma_kernelILi256EEEvNS_6ParamsEi' for 'sm_90a'
+ptxas info    : Function properties for _ZN55_GLOBAL__N__3b49a283_22_flash_attention_bwd_cu_9d6785b12tc25flash_bwd_dkdv_mma_kernelILi256EEEvNS_6ParamsEi
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 242 registers, used 1 barriers
+ptxas info    : Compiling entry function '_ZN55_GLOBAL__N__3b49a283_22_flash_attention_bwd_cu_9d6785b121flash_bwd_dkdv_kernelIfLi256EEEvNS_6ParamsE' for 'sm_90a'
+ptxas info    : Function properties for _ZN55_GLOBAL__N__3b49a283_22_flash_attention_bwd_cu_9d6785b121flash_bwd_dkdv_kernelIfLi256EEEvNS_6ParamsE
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 128 registers, used 1 barriers
+"""
+
+
+@pytest.mark.parametrize("pass_name", ["flash_bwd_dq_mma_kernel", "flash_bwd_dkdv_mma_kernel"])
+def test_ptxas_gate_refuses_a_spilling_bwd_mma_kernel(smoke, pass_name):
+    """K2 bwd's tensor-core kernels are ``*_mma_kernel``s: the gate refuses a
+    spill in either pass, not in its float32 CUDA-core kernels, and the
+    profile counts every one of them as K2 bwd."""
+    report = smoke.ptxas_report(BWD_PTXAS_LOG)
+    assert [f["registers"] for f in report] == [240, 242, 128]
+    assert smoke.ptxas_faults({"flash_attention_bwd": report}) == []
+    spilled = [dict(f, spill_stores=8, spill_loads=8) if pass_name in f["kernel"] else f
+               for f in report]
+    faults = smoke.ptxas_faults({"flash_attention_bwd": spilled})
+    assert len(faults) == 1 and pass_name in faults[0] and "dkdv_kernelIf" not in faults[0]
+    f32_spill = [dict(f, spill_stores=8) if "kernelIf" in f["kernel"] else f for f in report]
+    assert smoke.ptxas_faults({"flash_attention_bwd": f32_spill}) == []
+    assert all(smoke._kernel_class(f["kernel"]).startswith("K2 bwd") for f in report)
+    assert pass_name in smoke.FLASH_BWD_KERNELS
 
 
 def smoke_report(smoke):
@@ -958,13 +995,16 @@ def test_check_sweep_refuses_what_the_phase_must_not_pass(smoke):
 
 def test_flash_bwd_bound_at_the_training_shape(smoke):
     """K2 bwd: 10 D operations per visible pair (the scores again, dP, dV,
-    dK, dQ); q, k, v, out and dO read and dq, dk, dv written once, lse read."""
+    dK, dQ); q, k, v, out and dO read and dq, dk, dv written once, lse read.
+    The kernels' design does 14 D a pair: the dk / dv and the dq pass each
+    recompute S and dP."""
     meta = torch.device("meta")
     q = torch.empty((1, 4096, 10, 256), dtype=torch.bfloat16, device=meta)
     k = torch.empty((1, 4096, 1, 256), dtype=torch.bfloat16, device=meta)
     bound = smoke.flash_bwd_bound(q, k, k, causal=True, window=2048, q_offset=0)
     assert bound["pairs"] == 6_292_480 * 10
     assert bound["operations"] == 10 * 256 * 6_292_480 * 10          # 161 GFLOP
+    assert bound["kernel_operations"] == 14 * 256 * 6_292_480 * 10   # 226 GFLOP
     assert bound["bytes"] == 2 * (4 * q.numel() + 4 * k.numel()) + 4 * 4096 * 10
     assert bound["bound_by"] == "operations"
     assert bound["bound_ms"] == pytest.approx(0.1629, rel=1e-3)

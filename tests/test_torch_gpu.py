@@ -1052,7 +1052,15 @@ def test_two_threads_on_one_launch_shape_on_the_card(cuda_device):
 
 # ---- the training path: K2's and K3's backwards -------------------------------
 FLASH_BWD_CASES = [(2, 512, 512, 4, 2, 32, True, None, 0), (2, 512, 512, 4, 2, 32, True, 128, 0),
-                   (2, 77, 90, 6, 3, 40, False, None, 0), (1, 96, 96, 8, 1, 256, True, None, -5)]
+                   (2, 77, 90, 6, 3, 40, False, None, 0), (1, 96, 96, 8, 1, 256, True, None, -5),
+                   # qwen2.5-14b's grouping (40 q heads over 8) at d 128, a short length
+                   (1, 200, 200, 40, 8, 128, True, None, 0),
+                   # MQA, d 256, a window, lengths that are not multiples of 64
+                   (1, 333, 333, 10, 1, 256, True, 100, 0),
+                   # a continuation: q_offset > 0, more keys than queries
+                   (2, 150, 230, 4, 2, 64, True, None, 80),
+                   # d not a multiple of 8: the bf16 kernels' element-wise loads
+                   (1, 70, 70, 4, 2, 20, True, None, 0)]
 
 
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5), (torch.bfloat16, 2e-2)])
@@ -1078,6 +1086,32 @@ def test_flash_bwd_kernel_matches_plain_version(cuda_device, case, dtype, tol):
         assert float((a.float() - w.float()).abs().max() / w.float().abs().max()) < tol
     if qoff < 0:
         assert bool((got[0][:, :-qoff] == 0).all())
+
+
+def test_flash_bwd_kernel_is_deterministic(cuda_device):
+    """Two calls on the same inputs give bit-identical dq, dk and dv in both
+    input types (no atomics: every sum in a fixed order), and bf16 takes the
+    tensor-core kernels: the library holds a dk / dv and a dq ``mma_kernel``
+    for each head-dim bound and no bf16 instance of the CUDA-core ones."""
+    from repro_torch.kernels import flash_attention as fa
+
+    for dtype in (torch.bfloat16, torch.float32):
+        g = torch.Generator(device=cuda_device).manual_seed(5)
+        q, do = (torch.randn((1, 333, 10, 256), generator=g, device=cuda_device).to(dtype)
+                 for _ in range(2))
+        k, v = (torch.randn((1, 333, 1, 256), generator=g, device=cuda_device).to(dtype)
+                for _ in range(2))
+        kw = dict(causal=True, window=100)
+        out, lse = fa.flash_attention(q, k, v, return_lse=True, **kw)
+        first = fa.flash_attention_bwd(q, k, v, out, lse, do, **kw)
+        again = fa.flash_attention_bwd(q, k, v, out, lse, do, **kw)
+        torch.cuda.synchronize()
+        assert all(torch.equal(a, b) for a, b in zip(first, again))
+    kernels = _entry_kernels("flash_attention_bwd")
+    assert sum("flash_bwd_dkdv_mma_kernel" in k for k in kernels) == 3     # d <= 64, 128, 256
+    assert sum("flash_bwd_dq_mma_kernel" in k for k in kernels) == 3
+    assert not any("kernelI13__nv_bfloat16Li" in k for k in kernels)
+    assert sum("kernelIfLi" in k for k in kernels) == 6                    # f32 dk/dv and dq
 
 
 @pytest.mark.parametrize("b,t,d,with_h0", [(2, 512, 64, True), (3, 1000, 200, False),
