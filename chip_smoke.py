@@ -856,7 +856,10 @@ def cumsum_operands(inst, rows: int, seed: int, device):
     mem = rng.integers(0, ip.access_time.shape[1], (rows, ip.d_b))
     rate = ip.access_time[assign[:, ip.in_owner], mem[:, ip.in_idx]]
     vals = np.where(ip.in_valid[None, :], ip.data_size[ip.in_idx][None, :] * rate, 0.0)
-    return torch.from_numpy(vals).to(device)
+    # row-major, as the round's torch.where hands it over (numpy's fancy
+    # indexing gives a column-major array, which costs both seq_cumsum and
+    # torch.cumsum a copy the round does not make)
+    return torch.from_numpy(np.ascontiguousarray(vals)).to(device)
 
 
 def cumsum_bound(v) -> dict:
@@ -903,18 +906,36 @@ def phase_seq_cumsum(device, rows: int) -> dict:
     device_ms = profiled_device_ms(lambda: sdp.seq_cumsum(v), "seq_cumsum", reps=100)
     plain_ms = cuda_median_ms(lambda: sdp.seq_cumsum_torch(v), reps=20, warmup=3)
     library_ms = cuda_median_ms(lambda: torch.cumsum(v, dim=1), reps=100, warmup=10)
+    # torch.cumsum's own kernels, by the names the profiler gives them
+    library_kernels = profiled_kernel_names(lambda: torch.cumsum(v, dim=1))
+    library_by_kernel = {name: profiled_device_ms(lambda: torch.cumsum(v, dim=1), name, reps=100)
+                         for name in library_kernels}
+    library_device_ms = sum(library_by_kernel.values())
     per_add = add_chain_ms_per_add(device)
+    chain_ms = v.shape[1] * per_add
+    # a row must make its width of dependent float64 adds to stay bit-equal,
+    # so chain_ms, not the bytes bound, is the floor; the kernel is left as
+    # it is if it is no slower than the library's kernels and within 2x of
+    # that floor
+    closed = device_ms <= library_device_ms and chain_ms / device_ms >= 0.5
     out = {"ms": ms, "device_ms": device_ms, "plain_ms": plain_ms, "library_ms": library_ms,
+           "library_device_ms": library_device_ms,
+           "library_device_ms_by_kernel": {k[:100]: ms for k, ms in library_by_kernel.items()},
            "max_abs_err": worst, "shape": list(v.shape),
            "torch_cumsum_on_card_max_abs_err": torch_cumsum_err,
-           "chain_ms": v.shape[1] * per_add, "add_chain_ms_per_add": per_add,
-           **cumsum_bound(v)}
+           "chain_ms": chain_ms, "add_chain_ms_per_add": per_add,
+           "chain_share": chain_ms / device_ms,
+           "decision": "closed, no redesign" if closed else "redesign", **cumsum_bound(v)}
     say("seq_cumsum", **out,
         note="bit-equal to its plain version (the CPU's torch.cumsum, np.cumsum's order) at "
              "every width; ms: median of 100 wrapper calls by CUDA events (host work "
              "included), device_ms the kernel's mean device time over 100 launches "
              "(torch.profiler), plain_ms the plain version on the card (20), library_ms "
-             "torch.cumsum on the card (100); chain_ms = width x add_chain_ms_per_add, the "
+             "torch.cumsum on the card (100), library_device_ms its kernels' mean device "
+             "time over 100 calls (torch.profiler; by kernel, names cut to 100 characters); "
+             "the input row-major, as the round hands it over; chain_share = "
+             "chain_ms / device_ms; decision: closed if device_ms <= library_device_ms "
+             "and chain_share >= 0.5; chain_ms = width x add_chain_ms_per_add, the "
              "measured time of one dependent float64 add: each row is such a chain, so "
              "this floor binds, not bound_ms (bytes / operations); "
              "torch_cumsum_on_card_max_abs_err: how far the card's torch.cumsum lands "
@@ -1314,20 +1335,84 @@ def race_plan(n: int, hang_seconds: float) -> dict:
     raise ValueError(f"no plan hangs rid {RACE_HUNG_RID} alone among {n}")
 
 
+class StaleRunMeetsFreshLane:
+    """Makes the race lane's race happen whatever the host's timing.  The
+    thread whose launch hangs (``engine.execute.launch`` of ``hung_rid``)
+    is marked when it reaches that point; from then on a run of any other
+    thread releases its launch only once the marked thread, woken as the
+    stale run, has asked for a launch (and so found this shape held), or
+    after ``timeout`` seconds.  Without it the stale run meets a fresh run
+    only when their device work happens to overlap: on the card the fresh
+    runs spend most of their time on the host, and one run of the race lane
+    found no fresh run holding the shape.  ``devsearch`` and ``inject`` are
+    the modules whose ``_get_launch`` / ``_release`` and ``fire`` it wraps."""
+
+    def __init__(self, hung_rid: int, timeout: float, devsearch=None, inject=None):
+        import threading
+
+        if devsearch is None:
+            from repro_torch.core import device_search as devsearch
+        if inject is None:
+            from repro_torch.faults import inject
+        self.hung_rid, self.timeout = hung_rid, timeout
+        self.devsearch, self.inject = devsearch, inject
+        self.hung_thread = None
+        self.stale_asked = threading.Event()
+        self.waited_s = 0.0
+
+    def __enter__(self):
+        import threading
+
+        ds, finj = self.devsearch, self.inject
+        self._saved = ds._get_launch, ds._release, finj.fire
+        get, release, fire = self._saved
+
+        def marked_fire(point, key=0, *, rid=None):
+            if point == "engine.execute.launch" and key == self.hung_rid:
+                self.hung_thread = threading.get_ident()
+            return fire(point, key, rid=rid)
+
+        def get_launch(*args, **kwargs):
+            out = get(*args, **kwargs)
+            if threading.get_ident() == self.hung_thread:
+                self.stale_asked.set()
+            return out
+
+        def held_release(launch):
+            me = threading.get_ident()
+            if self.hung_thread not in (None, me) and not self.stale_asked.is_set():
+                t0 = time.perf_counter()
+                self.stale_asked.wait(self.timeout)
+                self.waited_s += time.perf_counter() - t0
+            return release(launch)
+
+        ds._get_launch, ds._release, finj.fire = get_launch, held_release, marked_fire
+        return self
+
+    def __exit__(self, *exc):
+        ds, finj = self.devsearch, self.inject
+        ds._get_launch, ds._release, finj.fire = self._saved
+
+
 def race_lane(items, prof: ServeProfile, params, solos: list, torch_device: str, *,
               hang_seconds: float = FAULT_PLAN["hang_seconds"],
               watchdog: float = FAULT_WATCHDOG_S) -> dict:
     """Requests of one launch shape, the launch of one of them hung (one
     attempt each, so it fails once): the watchdog abandons it, the fresh lane
     serves the rest, and the stale run wakes and runs ``solve_instances``
-    beside the fresh lane's runs of the same shape, so one of them must take
-    an uncached launch.  Every survivor runs on the device and equals its
-    solo solve, and so does the stale run's lane."""
+    beside the fresh lane's runs of the same shape (a fresh run keeps its
+    launch until the stale run has asked for one, at most half the
+    watchdog: :class:`StaleRunMeetsFreshLane`), so one of them must take an
+    uncached launch.  Every survivor runs on the device and equals its solo
+    solve, and so does the stale run's lane."""
     from repro_torch.serve import RetryPolicy
 
     plan_kw = race_plan(len(items), hang_seconds)
-    out = fault_lane(items, prof, params, solos, torch_device, plan_kw=plan_kw,
-                     watchdog=watchdog, retry=RetryPolicy(max_attempts=1))
+    with StaleRunMeetsFreshLane(RACE_HUNG_RID, timeout=watchdog / 2) as meet:
+        out = fault_lane(items, prof, params, solos, torch_device, plan_kw=plan_kw,
+                         watchdog=watchdog, retry=RetryPolicy(max_attempts=1))
+    out["stale_run_asked"] = meet.stale_asked.is_set()
+    out["fresh_lane_waited_s"] = meet.waited_s
     if out["survivors_by_backend"].get("device", 0) < 1 or out["numpy_fallback_survivors"]:
         raise AssertionError(f"the race lane's survivors did not run on the device: {out}")
     if out["device_lanes_returned"] <= out["survivors"]:
@@ -1571,6 +1656,24 @@ def profiled_device_ms(fn, kernel: str, reps: int, per_call: int = 1) -> float:
     raise AssertionError(f"the profiler saw {seen} launches of {kernel}, expected {reps}")
 
 
+def profiled_kernel_names(fn) -> list:
+    """Names of the kernels a call of ``fn`` launches (over 10 calls, so one
+    lost record loses no name), from torch.profiler."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(10):
+            fn()
+        torch.cuda.synchronize()
+    names = sorted({e.key for e in prof.key_averages() if str(e.device_type).endswith("CUDA")})
+    if not names:
+        raise AssertionError("the profiler recorded no kernel of the call")
+    return names
+
+
 def csr_bytes(csr) -> int:
     """Bytes of one CSR form of the graph (row offsets and links, int32)."""
     return sum(a.numel() for a in csr) * 4
@@ -1652,6 +1755,33 @@ def add_chain_ms_per_add(device) -> float:
     ms = cuda_median_ms(run, reps=10, warmup=2)
     if float(out[0]) != n:
         raise AssertionError(f"add chain probe summed {float(out[0])}, expected {n}")
+    return ms / n
+
+
+def fp32_chain_ms_per_step(device) -> float:
+    """Measured time of one step of K3 backward's dependent chain (a float32
+    add, then a multiply, each waiting on the one before) on one thread."""
+    import ctypes
+
+    import torch
+
+    from repro_torch.kernels import _build
+
+    fn = _build.load("rglru").rglru_bwd_chain_probe
+    fn.argtypes = [ctypes.c_int, ctypes.c_float, ctypes.c_float, ctypes.c_void_p,
+                   ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    out = torch.zeros(1, dtype=torch.float32, device=device)
+    n = 1 << 20
+
+    def run():
+        err = fn(n, 1.0, 1.0, out.data_ptr(), torch.cuda.current_stream().cuda_stream)
+        if err != 0:
+            raise RuntimeError(f"fp32 chain probe launch failed: CUDA error {err}")
+
+    ms = cuda_median_ms(run, reps=10, warmup=2)
+    if float(out[0]) != n:
+        raise AssertionError(f"fp32 chain probe ended at {float(out[0])}, expected {n}")
     return ms / n
 
 
@@ -1792,6 +1922,20 @@ RGLRU_SHAPES = ((2, 512, 64, True), (1, 256, 128, True), (3, 128, 32, False),
                 (2, 4097, 2562, True), (2, 4097, 2560, False), (3, 33, 66, True),
                 (3, 200, 31, False), (2, 1, 31, False), (SERVE_BATCH, 1, 2562, True),
                 (SERVE_BATCH, 2, 2560, False))
+# K3's backward: every RGLRU_SHAPES shape, then the training shape and its
+# ragged twin (a partial first tile, a group past d), T = 1 and batch 4 at the
+# training width (the wide grid), each with and without h0; each is taken
+# with and without a last-state gradient, in the group the wrapper picks
+RGLRU_BWD_SHAPES = RGLRU_SHAPES + tuple(
+    (b, t, d, h0)
+    for b, t, d in ((TRAIN_BATCH, TRAIN_SEQ, 2560), (TRAIN_BATCH, TRAIN_SEQ + 1, 2562),
+                    (TRAIN_BATCH, 1, 2560), (SERVE_BATCH, TRAIN_SEQ, 2560))
+    for h0 in (True, False))
+# ... and at these in every group the kernel has (8, 32): d a multiple of
+# neither (31, 66), of 8 but not 32 (2552 = 8 x 319, 16-byte rows) and the
+# training width with a partial first tile
+RGLRU_BWD_ALL_GROUPS = ((3, 200, 31, False), (3, 33, 66, True), (2, 100, 2552, True),
+                        (TRAIN_BATCH, TRAIN_SEQ + 1, 2560, True))
 MAMBA_ARCH = "mamba2-780m"
 # (b, t, h, p, g, n): the four shapes of tests/test_kernels.py::test_ssd_sweep,
 # two ragged T, one decode step and the prefill at the serving width
@@ -2070,7 +2214,10 @@ def phase_model_kernels(device):
         flash_bwd_shapes=[list(s) for s in FLASH_BWD_SHAPES],
         rglru_bwd_checks=rg_bwd["checks"], rglru_bwd_max_abs_err=rg_bwd["abs"],
         rglru_bwd_tolerance="0 (torch.equal) on da, dx~ and dh0, with and without dh_last",
-        rglru_bwd_shapes=[list(s) for s in RGLRU_SHAPES])
+        rglru_bwd_shapes=[list(s) for s in RGLRU_BWD_SHAPES],
+        rglru_bwd_all_group_shapes=[list(s) for s in RGLRU_BWD_ALL_GROUPS],
+        rglru_bwd_checks_by_group=rg_bwd["checks_by_group"],
+        rglru_bwd_bit_identical_repeat=rg_bwd["bit_identical_repeat"])
     return {"flash_attention": max(worst.values()), "flash_f32": worst["float32"],
             "rglru_scan": worst_rg, "ssd_chunked": max(max(ssd_err.values()), ssd_h_err),
             "flash_attention_bwd": max(bwd["abs"].values()),
@@ -2133,13 +2280,17 @@ def flash_bwd_checks(device) -> dict:
 
 def rglru_bwd_checks(device) -> dict:
     """K3's backward (the reverse scan) bit for bit against its plain version
-    at every ``RGLRU_SHAPES`` shape, with and without a last-state gradient."""
+    at every ``RGLRU_BWD_SHAPES`` shape in the group the wrapper picks, and at
+    every ``RGLRU_BWD_ALL_GROUPS`` shape in each group, with and without a
+    last-state gradient; two calls at the training shape bit-identical."""
     import torch
 
     from repro_torch.kernels import rglru as rg
 
-    worst, checks = 0.0, 0
-    for i, shape in enumerate(RGLRU_SHAPES):
+    cases = [(shape, None) for shape in RGLRU_BWD_SHAPES] + \
+        [(shape, group) for shape in RGLRU_BWD_ALL_GROUPS for group in rg.BWD_GROUPS]
+    worst, checks, groups = 0.0, 0, {}
+    for i, (shape, group) in enumerate(cases):
         x, a_param, ig, ag, h0 = rglru_operands(shape, torch.float32, device, seed=500 + i)
         a, xb = rg.rglru_gates(x, a_param, ig, ag)
         y = rg.scan_torch(a, xb, h0)
@@ -2147,7 +2298,10 @@ def rglru_bwd_checks(device) -> dict:
         dy = randn(gen, y.shape, device)
         for dh in (None, randn(gen, (shape[0], shape[2]), device)):
             before = rg.rglru_scan_bwd.launches
-            got = rg.rglru_scan_bwd(a, y, h0, dy, dh)
+            if group is None:
+                got = rg.rglru_scan_bwd(a, y, h0, dy, dh)
+            else:
+                got = rg._launch_bwd_cuda(a, y, h0, dy, dh, group=group)
             torch.cuda.synchronize()
             if rg.rglru_scan_bwd.launches != before + 1:
                 raise AssertionError("rglru_scan_bwd did not launch its kernel")
@@ -2155,9 +2309,18 @@ def rglru_bwd_checks(device) -> dict:
             worst = max(worst, max_abs_err(got, want))
             if not all(torch.equal(p, q) for p, q in zip(got, want)):
                 raise AssertionError(f"rglru_scan_bwd differs from its plain version: {shape} "
-                                     f"dh_last={dh is not None}")
+                                     f"group {group} dh_last={dh is not None}")
             checks += 1
-    return {"checks": checks, "abs": worst}
+        key = str(group or rg.bwd_group(shape[0], shape[2], rg._n_sms(device.index or 0)))
+        groups[key] = groups.get(key, 0) + 2
+        if list(shape) == list(RGLRU_TRAIN[:3]) + [False]:
+            first = rg.rglru_scan_bwd(a, y, h0, dy, None)
+            again = rg.rglru_scan_bwd(a, y, h0, dy, None)
+            torch.cuda.synchronize()
+            if not all(torch.equal(p, q) for p, q in zip(first, again)):
+                raise AssertionError("two rglru_scan_bwd calls at the training shape differ")
+    return {"checks": checks, "abs": worst, "checks_by_group": groups,
+            "bit_identical_repeat": True}
 
 
 def model_kernel_wrappers() -> dict:
@@ -2368,7 +2531,10 @@ def device_breakdown(fn, top: int = 0) -> dict:
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    # acc_events: keep every record of the window (torch warns that it
+    # otherwise clears events at the end of each cycle)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 acc_events=True) as prof:
         t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
@@ -2397,6 +2563,22 @@ def device_breakdown(fn, top: int = 0) -> dict:
     if top:
         out["top_kernels"] = sorted(by_name, key=lambda k: -k["ms"])[:top]
     return out
+
+
+def profiler_records_seen(fn, kernel: str, reps: int, acc_events: bool = False) -> int:
+    """Records of the kernels whose name holds ``kernel`` that one profiled
+    window of ``reps`` calls of ``fn`` keeps (``reps`` when none is lost)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 acc_events=acc_events) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    return sum(e.count for e in prof.key_averages()
+               if kernel in e.key and str(e.device_type).endswith("CUDA"))
 
 
 def memory_reckoning(cfg, model) -> dict:
@@ -2589,6 +2771,16 @@ def phase_model_timing(device):
     r_decode_dev = profiled_device_ms(lambda: rg._launch_cuda(d_a, d_xb, h0),
                                       "rglru_scan_step_kernel", reps=50)
     r_decode_bound = rglru_bound(d_a, h0)
+    # the forward at the training shape (batch 1: 80 warps), as training calls it
+    x1, ap1, ig1, ag1, _ = rglru_operands(RGLRU_TRAIN, torch.bfloat16, device, seed=15)
+    a1, xb1 = rg.rglru_gates(x1, ap1, ig1, ag1)
+    r_b1 = {"shape": list(RGLRU_TRAIN[:3]),
+            "ms": cuda_median_ms(lambda: rg._launch_cuda(a1, xb1, None), reps=20, warmup=3),
+            "device_ms": profiled_device_ms(lambda: rg._launch_cuda(a1, xb1, None),
+                                            "rglru_scan_kernel", reps=20),
+            "bound_ms": rglru_bound(a1, None)["bound_ms"],
+            "status": "not redesigned, second round"}
+    del x1, ap1, ig1, ag1, a1, xb1
     # K4 as the prefill calls it (bf16 x/B/C, d_skip, an fp32 h0) and as a
     # decode step calls it (T = 1)
     args = ssd_operands(SSD_SERVE, torch.bfloat16, device, True, seed=9)
@@ -2614,6 +2806,7 @@ def phase_model_timing(device):
                        "decode_step_bound_ms": r_decode_bound["bound_ms"],
                        "decode_step_bound_by": r_decode_bound["bound_by"],
                        "decode_step_bytes": r_decode_bound["bytes"],
+                       "training_shape": r_b1,
                        "shape": [SERVE_BATCH, SERVE_PROMPT, 2560]},
         "ssd_chunked": {"ms": s_ms, "plain_ms": s_plain, **s_bound, "library_ms": None,
                         "achieved_tflops": s_bound["kernel_operations"] / s_ms * 1e-9,
@@ -2638,12 +2831,17 @@ def phase_model_timing(device):
              "fp32_rate_bound_ms the same work with all but C B^T at the fp32 rate; "
              "kernel_operations is the chunked form with C B^T per head, achieved_tflops "
              "those over ms, tpu_operations the TPU kernel's count (per head, chunk 128); "
+             "rglru_scan.training_shape: the forward at (1, 4096, 2560), 80 warps, not "
+             "redesigned; "
              "decode_step_ms is event-timed around one wrapper call (host work "
              "included), decode_step_device_ms the kernel's own time from "
              "torch.profiler, mean of 50; flash_attention_bwd and rglru_scan_bwd at the "
              "training shape: ms the median of 10 (20) event-timed wrapper calls, device_ms "
              "the profiler's time of the call's kernels (K2 bwd: delta, the tensor-core "
-             "dk/dv pass, the group sum, the tensor-core dq pass), plain_ms 3 calls "
+             "dk/dv pass, the group sum, the tensor-core dq pass; K3 bwd: the reverse scan "
+             "in the group the wrapper picks, device_ms_by_group in each group there and "
+             "at batch 4, chain_ms = T x fp32_chain_ms_per_step, one channel's dependent "
+             "add and multiply measured on one thread), plain_ms 3 calls "
              "of the plain backward, library_ms (K2 bwd) the backward of "
              "scaled_dot_product_attention through autograd at the same shape; K2 bwd's "
              "kernel_operations is the design's 14 D a visible pair (S and dP in both "
@@ -2738,21 +2936,52 @@ def flash_bwd_timing(device, seed: int) -> dict:
 
 def rglru_bwd_timing(device, seed: int) -> dict:
     """K3's backward at the training shape (1 x 4096 x 2560, fp32, no h0 and
-    no last-state gradient, as a training forward calls it)."""
+    no last-state gradient, as a training forward calls it): ms by events
+    around one wrapper call, the kernel's device time in the group the
+    wrapper picks and in each group the kernel has, there and at batch 4
+    (``device_ms_by_group``); ``event_minus_device_ms`` is the wrapper's host
+    work that the events also take, ``wrapper_host_ms`` the host's clock over
+    calls enqueued back to back."""
     import torch
 
     from repro_torch.kernels import rglru as rg
 
-    x, a_param, ig, ag, h0 = rglru_operands(RGLRU_TRAIN, torch.bfloat16, device, seed=seed)
-    a, xb = rg.rglru_gates(x, a_param, ig, ag)
-    y = rg.scan_torch(a, xb, h0)
-    dy = randn(torch.Generator(device=device).manual_seed(seed + 1), y.shape, device)
-    ms = cuda_median_ms(lambda: rg._launch_bwd_cuda(a, y, h0, dy, None), reps=20, warmup=3)
-    dev_ms = profiled_device_ms(lambda: rg._launch_bwd_cuda(a, y, h0, dy, None),
+    def operands(shape, seed):
+        x, a_param, ig, ag, h0 = rglru_operands(shape, torch.bfloat16, device, seed=seed)
+        a, xb = rg.rglru_gates(x, a_param, ig, ag)
+        y = rg.scan_torch(a, xb, h0)
+        dy = randn(torch.Generator(device=device).manual_seed(seed + 1), y.shape, device)
+        return a, y, h0, dy
+
+    a, y, h0, dy = operands(RGLRU_TRAIN, seed)
+    ms = cuda_median_ms(lambda: rg.rglru_scan_bwd(a, y, h0, dy), reps=20, warmup=3)
+    # the wrapper's host time per call: 50 calls enqueued back to back
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(50):
+        rg.rglru_scan_bwd(a, y, h0, dy)
+    host_ms = (time.perf_counter() - t0) / 50 * 1e3
+    torch.cuda.synchronize()
+    dev_ms = profiled_device_ms(lambda: rg.rglru_scan_bwd(a, y, h0, dy),
                                 "rglru_scan_bwd_kernel", reps=20)
     plain_ms = cuda_median_ms(lambda: rg.scan_bwd_torch(a, y, h0, dy, None), reps=3, warmup=1)
+    by_group = {}
+    for shape in (RGLRU_TRAIN, (SERVE_BATCH,) + RGLRU_TRAIN[1:]):
+        ops = (a, y, h0, dy) if shape == RGLRU_TRAIN else operands(shape, seed + 2)
+        by_group["x".join(map(str, shape[:3]))] = {
+            str(g): profiled_device_ms(
+                lambda g=g: rg._launch_bwd_cuda(*ops, None, group=g),
+                "rglru_scan_bwd_kernel", reps=20)
+            for g in rg.BWD_GROUPS}
+        del ops
+    group = rg.bwd_group(RGLRU_TRAIN[0], RGLRU_TRAIN[2], rg._n_sms(device.index or 0))
+    per_add = fp32_chain_ms_per_step(device)
     return {"ms": ms, "device_ms": dev_ms, "plain_ms": plain_ms,
             **rglru_bwd_bound(a, h0, None), "library_ms": None,
+            "event_minus_device_ms": ms - dev_ms, "wrapper_host_ms": host_ms, "group": group,
+            "warps": RGLRU_TRAIN[0] * -(-RGLRU_TRAIN[2] // group),
+            "device_ms_by_group": by_group,
+            "chain_ms": RGLRU_TRAIN[1] * per_add, "fp32_chain_ms_per_step": per_add,
             "shape": list(RGLRU_TRAIN[:3]), "dtype": "float32"}
 
 
@@ -3016,6 +3245,18 @@ def phase_train(device) -> dict:
     if not all(math.isfinite(x) for x in losses) or len(losses) != TRAIN_STEPS:
         raise AssertionError(f"train losses {losses}")
     profile = device_breakdown(lambda: tr.step_fn(state, tr.batch_at(TRAIN_STEPS)), top=8)
+    # do profiled windows after the profiled full-width step keep their
+    # records (one such window has been seen to keep 6 of 20)?  Three in a
+    # row, with acc_events, without, and with again, so the flag and the
+    # order can be told apart
+    from repro_torch.kernels import schedule_dp as sdp
+
+    probe = torch.rand((80, 1280), dtype=torch.float64, device=device)
+    records_after = [
+        {"acc_events": acc, "seen": profiler_records_seen(
+            lambda: sdp.seq_cumsum(probe), "seq_cumsum", reps=20, acc_events=acc)}
+        for acc in (True, False, True)]
+    del probe
     tokens = TRAIN_BATCH * TRAIN_SEQ
     steady = statistics.median(step_s[1:]) if len(step_s) > 1 else step_s[0]
     attn_pairs = flash_pairs(TRAIN_SEQ, TRAIN_SEQ, True, cfg.attn_window, 0) * TRAIN_BATCH
@@ -3045,12 +3286,17 @@ def phase_train(device) -> dict:
            "offloaded_bytes": offloaded, "launches": launches,
            "launches_per_step": per_step, "expected_launches_per_step": want,
            "step1_gate": gate, "step1_loss_reproduced_in_training": gate["loss_kernels"] ==
-           losses[0], "device_profile_one_step": profile, "recovery": drill}
+           losses[0], "device_profile_one_step": profile,
+           "profiler_records_after_profile": {"windows": records_after, "of": 20},
+           "recovery": drill}
     say("train", **out,
         note="step_s: wall per step, synchronised by the loss read (the first includes "
              "set-up); step_ms_steady: median of the later steps; model_flops: 6 N tokens "
              "plus the attention scores (4 D per visible pair, x3 for the backward); "
-             "device_profile_one_step: torch.profiler over one more step; recovery: the "
+             "device_profile_one_step: torch.profiler (acc_events) over one more step; "
+             "profiler_records_after_profile: seq_cumsum records a profiled window of 20 "
+             "launches kept in each of three windows right after it (with acc_events, "
+             "without, with); recovery: the "
              "smoke config (a full-width checkpoint would be ~43 GB per save)")
     return out
 
@@ -3229,7 +3475,11 @@ def main() -> int:
                 "path": "train", "launches_per_step": train["launches_per_step"][
                     "rglru_scan_bwd"],
                 "launches_by_path": {"train": tl["rglru_scan_bwd"]},
-                "device_ms": rb["device_ms"], "shape": rb["shape"], "dtype": rb["dtype"]},
+                "device_ms": rb["device_ms"], "shape": rb["shape"], "dtype": rb["dtype"],
+                "group": rb["group"], "warps": rb["warps"],
+                "device_ms_by_group": rb["device_ms_by_group"], "chain_ms": rb["chain_ms"],
+                "event_minus_device_ms": rb["event_minus_device_ms"],
+                "wrapper_host_ms": rb["wrapper_host_ms"]},
             "rglru_scan": {"shape": rg["shape"], "dtype": "float32 scan (bfloat16 model)",
                            "launches_by_path": {"model_serve " + ARCH:
                                                 model_launches["rglru_scan"],
@@ -3238,7 +3488,8 @@ def main() -> int:
                            "decode_step_ms": rg["decode_step_ms"],
                            "decode_step_device_ms": rg["decode_step_device_ms"],
                            "decode_step_bound_ms": rg["decode_step_bound_ms"],
-                           "decode_step_bound_by": rg["decode_step_bound_by"]},
+                           "decode_step_bound_by": rg["decode_step_bound_by"],
+                           "training_shape": rg["training_shape"]},
             "ssd_chunked": {"shape": sd["shape"], "dtype": sd["dtype"],
                             "precision": sd["precision"],
                             "fp32_rate_bound_ms": sd["fp32_rate_bound_ms"],
@@ -3253,8 +3504,11 @@ def main() -> int:
             "seq_cumsum": {"shape": cum["shape"], "dtype": "float64",
                            "path": "device_path", "launches_by_path": by_path["seq_cumsum"],
                            "device_ms": cum["device_ms"],
-                           "chain_ms": cum["chain_ms"],
+                           "chain_ms": cum["chain_ms"], "chain_share": cum["chain_share"],
                            "add_chain_ms_per_add": cum["add_chain_ms_per_add"],
+                           "library_device_ms": cum["library_device_ms"],
+                           "library_device_ms_by_kernel": cum["library_device_ms_by_kernel"],
+                           "decision": cum["decision"],
                            "torch_cumsum_on_card_max_abs_err":
                                cum["torch_cumsum_on_card_max_abs_err"]},
         })

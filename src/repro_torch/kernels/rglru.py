@@ -21,11 +21,13 @@ after the last step ``(B, D)``.
 * :func:`rglru_scan_bwd` — the scan's backward: ``(da, dx~, dh0)`` from the
   saved ``a``, the states ``y``, ``h0`` and the gradients of ``y`` and of
   ``h_last``.  For CUDA tensors it launches the reverse scan of
-  ``csrc/rglru.cu`` (laid out as the forward, ``h_{t-1}`` read from the saved
-  states) and counts the launch in ``rglru_scan_bwd.launches``; for CPU
-  tensors it runs :func:`scan_bwd_torch`, the reference's ``_scan_bwd``
+  ``csrc/rglru.cu`` (``h_{t-1}`` read from the saved states) and counts the
+  launch in ``rglru_scan_bwd.launches``; for CPU tensors it runs
+  :func:`scan_bwd_torch`, the reference's ``_scan_bwd``
   (src/repro/kernels/rglru_xla.py:56) as a loop over t in the same order of
-  operations, so the kernel is bit-equal to it.
+  operations, so the kernel is bit-equal to it.  A warp of the reverse scan
+  takes 8 or 32 channels (:func:`bwd_group`: enough warps for every SM at
+  batch 1).
 * When an input requires a gradient, :func:`rglru_scan` runs the scan
   through an autograd function over ``(a, x~, h0) -> (y, h_last)``; the gate
   math stays outside it, in autograd.
@@ -33,6 +35,7 @@ after the last step ``(B, D)``.
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 import torch.nn.functional as F
@@ -109,7 +112,9 @@ def rglru_scan_torch(x, a_param, input_gate, a_gate, h0=None, *, name: str | Non
     return y.to(x.dtype), y[:, -1].clone()
 
 
+@functools.cache
 def _c_fn():
+    """The forward's C entry point (built and loaded at first use, typed once)."""
     from . import _build
 
     fn = _build.load("rglru").rglru_scan_f32
@@ -139,21 +144,43 @@ def _launch_cuda(a, xb, h0):
     return y
 
 
+@functools.cache
 def _c_bwd_fn():
+    """The backward's C entry point (built and loaded at first use, typed once)."""
     from . import _build
 
     fn = _build.load("rglru").rglru_scan_bwd_f32
     p, i = ctypes.c_void_p, ctypes.c_int
-    fn.argtypes = [p] * 8 + [i, i, i, p]
+    fn.argtypes = [p] * 8 + [i, i, i, i, p]
     fn.restype = ctypes.c_int
     return fn
 
 
-def _launch_bwd_cuda(a, y, h0, dy, dh_last):
+BWD_GROUPS = (32, 8)   # channels a warp of the reverse scan can take
+
+
+def bwd_group(b: int, d: int, n_sms: int) -> int:
+    """Channels a warp of the reverse scan takes at ``(b, d)`` on a card of
+    ``n_sms`` SMs: 32 (128-byte rows) when its one-warp blocks,
+    ``b * ceil(d / 32)``, give every SM two, else 8 (the training shape
+    (1, 4096, 2560) on an H100's 132 SMs: 8, 320 warps; batch 4: 32)."""
+    return 32 if b * -(-d // 32) >= 2 * n_sms else 8
+
+
+@functools.cache
+def _n_sms(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def _launch_bwd_cuda(a, y, h0, dy, dh_last, group: int | None = None):
     b, t, d = a.shape
     if b * t * d >= 2**31 or b >= 65536:
         raise ValueError(f"shape {(b, t, d)} exceeds the kernel's int32 indexing / grid")
     dev = a.device
+    if group is None:
+        group = bwd_group(b, d, _n_sms(dev.index))   # a CUDA tensor's device has an index
+    if group not in BWD_GROUPS:
+        raise ValueError(f"group must be one of {BWD_GROUPS}, got {group}")
     for name, v in (("y", y), ("dy", dy), ("h0", h0), ("dh_last", dh_last)):
         if v is not None and v.device != dev:
             raise ValueError(f"{name} is on {v.device}, expected {dev}")
@@ -165,7 +192,7 @@ def _launch_bwd_cuda(a, y, h0, dy, dh_last):
     with torch.cuda.device(dev):
         err = _c_bwd_fn()(a.data_ptr(), y.data_ptr(), None if h0 is None else h0.data_ptr(),
                           dy.data_ptr(), None if dh_last is None else dh_last.data_ptr(),
-                          dx.data_ptr(), da.data_ptr(), dh0.data_ptr(), b, t, d,
+                          dx.data_ptr(), da.data_ptr(), dh0.data_ptr(), b, t, d, group,
                           torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         raise RuntimeError(f"rglru backward kernel launch failed: CUDA error {err}")

@@ -215,6 +215,7 @@ def test_cumsum_operands_and_bound(smoke):
     ip = pack_instance(inst)
     v = smoke.cumsum_operands(inst, 12, 0, torch.device("cpu"))
     assert v.shape == (12, len(ip.in_idx)) and v.dtype == torch.float64
+    assert v.is_contiguous()                               # row-major, as the round's
     e = len(inst.in_idx)
     assert (v[:, :e] > 0).all() and not v[:, e:].any()     # zeros past the real edges
     got = sdp.seq_cumsum(v)
@@ -386,6 +387,9 @@ def test_operands_have_the_asked_shapes_and_types(smoke):
     ("void (anonymous namespace)::tc::flash_bwd_dq_mma_kernel<256>(Params, int)", "K2 bwd"),
     ("void (anonymous namespace)::flash_bwd_delta_kernel<__nv_bfloat16>(Params)", "K2 bwd"),
     ("void (anonymous namespace)::rglru_scan_bwd_kernel<true>(float const*, ...)", "K3 bwd"),
+    ("void (anonymous namespace)::rglru_scan_bwd_kernel<8, true>(float const*, ...)", "K3 bwd"),
+    ("void (anonymous namespace)::rglru_scan_bwd_kernel<32, false>(float const*, ...)",
+     "K3 bwd"),
     ("void at::native::reduce_kernel<512, 1, ...>", "elementwise")])
 def test_profile_classes_name_the_kernels(smoke, name, cls):
     assert smoke._kernel_class(name).startswith(cls)
@@ -976,6 +980,56 @@ def test_race_lane_on_the_cpu(smoke, monkeypatch):
     assert out["resilience"]["watchdog_kills"] >= 1
 
 
+def test_stale_run_meets_a_fresh_run_that_holds_its_launch(smoke):
+    """A fresh run whose device work ends before the stale run wakes keeps
+    its launch until the stale run has asked for one, so the stale run
+    finds the shape held (an uncached launch) on any host; the wrapped
+    functions are restored after."""
+    import threading
+    import types
+
+    events, held = [], {"owner": None}
+
+    def get(owner):
+        if held["owner"] not in (None, owner):
+            events.append(("uncached", owner))
+            return
+        held["owner"] = owner
+        events.append(("get", owner))
+
+    def release(owner):
+        if held["owner"] == owner:
+            held["owner"] = None
+        events.append(("release", owner))
+
+    def fire(point, key=0, *, rid=None):
+        if key == 1:
+            time.sleep(0.3)                   # the hung launch
+
+    ds = types.SimpleNamespace(_get_launch=get, _release=release)
+    inj = types.SimpleNamespace(fire=fire)
+
+    def stale():
+        inj.fire("engine.execute.launch", 1)
+        ds._get_launch("stale")
+        ds._release("stale")
+
+    with smoke.StaleRunMeetsFreshLane(1, timeout=10.0, devsearch=ds, inject=inj) as meet:
+        thread = threading.Thread(target=stale)
+        thread.start()
+        deadline = time.monotonic() + 10.0
+        while meet.hung_thread is None and time.monotonic() < deadline:
+            time.sleep(0.01)
+        ds._get_launch("fresh")               # done long before the stale run wakes
+        ds._release("fresh")
+        thread.join(10.0)
+    assert not thread.is_alive()
+    assert events[:2] == [("get", "fresh"), ("uncached", "stale")]
+    assert ("release", "fresh") in events
+    assert meet.stale_asked.is_set() and meet.waited_s > 0.1
+    assert (ds._get_launch, ds._release, inj.fire) == (get, release, fire)
+
+
 def test_check_sweep_refuses_what_the_phase_must_not_pass(smoke):
     import types
 
@@ -1008,6 +1062,24 @@ def test_flash_bwd_bound_at_the_training_shape(smoke):
     assert bound["bytes"] == 2 * (4 * q.numel() + 4 * k.numel()) + 4 * 4096 * 10
     assert bound["bound_by"] == "operations"
     assert bound["bound_ms"] == pytest.approx(0.1629, rel=1e-3)
+
+
+def test_rglru_bwd_checks_hold_the_training_grid_bit_for_bit(smoke):
+    """The backward's checks take the training shape and its ragged twin,
+    T = 1 and batch 4 at the training width, each with and without h0, and
+    shapes whose width is no multiple of a group in every group."""
+    from repro_torch.kernels import rglru as rg
+
+    shapes = set(smoke.RGLRU_BWD_SHAPES)
+    assert set(smoke.RGLRU_SHAPES) <= shapes
+    for b, t, d in ((1, 4096, 2560), (1, 4097, 2562), (1, 1, 2560), (4, 4096, 2560)):
+        assert {(b, t, d, True), (b, t, d, False)} <= shapes
+    assert smoke.RGLRU_TRAIN[:3] + (False,) in shapes
+    # the wrapper's pick at the training shape and at batch 4 on an H100
+    assert rg.bwd_group(1, 2560, 132) == 8 and rg.bwd_group(4, 2560, 132) == 32
+    widths = {d for _, _, d, _ in smoke.RGLRU_BWD_ALL_GROUPS}
+    assert any(d % 8 for d in widths) and any(d % 8 == 0 and d % 32 for d in widths)
+    assert any(t % 32 for _, t, _, _ in smoke.RGLRU_BWD_ALL_GROUPS)
 
 
 def test_rglru_bwd_bound_at_the_training_shape(smoke):

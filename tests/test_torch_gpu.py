@@ -471,14 +471,17 @@ def test_rglru_kernel_is_bit_equal_to_plain_version(cuda_device, b, t, d, with_h
 
 def test_rglru_library_holds_the_pipelined_and_the_step_kernels(cuda_device):
     """The forward entry point's three kernels: the pipelined scan with
-    16-byte and with element copies, and the single step; and the backward
-    entry point's reverse scan, with either copy."""
+    16-byte and with element copies, and the single step; the backward
+    entry point's reverse scan in each group (8 and 32 channels a warp),
+    with either copy; and the probe of the backward's dependent chain."""
     kernels = _entry_kernels("rglru")
     assert sum("rglru_scan_kernelILb1E" in k for k in kernels) == 1
     assert sum("rglru_scan_kernelILb0E" in k for k in kernels) == 1
     assert sum("rglru_scan_step_kernel" in k for k in kernels) == 1
-    assert sum("rglru_scan_bwd_kernelILb1E" in k for k in kernels) == 1
-    assert sum("rglru_scan_bwd_kernelILb0E" in k for k in kernels) == 1 and len(kernels) == 5
+    for group in (8, 32):
+        assert sum(f"rglru_scan_bwd_kernelILi{group}ELb1E" in k for k in kernels) == 1
+        assert sum(f"rglru_scan_bwd_kernelILi{group}ELb0E" in k for k in kernels) == 1
+    assert sum("bwd_chain_probe_kernel" in k for k in kernels) == 1 and len(kernels) == 8
 
 
 def test_smoke_model_served_on_the_card_matches_the_cpu(cuda_device):
@@ -1114,21 +1117,58 @@ def test_flash_bwd_kernel_is_deterministic(cuda_device):
     assert sum("kernelIfLi" in k for k in kernels) == 6                    # f32 dk/dv and dq
 
 
+def _rglru_bwd_operands(b, t, d, with_h0, device):
+    from repro_torch.kernels import rglru as rg
+
+    g = torch.Generator(device=device).manual_seed(t + d)
+    a = torch.rand((b, t, d), generator=g, device=device)
+    xb = torch.randn((b, t, d), generator=g, device=device)
+    h0 = torch.randn((b, d), generator=g, device=device) if with_h0 else None
+    y = rg.scan_torch(a, xb, h0)
+    dy = torch.randn((b, t, d), generator=g, device=device)
+    return a, y, h0, dy, torch.randn((b, d), generator=g, device=device)
+
+
+# the training shape (1, 4096, 2560) takes 8 channels a warp, its ragged twin
+# a partial first tile and a ragged group, batch 4 the 32-channel grid; 31 and
+# 66 are no multiple of a group
 @pytest.mark.parametrize("b,t,d,with_h0", [(2, 512, 64, True), (3, 1000, 200, False),
-                                           (2, 33, 31, True), (2, 1, 96, True)])
+                                           (2, 33, 31, True), (2, 1, 96, True),
+                                           (1, 4096, 2560, True), (1, 4096, 2560, False),
+                                           (1, 4097, 2562, True), (1, 4097, 2562, False),
+                                           (1, 1, 2560, True), (1, 1, 2560, False),
+                                           (4, 4096, 2560, True), (4, 4096, 2560, False),
+                                           (3, 33, 66, False)])
 def test_rglru_bwd_kernel_is_bit_equal_to_plain_version(cuda_device, b, t, d, with_h0):
     from repro_torch.kernels import rglru as rg
 
-    g = torch.Generator(device=cuda_device).manual_seed(t + d)
-    a = torch.rand((b, t, d), generator=g, device=cuda_device)
-    xb = torch.randn((b, t, d), generator=g, device=cuda_device)
-    h0 = torch.randn((b, d), generator=g, device=cuda_device) if with_h0 else None
-    y = rg.scan_torch(a, xb, h0)
-    dy = torch.randn((b, t, d), generator=g, device=cuda_device)
-    for dh in (None, torch.randn((b, d), generator=g, device=cuda_device)):
+    a, y, h0, dy, dh_last = _rglru_bwd_operands(b, t, d, with_h0, cuda_device)
+    for dh in (None, dh_last):
         got = rg.rglru_scan_bwd(a, y, h0, dy, dh)
         want = rg.scan_bwd_torch(a, y, h0, dy, dh)
         assert all(torch.equal(x, w) for x, w in zip(got, want))
+
+
+@pytest.mark.parametrize("group", [8, 32])
+@pytest.mark.parametrize("b,t,d", [(1, 4097, 2562), (2, 100, 2552), (3, 70, 31)])
+def test_rglru_bwd_kernel_is_bit_equal_in_every_group(cuda_device, group, b, t, d):
+    """Each group, 16-byte copies (2552) and element copies (2562, 31), is
+    held bit for bit, whichever the wrapper would pick at the shape."""
+    from repro_torch.kernels import rglru as rg
+
+    a, y, h0, dy, dh = _rglru_bwd_operands(b, t, d, True, cuda_device)
+    got = rg._launch_bwd_cuda(a, y, h0, dy, dh, group=group)
+    want = rg.scan_bwd_torch(a, y, h0, dy, dh)
+    assert all(torch.equal(x, w) for x, w in zip(got, want))
+
+
+def test_rglru_bwd_kernel_repeats_bit_for_bit_at_the_training_shape(cuda_device):
+    from repro_torch.kernels import rglru as rg
+
+    a, y, h0, dy, _ = _rglru_bwd_operands(1, 4096, 2560, False, cuda_device)
+    first = rg.rglru_scan_bwd(a, y, h0, dy)
+    again = rg.rglru_scan_bwd(a, y, h0, dy)
+    assert all(torch.equal(x, w) for x, w in zip(first, again))
 
 
 def test_smoke_training_step_on_the_card_matches_the_cpu(cuda_device):

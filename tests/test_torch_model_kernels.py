@@ -149,3 +149,26 @@ def test_rglru_keeps_the_input_type_and_an_fp32_state():
     assert y.dtype == torch.bfloat16 and h.dtype == torch.float32 and h.shape == (1, 8)
     with pytest.raises(ValueError, match="h0"):
         ops.rglru_scan(x, torch.zeros(8), g, g, torch.zeros(2, 8))
+
+
+@pytest.mark.parametrize("b,d,n_sms,group", [
+    (1, 2560, 132, 8),      # the training shape: 320 one-warp blocks (32 channels: 80)
+    (1, 2562, 132, 8),      # ... with a ragged group
+    (2, 2560, 132, 8),      # 160 blocks of 32 channels fall short of 264
+    (4, 2560, 132, 32),     # serving batch: 320 blocks of 32 channels
+    (1, 31, 132, 8),
+    (64, 2560, 132, 32),
+    (1, 8448, 132, 32),     # 264 blocks of 32 channels: two a SM
+    (1, 8447, 132, 32),
+    (1, 8416, 132, 8)])     # 263 of 32 fall short
+def test_rglru_bwd_group_pins_the_grid(b, d, n_sms, group):
+    """The reverse scan's channels a warp: 32 when its one-warp blocks put
+    two on every SM, else 8."""
+    assert rg.bwd_group(b, d, n_sms) == group
+    assert group in rg.BWD_GROUPS
+
+
+def test_rglru_bwd_launch_refuses_a_group_the_kernel_lacks():
+    a = torch.rand((1, 4, 8))
+    with pytest.raises(ValueError, match="group must be one of"):
+        rg._launch_bwd_cuda(a, a, None, a, None, group=12)
