@@ -29,6 +29,17 @@ every kernel against its plain PyTorch version on the card:
   over 8 kv heads of 128, d_ff 13824, vocab 152064, qkv biases, untied head),
   the same batch, prompts and tokens, through K2 at every layer's prefill
   and a linear KV cache for the decode;
+* model serving: the MoE, encoder-decoder and vision-token archs at their
+  published widths and depths, batch 4, 32 tokens, through K2 at every
+  attention of the prefill: granite-moe-1b-a400m (24 layers, d 1024, 16
+  heads over 8 kv heads of 64, 32 experts top 8 with the reference's dense
+  dispatch) over 4096-token prompts; whisper-medium (24 encoder and 24
+  decoder layers, d 1024, 16 heads of 64, LayerNorm, biased GELU MLPs) over
+  1500 stub-frontend frames with a 416-token decoder prompt (K2 non-causal in
+  the encoder, causal in the decoder, non-causal from the decoder over the
+  encoder: 72 launches); internvl2-26b (48 layers, d 6144, 48 heads over 8
+  kv heads of 128) over 4096-token prompts whose first 256 positions are
+  stub-frontend vision embeddings;
 * crash / resume of the device search: the device path's solve lost at a
   sync by a seeded plan, its checkpoint saved, loaded and resumed, equal to
   the run that never crashed;
@@ -51,7 +62,9 @@ Phases, one JSON line each:
                  and K4 (f32 1e-4; bf16 x/B/C: y 2e-2, h_last 1e-4) against
                  their plain versions, at the reference's test shapes, ragged
                  ones, T = 1 and the serving shapes (K2 also in bf16 at
-                 qwen2.5-14b's and codeqwen1.5-7b's causal d-128 prefills);
+                 qwen2.5-14b's and codeqwen1.5-7b's causal d-128 prefills,
+                 granite's and internvl2's GQA prefills and whisper's
+                 encoder, decoder and cross-attention shapes);
                  K2 bwd (dq, dk, dv: f32 1e-5 on the CUDA cores, bf16 2e-2 of
                  max |grad| on the tensor cores; rows that see no key get zero
                  dq) at the reference's gradient test shapes, ragged ones and
@@ -76,7 +89,11 @@ Phases, one JSON line each:
                  incumbents monotone across the seam, and the K1 launches the
                  profiler sees in the first resumed period held to the
                  captured round's nodes x rounds
-  model_serve    per arch (recurrentgemma-2b, mamba2-780m, then qwen2.5-14b): the
+  model_serve    per arch (recurrentgemma-2b, mamba2-780m, qwen2.5-14b, then
+                 granite-moe-1b-a400m, whisper-medium, internvl2-26b: these
+                 three, with K2's timings at their shapes first, run last,
+                 after train, in a child process, ``--slice-serves``, whose
+                 lines are relayed): the
                  full-width serve (launch counts of every model kernel
                  asserted), the card's kernel time by class over a profiled
                  prefill and 8 decode steps, and the serve held teacher-forced
@@ -84,16 +101,20 @@ Phases, one JSON line each:
                  mamba2-780m also the same check in float32, and the plain
                  version against itself at another chunk length (the
                  rounding noise of a correct bf16 path); for qwen2.5-14b
-                 the plain version against itself with attention summed in
-                 the reference TPU kernel's order (online softmax over
-                 128-key blocks)
+                 and the last three the plain version against itself with
+                 attention summed in the reference TPU kernel's order
+                 (online softmax over 128-key blocks); for granite also
+                 both readings with every run on the plain run's expert
+                 choice, held to the same factor in bf16 and in float32 (its
+                 random MoE can swap a token's 8th and 9th expert on one
+                 unit of rounding), and the swaps counted
   timing         K1, plain version, bound, its time per level against the
                  measured least cost of a level, and the host engine at the
                  main path's shape
   model_timing   K2 (recurrentgemma-2b's, qwen2.5-14b's and codeqwen1.5-7b's
-                 prefill shapes), K3 and K4 at the serving shapes: kernel, plain version,
-                 bound (K4's at the precision it computes in, and at the fp32
-                 rate), for K2 PyTorch's scaled_dot_product_attention, and
+                 prefill shapes), K3 and K4 at the serving shapes: kernel,
+                 plain version, bound (K4's at the precision it computes
+                 in, and at the fp32 rate), for K2 PyTorch's scaled_dot_product_attention, and
                  the K3 and K4 decode steps beside their bounds; K2 bwd and
                  K3 bwd at the training shape (K2 bwd, its four kernels with
                  the dk/dv and dq passes on the tensor cores, beside the
@@ -111,7 +132,8 @@ Phases, one JSON line each:
                  failing but by an injected fault), and the table2 sweep on
                  the device engine against the NumPy engine
 
-  train          (last) recurrentgemma-2b at full width: the plan (scan group,
+  train          (the last phase of this process) recurrentgemma-2b at full
+                 width: the plan (scan group,
                  save / offload / remat per class, estimated step time), step
                  1's loss and gradients held against the same step on the
                  plain versions (loss 1e-3, every gradient 2e-2 of its max
@@ -1867,7 +1889,30 @@ FLASH_SERVE = (SERVE_BATCH, SERVE_PROMPT, SERVE_PROMPT, 10, 1, 256, True, 2048, 
 QWEN_ARCH = "qwen2.5-14b"
 FLASH_QWEN = (SERVE_BATCH, SERVE_PROMPT, SERVE_PROMPT, 40, 8, 128, True, None, 0)
 FLASH_CODEQWEN = (SERVE_BATCH, SERVE_PROMPT, SERVE_PROMPT, 32, 32, 128, True, None, 0)
-FLASH_BF16_SHAPES = (FLASH_QWEN, FLASH_CODEQWEN)
+# the MoE, encoder-decoder and vision-token archs, served at published width
+# (bf16, batch 4, 32 tokens): granite-moe-1b-a400m and internvl2-26b over
+# 4096-token prompts (internvl2-26b's first 256 positions vision embeddings),
+# whisper-medium over its 1500 encoder frames (the published 30 s window after
+# the stubbed conv stem) with a 416-token decoder prompt, so prompt + generated
+# is its published decoder context of 448
+MOE_ARCH, ENCDEC_ARCH, VLM_ARCH = "granite-moe-1b-a400m", "whisper-medium", "internvl2-26b"
+WHISPER_PROMPT = 416
+# K2 at their prefills, d 64 for the first two archs: granite's GQA 16:8
+# causal; whisper's encoder (non-causal, 1500 = 11 x 128 + 92 kv rows), its
+# decoder's causal self-attention and its cross-attention (416 decoder rows
+# over the 1500 encoder rows, non-causal); internvl2's GQA 48:8 (a group of 6)
+FLASH_GRANITE = (SERVE_BATCH, SERVE_PROMPT, SERVE_PROMPT, 16, 8, 64, True, None, 0)
+FLASH_WHISPER_ENC = (SERVE_BATCH, 1500, 1500, 16, 16, 64, False, None, 0)
+FLASH_WHISPER_SELF = (SERVE_BATCH, WHISPER_PROMPT, WHISPER_PROMPT, 16, 16, 64, True, None, 0)
+FLASH_WHISPER_CROSS = (SERVE_BATCH, WHISPER_PROMPT, 1500, 16, 16, 64, False, None, 0)
+FLASH_INTERNVL2 = (SERVE_BATCH, SERVE_PROMPT, SERVE_PROMPT, 48, 8, 128, True, None, 0)
+# name in the kernels line -> shape
+FLASH_SLICE_SHAPES = {MOE_ARCH: FLASH_GRANITE, ENCDEC_ARCH + " encoder": FLASH_WHISPER_ENC,
+                      ENCDEC_ARCH + " decoder self": FLASH_WHISPER_SELF,
+                      ENCDEC_ARCH + " cross": FLASH_WHISPER_CROSS, VLM_ARCH: FLASH_INTERNVL2}
+FLASH_BF16_SHAPES = (FLASH_QWEN, FLASH_CODEQWEN) + tuple(FLASH_SLICE_SHAPES.values())
+# ... and granite's in float32 too, the shape of its float32 gate
+FLASH_F32_SERVED = (FLASH_GRANITE,)
 # training: recurrentgemma-2b at its published width and depth, batch 1 of
 # 4096-token sequences (every attention layer reaches its 2048-token window)
 TRAIN_ARCH = "recurrentgemma-2b"
@@ -2131,7 +2176,8 @@ def phase_model_kernels(device):
     n_flash = 0
     both = (("float32", torch.float32), ("bfloat16", torch.bfloat16))
     cases = [(shape, both) for shape in FLASH_SHAPES + (FLASH_SERVE,)] + \
-        [(shape, both[1:]) for shape in FLASH_BF16_SHAPES]
+        [(shape, both[1:]) for shape in FLASH_BF16_SHAPES] + \
+        [(shape, both[:1]) for shape in FLASH_F32_SERVED]
     for i, (shape, dtypes) in enumerate(cases):
         for name, dtype in dtypes:
             q, k, v, kw = flash_operands(shape, dtype, device, seed=i)
@@ -2198,6 +2244,7 @@ def phase_model_kernels(device):
         flash_tolerance={**FLASH_TOL, "lse": FLASH_LSE_TOL},
         flash_shapes=[list(s) for s in FLASH_SHAPES + (FLASH_SERVE,)],
         flash_bf16_only_shapes=[list(s) for s in FLASH_BF16_SHAPES],
+        flash_f32_only_shapes=[list(s) for s in FLASH_F32_SERVED],
         rglru_checks=2 * len(RGLRU_SHAPES), rglru_max_abs_err=worst_rg,
         rglru_tolerance="0 (torch.equal), float32 and bfloat16 inputs",
         rglru_shapes=[list(s) for s in RGLRU_SHAPES],
@@ -2337,10 +2384,28 @@ def expected_launches(cfg, gen: int) -> dict:
     """Kernel launches of one serve of ``gen`` tokens: K2 once per attention
     layer, sliding-window or global (prefill only; decode reads the cache in
     PyTorch), K3 and K4 once per recurrent / SSM layer at the prefill and at
-    each of the gen - 1 steps."""
+    each of the gen - 1 steps.  An encoder-decoder: K2 once per encoder layer
+    and twice per decoder layer (self- and cross-attention), all at the
+    prefill."""
+    if cfg.encoder_layers:
+        return {"flash_attention": cfg.encoder_layers + 2 * cfg.n_layers, "rglru_scan": 0,
+                "ssd_chunked": 0}
     return {"flash_attention": cfg.kinds.count("attn_local") + cfg.kinds.count("attn"),
             "rglru_scan": cfg.kinds.count("rec") * gen,
             "ssd_chunked": cfg.kinds.count("ssm") * gen}
+
+
+def serve_prompt_len(cfg) -> int:
+    """The served prompt: the decoder's for an encoder-decoder, else 4096."""
+    return WHISPER_PROMPT if cfg.encoder_layers else SERVE_PROMPT
+
+
+def serve_batch(cfg, generator, device) -> dict:
+    """The served batch, drawn from ``generator`` as the launcher draws it:
+    tokens, and the stub frontends' frames or vision embeddings."""
+    from repro_torch.launch.model_serve import make_batch
+
+    return make_batch(cfg, SERVE_BATCH, serve_prompt_len(cfg), generator, device=device)
 
 
 def tpu_order_attention(q, k, v, *, causal: bool = True, window=None, q_offset: int = 0,
@@ -2410,7 +2475,7 @@ def plain_kernels(ssd_chunk: int | None = None, flash=None):
         ops.flash_attention, ops.rglru_scan, ops.ssd_chunked = orig
 
 
-def check_fixed_limit(cfg, model, prompts, ids, device, errs, plain) -> dict:
+def check_fixed_limit(cfg, model, batch, ids, device, errs, plain) -> dict:
     """recurrentgemma-2b: every step within ``TEACHER_FORCED_LIMIT``."""
     if not max(errs) <= TEACHER_FORCED_LIMIT:
         raise AssertionError(f"{cfg.arch_id}: served logits differ from the plain versions' by "
@@ -2418,13 +2483,14 @@ def check_fixed_limit(cfg, model, prompts, ids, device, errs, plain) -> dict:
     return {"teacher_forced_limit": TEACHER_FORCED_LIMIT}
 
 
-def check_attention_yardstick(cfg, model, prompts, ids, device, errs, plain) -> dict:
-    """qwen2.5-14b: every bf16 step within ``YARDSTICK_FACTOR`` times the worst
-    step of the plain versions with attention summed in the TPU kernel's
-    order (``tpu_order_attention``) against the plain versions; whether the
-    steps also met ``TEACHER_FORCED_LIMIT`` is reported, not gated."""
+def check_attention_yardstick(cfg, model, batch, ids, device, errs, plain) -> dict:
+    """qwen2.5-14b (and the MoE, encoder-decoder and vision archs): every
+    bf16 step within ``YARDSTICK_FACTOR`` times the worst step of the plain
+    versions with attention summed in the TPU kernel's order
+    (``tpu_order_attention``) against the plain versions; whether the steps
+    also met ``TEACHER_FORCED_LIMIT`` is reported, not gated."""
     with plain_kernels(flash=tpu_order_attention):
-        other = teacher_forced_logits(cfg, model, prompts, ids, device)
+        other = teacher_forced_logits(cfg, model, batch, ids, device)
     yardstick = [rel_err(a, b) for a, b in zip(other, plain)]
     del other
     limit = YARDSTICK_FACTOR * max(yardstick)
@@ -2439,12 +2505,112 @@ def check_attention_yardstick(cfg, model, prompts, ids, device, errs, plain) -> 
             "fixed_limit_held": max(errs) <= TEACHER_FORCED_LIMIT}
 
 
-def check_against_yardstick(cfg, model, prompts, ids, device, errs, plain) -> dict:
+def check_moe_yardstick(cfg, model, batch, ids, device, errs, plain) -> dict:
+    """granite-moe-1b-a400m: the gate of ``check_attention_yardstick``, then
+    ``routing_readings`` held by ``hold_pinned``, in bf16 and on the model in
+    float32 (random weights from seed 0).  The random MoE routes each token
+    to its top 8 of 32 experts, and a change of one unit in an attention
+    output can move a token's 8th and 9th router logits past each other: with
+    each run on its own expert choice the plain versions against themselves
+    in another order may differ by as much as the logits themselves, and the
+    first gate then bounds little.  With every run on the plain run's expert
+    choice only the attention's rounding is left."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.models import arch_init_params
+
+    out = check_attention_yardstick(cfg, model, batch, ids, device, errs, plain)
+    bf16 = hold_pinned(cfg.arch_id, "bf16", routing_readings(cfg, model, batch, ids, device))
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    model32 = arch_init_params(cfg32, torch.Generator(device=device).manual_seed(0),
+                               device=device)
+    f32 = hold_pinned(cfg.arch_id, "float32",
+                      routing_readings(cfg32, model32, batch, ids, device))
+    del model32
+    torch.cuda.empty_cache()
+    return {**out, "routing_bf16": bf16, "routing_float32": f32}
+
+
+@contextlib.contextmanager
+def pinned_routing(routes: list, mode: str):
+    """The MoE's expert choice against a recorded run's (for the comparison
+    only: the port itself has no such route).  ``mode`` "record": each router
+    call appends its top-k ids to ``routes``; "free": each call keeps its own
+    ids; "pin": each call takes the next recorded ids in place of its own.
+    Yields a list that gains, in the last two modes, the number of tokens of
+    each call whose own top-k set differs from the recorded one."""
+    from repro_torch.models import blocks
+
+    orig = blocks.moe_route
+    recorded = None if mode == "record" else iter(routes)
+    swaps: list[int] = []
+
+    def route(cfg, p, x):
+        logits, top_i = orig(cfg, p, x)
+        if recorded is None:
+            routes.append(top_i)
+            return logits, top_i
+        want = next(recorded, None)
+        if want is None:
+            raise AssertionError(f"more router calls than the {len(routes)} recorded")
+        swaps.append(int((top_i.sort(-1).values != want.sort(-1).values).any(-1).sum()))
+        return logits, want if mode == "pin" else top_i
+
+    blocks.moe_route = route
+    try:
+        yield swaps
+    finally:
+        blocks.moe_route = orig
+    if recorded is not None and len(swaps) != len(routes):
+        raise AssertionError(f"{len(swaps)} router calls against {len(routes)} recorded")
+
+
+def routing_readings(cfg, model, batch, ids, device) -> dict:
+    """``model`` teacher-forced with the served ids through the kernels, and
+    through the plain versions with attention in the TPU kernel's order, each
+    against the plain versions (max |diff| / max |logit| per step): on each
+    run's own expert choice ("free"), and on the plain run's ("pinned").
+    ``swaps`` counts the (layer, token) routings whose top-k set differs from
+    the plain run's, out of ``routings``: in a free run a swap changes the
+    input of every later layer, in a pinned one each layer sees the plain
+    run's routing upstream."""
+    routes: list = []
+    with plain_kernels(), pinned_routing(routes, "record"):
+        plain = teacher_forced_logits(cfg, model, batch, ids, device)
+    out = {"routings": sum(r[..., 0].numel() for r in routes)}
+    for mode, key in (("free", "free"), ("pin", "pinned")):
+        for name, ctx in (("kernels", contextlib.nullcontext),
+                          ("tpu_order", lambda: plain_kernels(flash=tpu_order_attention))):
+            with ctx(), pinned_routing(routes, mode) as swaps:
+                got = teacher_forced_logits(cfg, model, batch, ids, device)
+            out[f"{key}_{name}_rel_err"] = [rel_err(a, b) for a, b in zip(got, plain)]
+            out[f"{key}_{name}_swaps"] = sum(swaps)
+            del got
+    return out
+
+
+def hold_pinned(arch: str, what: str, readings: dict) -> dict:
+    """Every step of the kernels on the plain run's expert choice within
+    ``YARDSTICK_FACTOR`` times the worst step of the TPU-order run on it; the
+    readings with their limit."""
+    limit = YARDSTICK_FACTOR * max(readings["pinned_tpu_order_rel_err"])
+    worst = max(readings["pinned_kernels_rel_err"])
+    if not worst <= limit:
+        raise AssertionError(f"{arch} ({what}, routing pinned to the plain run's): served "
+                             f"logits differ from the plain versions' by {worst:.3g} of max "
+                             f"|logit|, more than {YARDSTICK_FACTOR} x the plain versions' own "
+                             f"{limit / YARDSTICK_FACTOR:.3g} in the TPU kernel's order")
+    return {**readings, "pinned_limit": limit}
+
+
+def check_against_yardstick(cfg, model, batch, ids, device, errs, plain) -> dict:
     """mamba2-780m: every bf16 step within ``YARDSTICK_FACTOR`` times the worst
     step of the plain versions against themselves with the SSD at
     ``YARDSTICK_CHUNK``, then the float32 check."""
     with plain_kernels(ssd_chunk=YARDSTICK_CHUNK):
-        other = teacher_forced_logits(cfg, model, prompts, ids, device)
+        other = teacher_forced_logits(cfg, model, batch, ids, device)
     yardstick = [rel_err(a, b) for a, b in zip(other, plain)]
     del other
     limit = YARDSTICK_FACTOR * max(yardstick)
@@ -2455,10 +2621,10 @@ def check_against_yardstick(cfg, model, prompts, ids, device, errs, plain) -> di
                              f"{YARDSTICK_CHUNK}")
     return {"teacher_forced_limit": limit,
             "plain_vs_plain_other_chunk_rel_err": yardstick,
-            **float32_teacher_forced(cfg, prompts, ids, device)}
+            **float32_teacher_forced(cfg, batch, ids, device)}
 
 
-def float32_teacher_forced(cfg, prompts, ids, device) -> dict:
+def float32_teacher_forced(cfg, batch, ids, device) -> dict:
     """The full-width model in float32 (random weights from seed 0), teacher-
     forced with the served ids through the kernels and through the plain
     versions; raises past ``FLOAT32_TEACHER_FORCED_LIMIT``."""
@@ -2470,9 +2636,9 @@ def float32_teacher_forced(cfg, prompts, ids, device) -> dict:
 
     cfg32 = dataclasses.replace(cfg, dtype="float32")
     model = arch_init_params(cfg32, torch.Generator(device=device).manual_seed(0), device=device)
-    kern = teacher_forced_logits(cfg32, model, prompts, ids, device)
+    kern = teacher_forced_logits(cfg32, model, batch, ids, device)
     with plain_kernels():
-        plain = teacher_forced_logits(cfg32, model, prompts, ids, device)
+        plain = teacher_forced_logits(cfg32, model, batch, ids, device)
     errs = [rel_err(a, b) for a, b in zip(kern, plain)]
     del model, kern, plain
     torch.cuda.empty_cache()
@@ -2483,14 +2649,14 @@ def float32_teacher_forced(cfg, prompts, ids, device) -> dict:
     return {"float32_teacher_forced_rel_err": errs, "float32_teacher_forced_limit": limit}
 
 
-def teacher_forced_logits(cfg, model, prompts, ids, device):
-    """Prefill logits and each decode step's logits, feeding the served ids."""
+def teacher_forced_logits(cfg, model, batch, ids, device):
+    """Prefill logits of ``batch`` and each decode step's logits, feeding the
+    served ids."""
     from repro_torch.models import arch_decode_step
     from repro_torch.runtime import make_prefill_step
 
-    plen, gen = prompts.shape[1], ids.shape[1]
-    logits, cache = make_prefill_step(cfg, max_len=plen + gen, device=device)(
-        model, {"tokens": prompts})
+    plen, gen = batch["tokens"].shape[1], ids.shape[1]
+    logits, cache = make_prefill_step(cfg, max_len=plen + gen, device=device)(model, batch)
     out = [logits.float()]
     for i in range(gen - 1):
         logits, cache = arch_decode_step(cfg, model, cache, ids[:, i:i + 1], plen + i)
@@ -2583,17 +2749,31 @@ def profiler_records_seen(fn, kernel: str, reps: int, acc_events: bool = False) 
 
 def memory_reckoning(cfg, model) -> dict:
     """What a serve must hold, from the shapes: the weights as stored, and the
-    decode cache of the batch at prompt + generated length."""
+    decode cache of the batch at prompt + generated length.  Beside them the
+    largest transients: the plain attention's fp32 score block (1024 q rows
+    x all keys, for every head; the plain version holds about three at once:
+    the scores, their masked copy and the exponentials) and, for a MoE, the
+    dense dispatch's (B, S, E, D) expert outputs in the working type; the
+    teacher-forced peak on the plain versions is reckoned as weights + cache
+    + three score blocks."""
     import math
 
     from repro_torch.models import arch_cache_defs
 
     itemsize = 2 if cfg.dtype == "bfloat16" else 4
+    plen = serve_prompt_len(cfg)
     cache = sum(math.prod(shape) * (4 if fp32 else itemsize)
-                for layer in arch_cache_defs(cfg, SERVE_BATCH, SERVE_PROMPT + SERVE_GEN)
+                for layer in arch_cache_defs(cfg, SERVE_BATCH, plen + SERVE_GEN)
                 for shape, fp32 in layer.values())
     weights = sum(p.numel() * p.element_size() for p in model.parameters())
-    return {"weights_bytes": weights, "decode_cache_bytes": cache}
+    skv = max(plen, cfg.n_frames if cfg.encoder_layers else 0)
+    block = SERVE_BATCH * cfg.n_heads * min(1024, skv) * skv * 4
+    out = {"weights_bytes": weights, "decode_cache_bytes": cache,
+           "plain_attention_score_block_bytes": block,
+           "teacher_forced_plain_peak_bytes": weights + cache + 3 * block}
+    if cfg.n_experts:
+        out["moe_dispatch_bytes"] = SERVE_BATCH * plen * cfg.n_experts * cfg.d_model * itemsize
+    return out
 
 
 def phase_model_serve(device, arch: str, check):
@@ -2613,8 +2793,8 @@ def phase_model_serve(device, arch: str, check):
     t0 = time.perf_counter()
     gen = torch.Generator(device=device).manual_seed(0)
     model = arch_init_params(cfg, gen, device=device)
-    prompts = torch.randint(1, cfg.vocab_size, (SERVE_BATCH, SERVE_PROMPT), generator=gen,
-                            device=device)
+    batch = serve_batch(cfg, gen, device)
+    plen = batch["tokens"].shape[1]
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
     n_params = sum(p.numel() for p in model.parameters())
@@ -2622,11 +2802,11 @@ def phase_model_serve(device, arch: str, check):
 
     # first serve: library handles, lazy module loads and the allocator's
     # first growth land here; it is reported, the second one is the reading
-    first = serve(cfg, model, prompts, 2, device=device)
+    first = serve(cfg, model, batch, 2, device=device)
     torch.cuda.reset_peak_memory_stats(device)
     for fn in wrappers.values():
         fn.launches = 0
-    res = serve(cfg, model, prompts, SERVE_GEN, device=device)
+    res = serve(cfg, model, batch, SERVE_GEN, device=device)
     launches = {name: fn.launches for name, fn in wrappers.items()}
     peak = torch.cuda.max_memory_allocated(device)
     want = expected_launches(cfg, SERVE_GEN)
@@ -2637,34 +2817,36 @@ def phase_model_serve(device, arch: str, check):
         raise AssertionError(f"served ids out of range or misshapen: {res.ids.shape}")
 
     # where the card's time goes: one prefill, then 8 decode steps, profiled
-    prefill = make_prefill_step(cfg, max_len=SERVE_PROMPT + SERVE_GEN, device=device)
+    prefill = make_prefill_step(cfg, max_len=plen + SERVE_GEN, device=device)
     step = make_serve_step(cfg, device=device)
     held = {}
 
     def do_prefill():
-        held["logits"], held["cache"] = prefill(model, {"tokens": prompts})
+        held["logits"], held["cache"] = prefill(model, batch)
 
     def do_decode():
         tok, cache = next_token(cfg, held["logits"])[:, None], held["cache"]
         for i in range(8):
-            tok, cache = step(model, cache, tok, SERVE_PROMPT + i)
+            tok, cache = step(model, cache, tok, plen + i)
 
     profile = {"prefill": device_breakdown(do_prefill), "decode_8_steps": device_breakdown(do_decode)}
     del held
 
     # teacher-forced against the same model on the plain versions
     ids = torch.from_numpy(res.ids).to(device)
-    kern = teacher_forced_logits(cfg, model, prompts, ids, device)
+    torch.cuda.reset_peak_memory_stats(device)
+    kern = teacher_forced_logits(cfg, model, batch, ids, device)
     with plain_kernels():
         before = {name: fn.launches for name, fn in wrappers.items()}
-        plain = teacher_forced_logits(cfg, model, prompts, ids, device)
+        plain = teacher_forced_logits(cfg, model, batch, ids, device)
         if {name: fn.launches for name, fn in wrappers.items()} != before:
             raise AssertionError("the plain-version run launched a kernel")
+    plain_peak = torch.cuda.max_memory_allocated(device)
     errs = [rel_err(a, b) for a, b in zip(kern, plain)]
     for i, (a, b) in enumerate(zip(kern, plain)):
         if not bool(torch.isfinite(a).all()):
             raise AssertionError(f"non-finite logits at step {i}")
-    readings = check(cfg, model, prompts, ids, device, errs, plain)
+    readings = check(cfg, model, batch, ids, device, errs, plain)
     served_again = torch.stack([a[:, :cfg.vocab_size].argmax(-1) for a in kern], 1).cpu()
     plain_greedy = torch.stack([b[:, :cfg.vocab_size].argmax(-1) for b in plain], 1).cpu()
     del kern, plain, model
@@ -2672,12 +2854,16 @@ def phase_model_serve(device, arch: str, check):
 
     say("model_serve", arch=arch, layers=cfg.n_layers, d_model=cfg.d_model,
         vocab=cfg.vocab_size, params=n_params, dtype=cfg.dtype, batch=SERVE_BATCH,
-        prompt_len=SERVE_PROMPT, gen=SERVE_GEN, window=cfg.attn_window,
+        prompt_len=plen, gen=SERVE_GEN, window=cfg.attn_window,
+        encoder_layers=cfg.encoder_layers,
+        n_frames=cfg.n_frames if cfg.encoder_layers else None,
+        n_vis_tokens=cfg.n_vis_tokens, n_experts=cfg.n_experts, top_k=cfg.top_k,
         launches=launches, expected_launches=want,
         prefill_ms=res.prefill_s * 1e3, decode_ms_per_step=res.decode_ms_per_step,
         first_serve_prefill_ms=first.prefill_s * 1e3,
         decode_steps=res.steps, tok_per_s=res.tokens_per_s,
-        max_memory_allocated_bytes=peak, memory_reckoned=reckoned, init_s=init_s,
+        max_memory_allocated_bytes=peak, memory_reckoned=reckoned,
+        teacher_forced_max_memory_allocated_bytes=plain_peak, init_s=init_s,
         teacher_forced_rel_err=errs,
         served_ids_reproduced_teacher_forced=bool((served_again == torch.from_numpy(res.ids)).all()),
         greedy_tokens_same_on_plain_versions=int((plain_greedy == torch.from_numpy(res.ids)).sum()),
@@ -2685,10 +2871,81 @@ def phase_model_serve(device, arch: str, check):
         note="prefill_ms: prompt forward + first token, synchronised, in the second "
              "serve of the process (first_serve_prefill_ms: the first, with set-up); "
              "decode: 31 steps of one token each; max_memory_allocated over the second "
-             "serve; rel_err = max |diff| / max |logit| per step; device_profile: "
+             "serve (teacher_forced_max_memory_allocated over the kernel and plain "
+             "teacher-forced runs); rel_err = max |diff| / max |logit| per step; device_profile: "
              "torch.profiler kernel time by class over one prefill and over 8 decode "
              "steps (wall includes the profiler's own host cost)")
     return launches
+
+
+SLICE_CHECKS = ((MOE_ARCH, "check_moe_yardstick"), (ENCDEC_ARCH, "check_attention_yardstick"),
+                (VLM_ARCH, "check_attention_yardstick"))
+
+
+def slice_serves(device) -> dict:
+    """K2 at the MoE, encoder-decoder and vision-token archs' five prefill
+    shapes (``flash_timing``), then their serves (``phase_model_serve`` with
+    each arch's check): the timings, K2's launches on each serve's path, and
+    the seconds of each."""
+    seconds = {}
+    t0 = time.perf_counter()
+    timings = {name: flash_timing(shape, device, seed=16 + i)
+               for i, (name, shape) in enumerate(FLASH_SLICE_SHAPES.items())}
+    seconds["flash_timing"] = time.perf_counter() - t0
+    say("slice_timing", flash_attention=timings,
+        note="K2 in bf16 at granite's, whisper's (encoder, decoder self, cross) and "
+             "internvl2's prefill shapes, timed as model_timing times K2, before the "
+             "serves' large profiled windows")
+    launches = {}
+    for arch, check in SLICE_CHECKS:
+        t0 = time.perf_counter()
+        launches[arch] = phase_model_serve(device, arch, globals()[check])
+        seconds["model_serve " + arch] = time.perf_counter() - t0
+    return {"launches": launches, "timings": timings, "phase_seconds": seconds}
+
+
+def slice_serves_main() -> int:
+    """``python3 chip_smoke.py --slice-serves``: :func:`slice_serves` in a
+    process of its own, on the kernels the parent built; its result is the
+    last line."""
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke.py needs an NVIDIA GPU: torch.cuda.is_available() is False",
+              file=sys.stderr)
+        return 1
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    print(json.dumps(slice_serves(torch.device("cuda", 0))), flush=True)
+    return 0
+
+
+def phase_slice_serves() -> dict:
+    """:func:`slice_serves` in a child process (``--slice-serves``), whose
+    lines are relayed; run after this process's last profiled window.
+    Within one process torch.profiler loses the records of whole later
+    windows once many windows have been taken: with these serves in the
+    same process (their profiled decodes take 20,000 to 38,000 kernels a
+    window) ``model_timing`` saw 0 of 20 launches in three windows in a row;
+    with them in a child between qwen2.5-14b's serve and ``model_timing``,
+    the same; with ``model_timing`` moved before the serves, ``seq_cumsum``'s
+    profiled window recorded nothing.  A fresh process after such a child
+    kept every record."""
+    import gc
+
+    import torch
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    proc = subprocess.run([sys.executable, str(Path(__file__).resolve()), "--slice-serves"],
+                          capture_output=True, text=True, timeout=900, cwd=ROOT)
+    sys.stderr.write(proc.stderr)
+    lines = proc.stdout.strip().splitlines()
+    for line in lines[:-1]:
+        print(line, flush=True)
+    if proc.returncode != 0 or not lines:
+        raise AssertionError(f"the slice's serves failed (exit {proc.returncode})")
+    return json.loads(lines[-1])
 
 
 def sdpa_backend(q, k, v, mask, is_causal: bool = False) -> str:
@@ -2704,11 +2961,30 @@ def sdpa_backend(q, k, v, mask, is_causal: bool = False) -> str:
     return names.get(code, f"code {code}")
 
 
+def sdpa_args(q, k, causal: bool, window, q_offset: int) -> dict:
+    """PyTorch's scaled_dot_product_attention arguments for K2's mask:
+    ``is_causal`` where that is the mask (no window, Sq = Skv, no offset:
+    causal or not), else the mask as a boolean ``attn_mask``."""
+    import torch
+
+    sq, skv = q.shape[1], k.shape[1]
+    if window is None and not (causal and (sq != skv or q_offset)):
+        return {"is_causal": causal}
+    q_pos = q_offset + torch.arange(sq, device=q.device)[:, None]
+    k_pos = torch.arange(skv, device=q.device)[None, :]
+    mask = torch.ones((sq, skv), dtype=torch.bool, device=q.device)
+    if causal:
+        mask &= k_pos <= q_pos
+    if window is not None:
+        mask &= k_pos > q_pos - window
+    return {"attn_mask": mask}
+
+
 def flash_timing(shape, device, seed: int) -> dict:
     """K2 in bf16 at a serving shape: kernel (events, and the profiler's
     device time), plain version, bound, and PyTorch's
-    scaled_dot_product_attention (``is_causal`` without a window, else the
-    causal band as a mask, built outside the timing)."""
+    scaled_dot_product_attention on the same mask (``sdpa_args``; a mask is
+    built outside the timing)."""
     import torch
     import torch.nn.functional as F
 
@@ -2727,21 +3003,17 @@ def flash_timing(shape, device, seed: int) -> dict:
     qt = q.transpose(1, 2)
     kt = k.transpose(1, 2).repeat_interleave(g, dim=1).contiguous()
     vt = v.transpose(1, 2).repeat_interleave(g, dim=1).contiguous()
-    sdpa = {"is_causal": True}
-    if kw["window"] is not None:
-        pos = torch.arange(q.shape[1], device=device)
-        sdpa = {"attn_mask": (pos[None, :] <= pos[:, None])
-                & (pos[None, :] > pos[:, None] - kw["window"])}
+    sdpa = sdpa_args(q, k, **kw)
     lib_ms = cuda_median_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt, **sdpa),
                             reps=20, warmup=3)
     lib_out = F.scaled_dot_product_attention(qt, kt, vt, **sdpa).transpose(1, 2)
     lib_err = float((lib_out.float() - kernel().float()).abs().max())
     backend = sdpa_backend(qt, kt, vt, sdpa.get("attn_mask"), sdpa.get("is_causal", False))
+    how = "mask" if "attn_mask" in sdpa else f"is_causal={sdpa['is_causal']}"
     del qt, kt, vt, lib_out
     return {"ms": ms, "device_ms": dev_ms, "plain_ms": plain_ms,
             **flash_bound(q, k, v, **kw), "library_ms": lib_ms,
-            "library": f"scaled_dot_product_attention ({backend}, "
-                       f"{'is_causal' if 'is_causal' in sdpa else 'band mask'}), "
+            "library": f"scaled_dot_product_attention ({backend}, {how}), "
                        "kv heads expanded and any mask built outside the timing",
             "library_max_abs_diff": lib_err, "shape": list(shape), "dtype": "bfloat16"}
 
@@ -2820,7 +3092,8 @@ def phase_model_timing(device):
     say("model_timing", **out,
         note="ms: median of 20 launches (plain version: 3) timed with CUDA events after "
              "warm-up, inputs resident on the card; flash_attention (recurrentgemma-2b's "
-             "shape) and its qwen2.5-14b / codeqwen1.5-7b shapes: device_ms the bf16 "
+             "shape) and its qwen2.5-14b / codeqwen1.5-7b shapes (granite's, whisper's and "
+             "internvl2's: in the slice_timing line): device_ms the bf16 "
              "kernel's mean device time over 20 launches from torch.profiler; "
              "rglru device_ms: the scan kernel's "
              "mean device time over 20 launches from torch.profiler (the gate math is "
@@ -3410,10 +3683,16 @@ def main() -> int:
     timing = timed("timing", phase_timing, device, max_rows)
     mtime = timed("model_timing", phase_model_timing, device)
     service_launches = timed("solve_service", phase_solve_service, device)
-    # last: after its profiled full-width step the profiler has been seen to
-    # drop most kernel records of later windows (6 of 20 launches), which
-    # the earlier phases' profiled gates and timings must not meet
+    # last in this process: after its profiled full-width step the profiler
+    # has been seen to drop most kernel records of later windows (6 of 20
+    # launches), which the earlier phases' profiled gates and timings must
+    # not meet
     train = timed("train", phase_train, device)
+    # then the MoE, encoder-decoder and vision serves in a process of their
+    # own, once this one has taken its last profiled window
+    slice_out = timed("slice_serves", phase_slice_serves)
+    phase_s.update(slice_out["phase_seconds"])
+    slice_launches, slice_times = slice_out["launches"], slice_out["timings"]
 
     fwd, tails = timing["forward"], timing["tails"]
     by_path = launches_by_path({"main_path": {"schedule_dp": launches},
@@ -3452,15 +3731,19 @@ def main() -> int:
                                 "launches_by_path": {
                                     "model_serve " + QWEN_ARCH: qwen_launches["flash_attention"],
                                     "model_serve " + ARCH: model_launches["flash_attention"],
+                                    **{"model_serve " + arch: got["flash_attention"]
+                                       for arch, got in slice_launches.items()},
                                     "train": tl["flash_attention"]},
                                 "library": fq["library"], "shape": fq["shape"],
                                 "dtype": "bfloat16", "device_ms": fq["device_ms"],
                                 "shape_" + ARCH: {k: fl[k] for k in (
                                     "shape", "ms", "device_ms", "plain_ms", "bound_ms",
                                     "bound_by", "library_ms", "library")},
-                                "shape_codeqwen1.5-7b": {k: fc[k] for k in (
+                                **{"shape_" + name: {k: t[k] for k in (
                                     "shape", "ms", "device_ms", "plain_ms", "bound_ms",
-                                    "bound_by", "library_ms", "library")}},
+                                    "bound_by", "library_ms", "library")}
+                                   for name, t in (("codeqwen1.5-7b", fc),
+                                                   *slice_times.items())}},
             "flash_attention_bwd": {
                 "path": "train", "launches_per_step": train["launches_per_step"][
                     "flash_attention_bwd"],
@@ -3522,4 +3805,4 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(slice_serves_main() if sys.argv[1:] == ["--slice-serves"] else main())

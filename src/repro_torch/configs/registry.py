@@ -2,12 +2,15 @@
 data) and their reduced smoke variants (same family, tiny dims) for CPU tests.
 
 All ten architectures are here, because the planner (``plan/``) and the
-``residency`` / ``pipeline`` instance families read any of them; the model
-path runs those in ``PORTED_ARCH_IDS`` (recurrentgemma-2b: rec +
-attn_local; mamba2-780m: ssm; the global-attention decoders qwen2.5-14b,
-codeqwen1.5-7b and qwen1.5-32b: attn), and
-``models.decoder.check_supported`` refuses the others, naming what they wait
-for.
+``residency`` / ``pipeline`` instance families read any of them.  The model
+path serves those in ``PORTED_ARCH_IDS``: recurrentgemma-2b (rec +
+attn_local), mamba2-780m (ssm), the global-attention decoders qwen2.5-14b,
+codeqwen1.5-7b and qwen1.5-32b (attn), the MoE decoders granite-moe-1b-a400m
+(attn) and mixtral-8x7b (sliding-window attn_local), the vision-language
+internvl2-26b (attn, vision tokens) and the encoder-decoder whisper-medium
+(``models.encdec``).  llama3-405b's kinds run too, at its smoke config; at
+full width it fits no single card.  ``models.decoder.check_supported``
+refuses what training does not run yet, naming what it waits for.
 """
 from __future__ import annotations
 
@@ -29,9 +32,10 @@ ARCH_IDS = (
     "internvl2-26b",
 )
 
-# archs whose layer kinds (rec, attn_local, ssm, attn) the port runs
+# archs the port's model path serves
 PORTED_ARCH_IDS = ("recurrentgemma-2b", "mamba2-780m", "qwen2.5-14b", "codeqwen1.5-7b",
-                   "qwen1.5-32b")
+                   "qwen1.5-32b", "granite-moe-1b-a400m", "whisper-medium", "internvl2-26b",
+                   "mixtral-8x7b")
 
 _MODULE_OF = {a: a.replace(".", "_").replace("-", "_") for a in ARCH_IDS}
 

@@ -14,8 +14,14 @@ A model's parameters travel as the reference's nested parameter tree of
 arrays: heterogeneous stacks as ``periods/slot_j/...`` stacked on a leading
 axis of pattern periods plus unrolled ``tail_XXX`` layers, uniform stacks as
 ``layers/...`` stacked on a leading axis of layers, otherwise
-``layer_XXX``; ``tok_emb`` and ``ln_f_w`` at the top.  The port's state dict
-names layer ``i`` ``layers.{i}.<path>`` (:mod:`repro_torch.models.decoder`).
+``layer_XXX``; ``tok_emb`` and ``ln_f_w`` (``ln_f_b``) at the top.  The
+port's state dict names layer ``i`` ``layers.{i}.<path>``
+(:mod:`repro_torch.models.decoder`).  An encoder-decoder's tree stacks
+``enc_layers/...`` and ``dec_layers/...`` on a leading axis of layers, with
+``tok_emb``, ``pos_emb`` and the final norms at the top; the port names
+``enc_layers.{i}.<path>`` and ``dec_layers.{i}.<path>``
+(:mod:`repro_torch.models.encdec`).  MoE expert stacks ``(E, d, f)``, the
+router and every bias travel as they are.
 """
 from __future__ import annotations
 
@@ -95,9 +101,20 @@ def solution_to_arrays(sol: Solution) -> dict:
             "proc_seq_indptr": indptr, "proc_seq_idx": idx}
 
 
+def _stacks(cfg) -> dict:
+    """The port's layer lists by name (its state dict's prefix), each with,
+    for every layer index, the path of its subtree in the reference's tree
+    and its index on the stacked axis (None if unstacked)."""
+    if cfg.encoder_layers:
+        return {"enc_layers": [(("enc_layers",), i) for i in range(cfg.encoder_layers)],
+                "dec_layers": [(("dec_layers",), i) for i in range(cfg.n_layers)]}
+    return {"layers": _layer_sources(cfg)}
+
+
 def _layer_sources(cfg):
-    """For each layer index: the path of its subtree in the reference's
-    parameter tree and its index on the stacked axis (None if unstacked)."""
+    """For each layer index of a decoder: the path of its subtree in the
+    reference's parameter tree and its index on the stacked axis (None if
+    unstacked)."""
     if cfg.uniform and cfg.scan_layers:
         return [(("layers",), i) for i in range(cfg.n_layers)]
     if cfg.period_scan:
@@ -118,17 +135,19 @@ def _flatten(tree: dict, prefix: str = "") -> dict:
 
 
 def model_params_from_arrays(cfg, tree: dict) -> dict:
-    """The reference's parameter tree of a decoder (arrays) -> the port's state
-    dict (CPU tensors, copies, in the arrays' type); load it with
-    ``Decoder.load_state_dict``, which casts to each parameter's type."""
-    sd = _flatten({k: v for k, v in tree.items()
-                   if k not in ("layers", "periods") and not k.startswith(("tail_", "layer_"))})
-    for i, (path, idx) in enumerate(_layer_sources(cfg)):
-        sub = tree
-        for key in path:
-            sub = sub[key]
-        for name, arr in _flatten(sub).items():
-            sd[f"layers.{i}.{name}"] = arr if idx is None else np.asarray(arr)[idx]
+    """The reference's parameter tree of a model (arrays) -> the port's state
+    dict (CPU tensors, copies, in the arrays' type); load it with the model's
+    ``load_state_dict``, which casts to each parameter's type."""
+    stacks = _stacks(cfg)
+    roots = {path[0] for sources in stacks.values() for path, _ in sources}
+    sd = _flatten({k: v for k, v in tree.items() if k not in roots})
+    for prefix, sources in stacks.items():
+        for i, (path, idx) in enumerate(sources):
+            sub = tree
+            for key in path:
+                sub = sub[key]
+            for name, arr in _flatten(sub).items():
+                sd[f"{prefix}.{i}.{name}"] = arr if idx is None else np.asarray(arr)[idx]
     return {k: torch.from_numpy(np.array(v, copy=True)) for k, v in sd.items()}
 
 
@@ -138,28 +157,36 @@ def model_params_to_arrays(cfg, state_dict: dict) -> dict:
     def arr(t):
         return t.detach().float().cpu().numpy()
 
-    layer_of = {}
+    stacks = _stacks(cfg)
+    layer_of: dict = {}
     tree: dict = {}
     for name, t in state_dict.items():
-        if name.startswith("layers."):
+        prefix = name.split(".", 1)[0]
+        if prefix in stacks:
             _, i, rest = name.split(".", 2)
-            layer_of.setdefault(int(i), {})[rest] = arr(t)
+            layer_of.setdefault((prefix, int(i)), {})[rest] = arr(t)
         else:
             tree[name] = arr(t)
-    sources = _layer_sources(cfg)
     stacked: dict = {}
-    for i, (path, idx) in enumerate(sources):
-        for rest, a in layer_of[i].items():
-            if idx is None:
-                node = tree
-                for key in (*path, *rest.split(".")[:-1]):
-                    node = node.setdefault(key, {})
-                node[rest.split(".")[-1]] = a
-            else:
-                stacked.setdefault((path, rest), {})[idx] = a
+    for prefix, sources in stacks.items():
+        for i, (path, idx) in enumerate(sources):
+            _place(tree, stacked, path, idx, layer_of[(prefix, i)])
     for (path, rest), by_idx in stacked.items():
         node = tree
         for key in (*path, *rest.split(".")[:-1]):
             node = node.setdefault(key, {})
         node[rest.split(".")[-1]] = np.stack([by_idx[j] for j in sorted(by_idx)])
     return tree
+
+
+def _place(tree: dict, stacked: dict, path: tuple, idx, layer: dict) -> None:
+    """Put one layer's arrays at ``path`` of ``tree`` (unstacked), or gather
+    them by stacked index into ``stacked``."""
+    for rest, a in layer.items():
+        if idx is None:
+            node = tree
+            for key in (*path, *rest.split(".")[:-1]):
+                node = node.setdefault(key, {})
+            node[rest.split(".")[-1]] = a
+        else:
+            stacked.setdefault((path, rest), {})[idx] = a

@@ -1,19 +1,23 @@
 """Batched LLM token serving on the port: prefill a prompt batch, then decode
-with the caches.  Parameters and prompts are random, drawn from ``--seed``.
+with the caches.  Parameters, prompts and the stub frontends' inputs (audio
+frames, vision embeddings) are random, drawn from ``--seed``.
 
     PYTHONPATH=src python -m repro_torch.launch.model_serve --smoke --device cpu
     PYTHONPATH=src python -m repro_torch.launch.model_serve \\
         --batch 4 --prompt-len 4096 --gen 32          # qwen2.5-14b, full width, on the GPU
-    PYTHONPATH=src python -m repro_torch.launch.model_serve --arch recurrentgemma-2b \\
+    PYTHONPATH=src python -m repro_torch.launch.model_serve --arch whisper-medium \\
         --smoke --device cpu
-    PYTHONPATH=src python -m repro_torch.launch.model_serve --arch mamba2-780m \\
+    PYTHONPATH=src python -m repro_torch.launch.model_serve --arch internvl2-26b \\
         --batch 4 --prompt-len 4096 --gen 32          # full width, on the GPU
 
 The default ``--arch`` is the reference's, qwen2.5-14b.  The archs it serves
-are ``configs.PORTED_ARCH_IDS`` (recurrentgemma-2b, mamba2-780m, qwen2.5-14b,
-codeqwen1.5-7b, qwen1.5-32b; the last needs more memory than one 80 GB card
-holds at full width); another ``--arch`` raises a ``KeyError`` naming its
-slice.
+are ``configs.PORTED_ARCH_IDS``: recurrentgemma-2b, mamba2-780m, qwen2.5-14b,
+codeqwen1.5-7b, granite-moe-1b-a400m, whisper-medium, internvl2-26b, and
+qwen1.5-32b and mixtral-8x7b, which need more memory than one 80 GB card
+holds at full width (they run at ``--smoke``, as llama3-405b does).
+whisper-medium's prompt is the decoder's (its 1500 encoder frames come with
+the batch); internvl2-26b's first 256 prompt positions are vision
+embeddings.
 """
 from __future__ import annotations
 
@@ -30,7 +34,7 @@ from ..configs.registry import ARCH_IDS, get_config, get_smoke_config
 from ..models import arch_init_params
 from ..runtime import make_prefill_step, make_serve_step, next_token
 
-__all__ = ["ServeResult", "serve", "serve_main"]
+__all__ = ["ServeResult", "make_batch", "serve", "serve_main"]
 
 
 @dataclasses.dataclass
@@ -49,15 +53,35 @@ class ServeResult:
         return self.ids.shape[0] * self.steps / max(self.decode_s, 1e-9)
 
 
-def serve(cfg: ModelConfig, model, prompts: torch.Tensor, gen: int, *,
+def make_batch(cfg: ModelConfig, batch: int, prompt_len: int, generator: torch.Generator,
+               device: str | torch.device = "cuda") -> dict:
+    """A random serving batch from ``generator`` (on ``device``), as the
+    reference's launcher draws it: ``tokens (B, P)`` in [1, vocab), and the
+    stub frontends' outputs as unit normals, ``frames (B, n_frames, E)`` for
+    an encoder-decoder, ``vis_embeds (B, n_vis_tokens, E)`` for a
+    vision-language model."""
+    dev = resolve_device(device)
+    out = {"tokens": torch.randint(1, cfg.vocab_size, (batch, prompt_len), generator=generator,
+                                   device=dev)}
+    if cfg.encoder_layers:
+        out["frames"] = torch.randn((batch, cfg.n_frames, cfg.d_model), generator=generator,
+                                    device=dev)
+    if cfg.n_vis_tokens:
+        out["vis_embeds"] = torch.randn((batch, cfg.n_vis_tokens, cfg.d_model),
+                                        generator=generator, device=dev)
+    return out
+
+
+def serve(cfg: ModelConfig, model, batch: dict, gen: int, *,
           temperature: float = 0.0, generator: torch.Generator | None = None,
           device: str | torch.device = "cuda") -> ServeResult:
-    """Prefill ``prompts (B, P)``, then ``gen - 1`` decode steps; the first
+    """Prefill ``batch`` (``tokens (B, P)``, and ``frames`` or ``vis_embeds``
+    where the arch takes them), then ``gen - 1`` decode steps; the first
     generated token is the prefill's greedy pick, as in the reference."""
     if gen < 1:
         raise ValueError(f"gen must be >= 1, got {gen}")
     dev = resolve_device(device)
-    plen = prompts.shape[1]
+    plen = batch["tokens"].shape[1]
     prefill = make_prefill_step(cfg, max_len=plen + gen, device=dev)
     step = make_serve_step(cfg, temperature=temperature, device=dev)
 
@@ -67,7 +91,7 @@ def serve(cfg: ModelConfig, model, prompts: torch.Tensor, gen: int, *,
 
     sync()
     t0 = time.perf_counter()
-    logits, cache = prefill(model, {"tokens": prompts})
+    logits, cache = prefill(model, batch)
     tok = next_token(cfg, logits)[:, None]
     sync()
     t_prefill = time.perf_counter() - t0
@@ -98,11 +122,10 @@ def serve_main(argv=None) -> np.ndarray:
     cfg = get_smoke_config(args.arch) if args.smoke else get_config(args.arch)
     gen = torch.Generator(device=dev).manual_seed(args.seed)
     model = arch_init_params(cfg, gen, device=dev)
-    prompts = torch.randint(1, cfg.vocab_size, (args.batch, args.prompt_len),
-                            generator=gen, device=dev)
+    batch = make_batch(cfg, args.batch, args.prompt_len, gen, device=dev)
     if dev.type == "cuda":
         torch.cuda.reset_peak_memory_stats(dev)
-    res = serve(cfg, model, prompts, args.gen, temperature=args.temperature,
+    res = serve(cfg, model, batch, args.gen, temperature=args.temperature,
                 generator=gen, device=dev)
     peak = (f"; peak {torch.cuda.max_memory_allocated(dev) / 2**30:.2f} GiB allocated"
             if dev.type == "cuda" else "")

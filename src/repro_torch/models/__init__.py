@@ -1,10 +1,16 @@
-"""Model facade of the port: one API over the decoder-only archs it runs
-(recurrentgemma-2b, mamba2-780m and the global-attention decoders
-qwen2.5-14b, codeqwen1.5-7b and qwen1.5-32b: ``configs.PORTED_ARCH_IDS``).
+"""Model facade of the port: one API over the archs it runs
+(``configs.PORTED_ARCH_IDS``): the decoder-only recurrentgemma-2b,
+mamba2-780m, the global-attention decoders qwen2.5-14b, codeqwen1.5-7b and
+qwen1.5-32b, the MoE decoders granite-moe-1b-a400m and mixtral-8x7b, the
+vision-language internvl2-26b, and the encoder-decoder whisper-medium.
 
-``batch`` dicts carry ``tokens (B, S)``.  Parameters live in a
-:class:`~repro_torch.models.decoder.Decoder` module; every entry point takes
-an explicit device, ``"cuda"`` by default (which raises without a GPU).
+``batch`` dicts carry ``tokens (B, S)``, and ``frames (B, F, E)`` for the
+audio encoder-decoder or ``vis_embeds (B, Nv, E)`` for the vision-language
+model (their frontends are stubs, as in the reference).  Parameters live in
+a :class:`~repro_torch.models.decoder.Decoder` module, or an
+:class:`~repro_torch.models.encdec.EncDec` where ``cfg.encoder_layers`` is
+set; every entry point takes an explicit device, ``"cuda"`` by default
+(which raises without a GPU).
 """
 from __future__ import annotations
 
@@ -19,9 +25,11 @@ from .attention import attention, decode_attention
 from .common import ParamDef, init_params_
 from .decoder import (Decoder, cache_defs, cross_entropy_loss, decode_step,
                       default_scan_group, forward, init_cache)
+from .encdec import (EncDec, encdec_cache_defs, encdec_decode_step, encdec_forward,
+                     encdec_init_cache)
 
 __all__ = [
-    "ParamDef", "Decoder", "init_params_",
+    "ParamDef", "Decoder", "EncDec", "init_params_",
     "arch_init_params", "arch_forward", "arch_cache_defs", "arch_init_cache",
     "arch_decode_step", "attention", "decode_attention", "blocks", "common",
     "cross_entropy_loss", "default_scan_group",
@@ -29,28 +37,39 @@ __all__ = [
 
 
 def arch_init_params(cfg: ModelConfig, generator: torch.Generator, *,
-                     device: str | torch.device = "cuda", master: bool = False) -> Decoder:
-    """A :class:`Decoder` on ``device`` with random parameters drawn from
-    ``generator`` (which must live on ``device``); ``master=True`` for
+                     device: str | torch.device = "cuda",
+                     master: bool = False) -> Decoder | EncDec:
+    """The arch's model on ``device`` (an :class:`EncDec` where the config
+    has an encoder, else a :class:`Decoder`) with random parameters drawn
+    from ``generator`` (which must live on ``device``); ``master=True`` for
     training (fp32 masters that require gradients)."""
+    if cfg.encoder_layers:
+        return init_params_(EncDec(cfg, device=device, master=master), generator)
     return init_params_(Decoder(cfg, device=device, master=master), generator)
 
 
-def arch_forward(cfg: ModelConfig, model: Decoder, batch: dict[str, Any], *,
+def arch_forward(cfg: ModelConfig, model, batch: dict[str, Any], *,
                  scan_group: int | None = None, remat_policy=None) -> torch.Tensor:
-    return forward(cfg, model, batch["tokens"], scan_group=scan_group,
-                   remat_policy=remat_policy)
+    if cfg.encoder_layers:
+        return encdec_forward(cfg, model, batch["tokens"], batch["frames"])
+    return forward(cfg, model, batch["tokens"], vis_embeds=batch.get("vis_embeds"),
+                   scan_group=scan_group, remat_policy=remat_policy)
 
 
 def arch_cache_defs(cfg: ModelConfig, batch: int, max_len: int) -> list[dict]:
+    if cfg.encoder_layers:
+        return encdec_cache_defs(cfg, batch, max_len)
     return cache_defs(cfg, batch, max_len)
 
 
 def arch_init_cache(cfg: ModelConfig, batch: int, max_len: int,
                     device: str | torch.device = "cuda") -> list[dict]:
+    if cfg.encoder_layers:
+        return encdec_init_cache(cfg, batch, max_len, resolve_device(device))
     return init_cache(cfg, batch, max_len, resolve_device(device))
 
 
-def arch_decode_step(cfg: ModelConfig, model: Decoder, cache: list, tokens: torch.Tensor,
-                     pos: int):
+def arch_decode_step(cfg: ModelConfig, model, cache: list, tokens: torch.Tensor, pos: int):
+    if cfg.encoder_layers:
+        return encdec_decode_step(cfg, model, cache, tokens, pos)
     return decode_step(cfg, model, cache, tokens, pos)

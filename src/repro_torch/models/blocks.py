@@ -1,6 +1,7 @@
-"""Non-attention blocks of the port: the dense GLU MLP, the RG-LRU recurrent
-block (Griffin / RecurrentGemma) and the Mamba-2 SSD block, the last two with
-their decode state.  MoE comes with the slice that serves it."""
+"""Non-attention blocks of the port: the dense MLP (GLU or not, with or
+without biases), the top-k routed MoE, the RG-LRU recurrent block (Griffin /
+RecurrentGemma) and the Mamba-2 SSD block, the last two with their decode
+state."""
 from __future__ import annotations
 
 import torch
@@ -12,6 +13,7 @@ from .common import ParamDef, activation, gelu_tanh, recompute, tag
 
 __all__ = [
     "mlp_defs", "mlp",
+    "moe_defs", "moe_route", "moe",
     "rec_defs", "rec_block", "rec_decode", "rec_cache_defs",
     "ssm_defs", "ssm_block", "ssm_decode", "ssm_cache_defs",
 ]
@@ -19,14 +21,66 @@ __all__ = [
 
 def mlp_defs(cfg: ModelConfig) -> dict[str, ParamDef]:
     d, f = cfg.d_model, cfg.d_ff
-    return {"wi": ParamDef((d, f)), "wg": ParamDef((d, f)), "wo": ParamDef((f, d))}
+    defs = {"wi": ParamDef((d, f))}
+    if cfg.glu:
+        defs["wg"] = ParamDef((d, f))
+    defs["wo"] = ParamDef((f, d))
+    if cfg.mlp_bias:
+        defs["bi"] = ParamDef((f,), init="zeros")
+        defs["bo"] = ParamDef((d,), init="zeros")
+    return defs
+
+
+def _hidden(act, g: torch.Tensor | None, u: torch.Tensor) -> torch.Tensor:
+    """act(g) * u for a GLU, else act(u); in a recompute region when training."""
+    if g is None:
+        return recompute(act, u)
+    return recompute(lambda a, b: act(a) * b, g, u)
 
 
 def mlp(cfg: ModelConfig, p, x: torch.Tensor) -> torch.Tensor:
-    """GLU MLP: act(x wg) * (x wi), then wo."""
+    """The dense MLP: act(x wg) * (x wi + bi) for a GLU, else act(x wi + bi),
+    then wo (+ bo); the biases where the config has them."""
     act = activation(cfg.act)
-    h = tag(recompute(lambda g, u: act(g) * u, x @ p.wg, x @ p.wi), "mlp_hidden")
-    return h @ p.wo
+    g = x @ p.wg if cfg.glu else None
+    u = x @ p.wi
+    if cfg.mlp_bias:
+        u = u + p.bi
+    y = tag(_hidden(act, g, u), "mlp_hidden") @ p.wo
+    return y + p.bo if cfg.mlp_bias else y
+
+
+def moe_defs(cfg: ModelConfig) -> dict[str, ParamDef]:
+    d, f, e = cfg.d_model, cfg.d_ff, cfg.n_experts
+    # the router stays fp32: the reference routes in fp32 from its fp32 master
+    defs = {"router": ParamDef((d, e), scale=0.02, fp32=True),
+            "wi": ParamDef((e, d, f)), "wo": ParamDef((e, f, d))}
+    if cfg.glu:
+        defs["wg"] = ParamDef((e, d, f))
+    return defs
+
+
+def moe_route(cfg: ModelConfig, p, x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """The fp32 router logits (B, S, E) and each token's top ``top_k``
+    expert ids (B, S, k), the largest logit first."""
+    logits = x.float() @ p.router
+    return logits, torch.topk(logits, cfg.top_k, dim=-1).indices
+
+
+def moe(cfg: ModelConfig, p, x: torch.Tensor) -> torch.Tensor:
+    """Top-k routed MoE with the reference's dense dispatch: fp32 router
+    logits, a softmax over each token's top ``top_k``, and every expert run
+    on every token, its output weighted by the token's routing mass for it
+    (zero outside the top k).  Equal in value to a sparse dispatch."""
+    act = activation(cfg.act)
+    logits, top_i = moe_route(cfg, p, x)
+    gate = torch.softmax(logits.gather(-1, top_i), dim=-1)
+    comb = torch.zeros_like(logits).scatter_(-1, top_i, gate)
+    g = torch.einsum("bse,xef->bsxf", x, p.wg) if cfg.glu else None
+    u = torch.einsum("bse,xef->bsxf", x, p.wi)
+    h = tag(_hidden(act, g, u), "moe_hidden")                  # (B, S, E, F)
+    y = torch.einsum("bsxf,xfd->bsxd", h, p.wo)
+    return torch.einsum("bsxd,bsx->bsd", y, comb.to(x.dtype))
 
 
 def rec_defs(cfg: ModelConfig) -> dict[str, ParamDef]:

@@ -1,5 +1,6 @@
 """Shared model machinery of the port: parameter definitions and their
-initialisation from a ``torch.Generator``, norms, RoPE, activations.
+initialisation from a ``torch.Generator``, norms (RMSNorm, LayerNorm), RoPE,
+activations.
 
 A module lists its parameters as :class:`ParamDef`s (shape, initialiser,
 whether the value stays fp32) and :class:`DefModule` registers them, in one
@@ -34,6 +35,7 @@ __all__ = [
     "DefModule",
     "init_params_",
     "rms_norm",
+    "layer_norm",
     "rope_table",
     "apply_rope",
     "activation",
@@ -110,6 +112,17 @@ def rms_norm(x: torch.Tensor, weight: torch.Tensor, eps: float = 1e-6) -> torch.
     xf = x.float()
     var = torch.mean(xf * xf, dim=-1, keepdim=True)
     return ((xf * torch.rsqrt(var + eps)) * weight.float()).to(x.dtype)
+
+
+def layer_norm(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
+               eps: float = 1e-5) -> torch.Tensor:
+    """LayerNorm over the last axis with its statistics in fp32 (the
+    reference's ``layer_norm``)."""
+    xf = x.float()
+    mu = torch.mean(xf, dim=-1, keepdim=True)
+    var = torch.mean(torch.square(xf - mu), dim=-1, keepdim=True)
+    y = (xf - mu) * torch.rsqrt(var + eps)
+    return (y * weight.float() + bias.float()).to(x.dtype)
 
 
 def rope_table(positions: torch.Tensor, head_dim: int, theta: float):

@@ -1,9 +1,12 @@
-"""The decoder-only LM of the port, as far as the ported layer kinds go:
-RecurrentGemma's pattern of RG-LRU blocks ("rec") and sliding-window
-attention ("attn_local"), each followed by a GLU MLP; Mamba-2's stack of SSD
-blocks ("ssm"), which have no MLP; and the Qwen decoders' stack of global
-attention layers ("attn", with qkv biases) and GLU MLPs.  Embeddings are
-tied, or untied with an ``lm_head (d_model, padded_vocab)``.
+"""The decoder-only LM of the port: RecurrentGemma's pattern of RG-LRU
+blocks ("rec") and sliding-window attention ("attn_local"), each followed by
+a GLU MLP; Mamba-2's stack of SSD blocks ("ssm"), which have no MLP; and
+stacks of global ("attn") or sliding-window attention layers, each followed
+by a dense MLP (GLU or not, with or without biases) or a top-k MoE (granite,
+mixtral).  Norms are RMSNorm, or LayerNorm with biases.  Embeddings are tied,
+or untied with an ``lm_head (d_model, padded_vocab)``; a vision-language
+model's stub-frontend embeddings (``vis_embeds``) replace its first
+positions (internvl2).  The encoder-decoder is :mod:`.encdec`.
 
 The reference stacks whole pattern periods (or, for a uniform stack, all
 layers) for ``lax.scan``; here the layers are one ``nn.ModuleList`` in order,
@@ -19,7 +22,9 @@ Training (:func:`forward` with gradients on a model of fp32 masters,
 period or scan group, as the reference's nested ``jax.checkpoint``, unless
 the plan keeps every class.  :func:`cross_entropy_loss` is the reference's
 (padded vocabulary masked, ``z_loss``).  Training runs the rec, attn_local
-and attn kinds; the SSM kind waits for K4's backward (ROADMAP A8).
+and attn kinds with RMSNorm and an unbiased GLU MLP; the SSM kind waits for
+K4's backward (ROADMAP A8), and MoE, vision tokens, LayerNorm, biased or
+non-GLU MLPs (and the encoder-decoder) for their training slice.
 """
 from __future__ import annotations
 
@@ -33,7 +38,7 @@ from .._device import resolve_device
 from ..configs.base import ModelConfig
 from . import blocks, remat
 from .attention import attention, attn_defs, decode_attention, kv_cache_defs
-from .common import DefModule, ParamDef, recompute, rms_norm, tag
+from .common import DefModule, ParamDef, layer_norm, recompute, rms_norm, tag
 
 __all__ = [
     "KINDS",
@@ -67,40 +72,72 @@ def has_mlp(cfg: ModelConfig, kind: str) -> bool:
 
 
 def check_supported(cfg: ModelConfig, *, training: bool = False) -> None:
-    """Raise for what the port's decoder does not run yet (``training``: for
-    training, which also refuses the SSM kind)."""
+    """Raise for what the port's models do not run yet (``training``: for
+    training, which also refuses the SSM kind and what only serving runs:
+    MoE, the encoder-decoder, vision tokens, LayerNorm, biased or non-GLU
+    MLPs)."""
     missing = [k for k in sorted(set(cfg.kinds)) if k not in KINDS]
     if missing:
         raise NotImplementedError(f"{cfg.arch_id}: layer kinds {missing} are not ported "
                                   f"(the port runs {KINDS})")
-    unsupported = {
-        "encoder_layers": cfg.encoder_layers, "n_experts": cfg.n_experts,
-        "n_vis_tokens": cfg.n_vis_tokens, "mlp_bias": cfg.mlp_bias,
-        "non-GLU MLP": not cfg.glu, "layernorm": cfg.norm != "rmsnorm",
-        "no attention window": "attn_local" in cfg.kinds and cfg.attn_window is None,
-    }
-    bad = [k for k, v in unsupported.items() if v]
-    if bad:
-        raise NotImplementedError(f"{cfg.arch_id}: not ported: {', '.join(bad)}")
+    if "attn_local" in cfg.kinds and cfg.attn_window is None:
+        raise NotImplementedError(f"{cfg.arch_id}: not ported: no attention window")
+    if cfg.norm not in ("rmsnorm", "layernorm"):
+        raise NotImplementedError(f"{cfg.arch_id}: not ported: norm {cfg.norm!r}")
     if cfg.dtype not in _DTYPES:
         raise NotImplementedError(f"{cfg.arch_id}: working type {cfg.dtype!r} not ported")
-    if training and "ssm" in cfg.kinds:
+    if not training:
+        return
+    if "ssm" in cfg.kinds:
         raise NotImplementedError(
             f"{cfg.arch_id}: training the SSM kind needs K4's backward, which is not "
             "ported yet (ROADMAP A8)")
+    serve_only = {
+        "encoder_layers": cfg.encoder_layers, "n_experts": cfg.n_experts,
+        "n_vis_tokens": cfg.n_vis_tokens, "mlp_bias": cfg.mlp_bias,
+        "non-GLU MLP": not cfg.glu, "layernorm": cfg.norm != "rmsnorm",
+    }
+    bad = [k for k, v in serve_only.items() if v]
+    if bad:
+        raise NotImplementedError(
+            f"{cfg.arch_id}: training is not ported for {', '.join(bad)} (served only; "
+            "training the MoE, encoder-decoder and vision archs is a later slice, "
+            "ROADMAP A9)")
 
 
-def _norm(cfg: ModelConfig) -> ParamDef:
-    return ParamDef((cfg.d_model,), init="ones", fp32=True)
+def norm_defs(cfg: ModelConfig, name: str) -> dict[str, ParamDef]:
+    """``{name}_w`` (ones), and ``{name}_b`` (zeros) for a LayerNorm; fp32, as
+    the reference reads them."""
+    defs = {f"{name}_w": ParamDef((cfg.d_model,), init="ones", fp32=True)}
+    if cfg.norm == "layernorm":
+        defs[f"{name}_b"] = ParamDef((cfg.d_model,), init="zeros", fp32=True)
+    return defs
+
+
+def apply_norm(cfg: ModelConfig, mod, name: str, x: torch.Tensor) -> torch.Tensor:
+    """The config's norm with ``mod``'s ``{name}_w`` (and ``{name}_b``)."""
+    if cfg.norm == "layernorm":
+        return recompute(layer_norm, x, getattr(mod, f"{name}_w"), getattr(mod, f"{name}_b"))
+    return recompute(rms_norm, x, getattr(mod, f"{name}_w"))
+
+
+def ffn(cfg: ModelConfig, p, x: torch.Tensor) -> torch.Tensor:
+    """The layer's feed-forward block: the MoE where the config has experts,
+    else the dense MLP."""
+    return blocks.moe(cfg, p, x) if cfg.n_experts else blocks.mlp(cfg, p, x)
+
+
+def ffn_defs(cfg: ModelConfig) -> dict[str, ParamDef]:
+    return blocks.moe_defs(cfg) if cfg.n_experts else blocks.mlp_defs(cfg)
 
 
 class Layer(DefModule):
     """One layer: ln1 -> mixer (rec, attn or ssm) -> residual, then, where the
-    layer has one, ln2 -> mlp -> residual."""
+    layer has one, ln2 -> mlp (dense or MoE) -> residual."""
 
     def __init__(self, cfg: ModelConfig, kind: str, dtype, device, master: bool = False):
         mlp = has_mlp(cfg, kind)
-        norms = {"ln1_w": _norm(cfg), **({"ln2_w": _norm(cfg)} if mlp else {})}
+        norms = {**norm_defs(cfg, "ln1"), **(norm_defs(cfg, "ln2") if mlp else {})}
         super().__init__(norms, dtype, device, master)
         self.kind = kind
         if kind == "rec":
@@ -109,7 +146,7 @@ class Layer(DefModule):
             self.ssm = DefModule(blocks.ssm_defs(cfg), dtype, device, master)
         else:
             self.attn = DefModule(attn_defs(cfg), dtype, device, master)
-        self.mlp = DefModule(blocks.mlp_defs(cfg), dtype, device, master) if mlp else None
+        self.mlp = DefModule(ffn_defs(cfg), dtype, device, master) if mlp else None
 
 
 class Decoder(DefModule):
@@ -121,21 +158,26 @@ class Decoder(DefModule):
     def __init__(self, cfg: ModelConfig, device: str | torch.device = "cuda",
                  master: bool = False):
         check_supported(cfg, training=master)
+        if cfg.encoder_layers:
+            raise ValueError(f"{cfg.arch_id} is an encoder-decoder: build it with "
+                             "models.encdec.EncDec (or models.arch_init_params)")
         dtype = working_dtype(cfg)
         device = resolve_device(device)
         defs = {"tok_emb": ParamDef((cfg.padded_vocab, cfg.d_model), scale=1.0)}
         if not cfg.tie_embeddings:
             defs["lm_head"] = ParamDef((cfg.d_model, cfg.padded_vocab))
-        super().__init__({**defs, "ln_f_w": _norm(cfg)}, dtype, device, master)
+        super().__init__({**defs, **norm_defs(cfg, "ln_f")}, dtype, device, master)
         self.cfg = cfg
         self.layers = nn.ModuleList(Layer(cfg, kind, dtype, device, master)
                                     for kind in cfg.kinds)
 
-    def forward(self, tokens: torch.Tensor) -> torch.Tensor:
-        return forward(self.cfg, self, tokens)
+    def forward(self, tokens: torch.Tensor,
+                vis_embeds: torch.Tensor | None = None) -> torch.Tensor:
+        return forward(self.cfg, self, tokens, vis_embeds=vis_embeds)
 
 
-def _embed(cfg: ModelConfig, model: Decoder, tokens: torch.Tensor) -> torch.Tensor:
+def _embed(cfg: ModelConfig, model: Decoder, tokens: torch.Tensor,
+           vis_embeds: torch.Tensor | None = None) -> torch.Tensor:
     # gathered from the stored table, then cast (the reference's take-then-cast:
     # a training model scatters the gradient into its fp32 master)
     x = model.master("tok_emb")[tokens].to(working_dtype(cfg))
@@ -143,11 +185,14 @@ def _embed(cfg: ModelConfig, model: Decoder, tokens: torch.Tensor) -> torch.Tens
         # the scale is rounded to the working type first, as the reference does
         # (50.5 in bf16 for d 2560), on the host: no copy to the card, no wait
         x = x * float(torch.tensor(math.sqrt(cfg.d_model), dtype=x.dtype))
+    if vis_embeds is not None:
+        # the stub vision frontend's embeddings replace the first positions
+        x = torch.cat([vis_embeds.to(x.dtype), x[:, vis_embeds.shape[1]:]], dim=1)
     return x
 
 
 def _logits(cfg: ModelConfig, model: Decoder, x: torch.Tensor) -> torch.Tensor:
-    x = recompute(rms_norm, x, model.ln_f_w)
+    x = apply_norm(cfg, model, "ln_f", x)
     if cfg.tie_embeddings:
         return torch.einsum("bse,ve->bsv", x, model.tok_emb)
     return torch.einsum("bse,ev->bsv", x, model.lm_head)
@@ -181,7 +226,7 @@ def _window(cfg: ModelConfig, kind: str) -> int | None:
 
 def _layer(cfg: ModelConfig, layer: Layer, x: torch.Tensor, positions, max_len):
     """One layer over the whole sequence; with ``max_len`` also its cache entry."""
-    h = recompute(rms_norm, x, layer.ln1_w)
+    h = apply_norm(cfg, layer, "ln1", x)
     entry = None
     if layer.kind in _ATTN:
         win = _window(cfg, layer.kind)
@@ -200,7 +245,7 @@ def _layer(cfg: ModelConfig, layer: Layer, x: torch.Tensor, positions, max_len):
         out, entry = block(cfg, getattr(layer, layer.kind), h, state)
     x = tag(x + out, "resid_mid")
     if layer.mlp is not None:
-        x = x + blocks.mlp(cfg, layer.mlp, recompute(rms_norm, x, layer.ln2_w))
+        x = x + ffn(cfg, layer.mlp, apply_norm(cfg, layer, "ln2", x))
     return tag(x, "resid_out"), entry
 
 
@@ -294,13 +339,15 @@ def _train_layers(cfg: ModelConfig, model: Decoder, x: torch.Tensor, positions,
 
 
 def forward(cfg: ModelConfig, model: Decoder, tokens: torch.Tensor, *,
-            scan_group: int | None = None, remat_policy=None) -> torch.Tensor:
-    """Token logits (B, S, padded_vocab).  With gradients enabled and a model
+            vis_embeds: torch.Tensor | None = None, scan_group: int | None = None,
+            remat_policy=None) -> torch.Tensor:
+    """Token logits (B, S, padded_vocab); ``vis_embeds (B, Nv, E)`` replace
+    the first Nv positions' embeddings.  With gradients enabled and a model
     of fp32 masters (training) the layers run under the residency plan
     ``remat_policy`` (a :class:`~.remat.Residency`; None saves nothing beyond
     the period and layer carries, unless ``cfg.remat == "none"``), in regions
     of ``scan_group`` layers for a uniform stack."""
-    x = _embed(cfg, model, tokens)
+    x = _embed(cfg, model, tokens, vis_embeds)
     positions = torch.arange(tokens.shape[1], device=tokens.device)
     training = torch.is_grad_enabled() and model.master("tok_emb").requires_grad
     if training and cfg.remat != "none":
@@ -371,14 +418,15 @@ def cross_entropy_loss(cfg: ModelConfig, logits: torch.Tensor, labels: torch.Ten
 
 
 def prefill(cfg: ModelConfig, model: Decoder, tokens: torch.Tensor, *,
-            max_len: int | None = None):
-    """Forward the prompt and build the decode cache.  Returns
-    (last-position logits (B, padded_vocab), cache)."""
+            vis_embeds: torch.Tensor | None = None, max_len: int | None = None):
+    """Forward the prompt (its first positions replaced by ``vis_embeds``, if
+    given) and build the decode cache.  Returns (last-position logits
+    (B, padded_vocab), cache)."""
     s = tokens.shape[1]
     max_len = max_len or s
     if max_len < s:
         raise ValueError(f"max_len {max_len} is shorter than the prompt ({s})")
-    x = _embed(cfg, model, tokens)
+    x = _embed(cfg, model, tokens, vis_embeds)
     positions = torch.arange(s, device=tokens.device)
     cache = []
     for layer in model.layers:
@@ -395,7 +443,7 @@ def decode_step(cfg: ModelConfig, model: Decoder, cache: list, tokens: torch.Ten
     x = _embed(cfg, model, tokens)
     new_cache = []
     for layer, entry in zip(model.layers, cache):
-        h = rms_norm(x, layer.ln1_w)
+        h = apply_norm(cfg, layer, "ln1", x)
         if layer.kind in _ATTN:
             out, entry = decode_attention(cfg, layer.attn, h, entry, pos,
                                           window=_window(cfg, layer.kind))
@@ -405,7 +453,7 @@ def decode_step(cfg: ModelConfig, model: Decoder, cache: list, tokens: torch.Ten
             out, entry = blocks.ssm_decode(cfg, layer.ssm, h, entry)
         x = x + out
         if layer.mlp is not None:
-            x = x + blocks.mlp(cfg, layer.mlp, rms_norm(x, layer.ln2_w))
+            x = x + ffn(cfg, layer.mlp, apply_norm(cfg, layer, "ln2", x))
         new_cache.append(entry)
     return _logits(cfg, model, x)[:, 0], new_cache
 

@@ -1,0 +1,199 @@
+"""The encoder-decoder transformer of the port (Whisper's backbone).
+
+The audio frontend (log-mel + the two-conv stem) is a stub, as in the
+reference: ``frames`` arrive as frame embeddings (B, n_frames, d_model) with
+their positions already added.  The transformer is whole: a bidirectional
+encoder, a causal decoder with cross-attention over the encoder states,
+learned decoder positions, LayerNorm + GELU + biased projections, tied
+embeddings.  No layer is roped (``rope_theta`` is 0).
+
+Attention over a sequence goes through the flash kernel (K2): non-causal over
+the frames in the encoder, causal in the decoder's self-attention, and
+non-causal from the decoder rows over the encoder rows in the
+cross-attention.  A decode step reads its caches in PyTorch: the decoder's
+self-attention cache (linear, ``max_len`` slots) and the cross-attention
+keys and values, computed once from the encoder states at the prefill.
+
+The decode cache is a list with one dict per decoder layer: {"k", "v"}
+(B, max_len, KVH, HD) and {"cross_k", "cross_v"} (B, n_frames, KVH, HD).
+The layers are two ``nn.ModuleList``s (``enc_layers``, ``dec_layers``);
+``repro_torch.convert`` maps them to and from the reference's stacked trees.
+Training the encoder-decoder is a later slice: :class:`EncDec` refuses
+``master=True``.
+"""
+from __future__ import annotations
+
+import torch
+from torch import nn
+
+from .._device import resolve_device
+from ..configs.base import ModelConfig
+from . import blocks
+from .attention import attention, attn_defs, cross_decode_attention, decode_attention, \
+    kv_cache_defs
+from .common import DefModule, ParamDef, tag
+from .decoder import _pad_cache, _zeros, apply_norm, check_supported, norm_defs, working_dtype
+
+__all__ = [
+    "EncDec",
+    "MAX_DEC_POSITIONS",
+    "encdec_encode",
+    "encdec_forward",
+    "encdec_prefill",
+    "encdec_decode_step",
+    "encdec_cache_defs",
+    "encdec_init_cache",
+]
+
+# the reference's default size of the learned decoder position table
+MAX_DEC_POSITIONS = 32_768
+
+
+class EncLayer(DefModule):
+    """ln1 -> bidirectional self-attention -> residual, ln2 -> mlp -> residual."""
+
+    def __init__(self, cfg: ModelConfig, dtype, device):
+        super().__init__({**norm_defs(cfg, "ln1"), **norm_defs(cfg, "ln2")}, dtype, device)
+        self.attn = DefModule(attn_defs(cfg), dtype, device)
+        self.mlp = DefModule(blocks.mlp_defs(cfg), dtype, device)
+
+
+class DecLayer(DefModule):
+    """ln1 -> causal self-attention, ln_x -> cross-attention over the encoder
+    states, ln2 -> mlp; each with its residual."""
+
+    def __init__(self, cfg: ModelConfig, dtype, device):
+        super().__init__({**norm_defs(cfg, "ln1"), **norm_defs(cfg, "ln_x"),
+                          **norm_defs(cfg, "ln2")}, dtype, device)
+        self.self_attn = DefModule(attn_defs(cfg), dtype, device)
+        self.cross_attn = DefModule(attn_defs(cfg), dtype, device)
+        self.mlp = DefModule(blocks.mlp_defs(cfg), dtype, device)
+
+
+class EncDec(DefModule):
+    """Token embedding (tied output projection), learned decoder positions
+    (``MAX_DEC_POSITIONS`` rows), the encoder and decoder stacks, and each
+    stack's final LayerNorm.  Serving only: parameters in the working type,
+    norms fp32."""
+
+    def __init__(self, cfg: ModelConfig, device: str | torch.device = "cuda",
+                 master: bool = False):
+        check_supported(cfg, training=master)
+        if not cfg.encoder_layers:
+            raise ValueError(f"{cfg.arch_id} has no encoder: build it with "
+                             "models.decoder.Decoder")
+        dtype = working_dtype(cfg)
+        device = resolve_device(device)
+        d = cfg.d_model
+        super().__init__({"tok_emb": ParamDef((cfg.padded_vocab, d), scale=1.0),
+                          "pos_emb": ParamDef((MAX_DEC_POSITIONS, d), scale=0.02),
+                          **norm_defs(cfg, "ln_enc_f"), **norm_defs(cfg, "ln_dec_f")},
+                         dtype, device)
+        self.cfg = cfg
+        self.enc_layers = nn.ModuleList(EncLayer(cfg, dtype, device)
+                                        for _ in range(cfg.encoder_layers))
+        self.dec_layers = nn.ModuleList(DecLayer(cfg, dtype, device)
+                                        for _ in range(cfg.n_layers))
+
+    def forward(self, tokens: torch.Tensor, frames: torch.Tensor) -> torch.Tensor:
+        return encdec_forward(self.cfg, self, tokens, frames)
+
+
+def encdec_encode(cfg: ModelConfig, model: EncDec, frames: torch.Tensor) -> torch.Tensor:
+    """frames (B, F, E), the stub frontend's output -> encoder states (B, F, E)."""
+    x = frames.to(working_dtype(cfg))
+    positions = torch.arange(x.shape[1], device=x.device)
+    for layer in model.enc_layers:
+        h = apply_norm(cfg, layer, "ln1", x)
+        x = x + attention(cfg, layer.attn, h, positions=positions, causal=False, rope=False)
+        x = tag(x + blocks.mlp(cfg, layer.mlp, apply_norm(cfg, layer, "ln2", x)), "enc_resid")
+    return apply_norm(cfg, model, "ln_enc_f", x)
+
+
+def _embed(cfg: ModelConfig, model: EncDec, tokens: torch.Tensor, pos0: int) -> torch.Tensor:
+    """Token embeddings plus the learned positions ``pos0 ..``."""
+    s = tokens.shape[1]
+    if pos0 + s > model.pos_emb.shape[0]:
+        raise ValueError(f"positions up to {pos0 + s} are past the decoder's "
+                         f"{model.pos_emb.shape[0]} learned positions")
+    x = model.tok_emb[tokens].to(working_dtype(cfg))
+    return x + model.pos_emb[pos0:pos0 + s].to(x.dtype)[None]
+
+
+def _decoder(cfg: ModelConfig, model: EncDec, x: torch.Tensor, enc: torch.Tensor,
+             max_len: int | None):
+    """The decoder stack over the whole sequence; with ``max_len`` also each
+    layer's cache entry (self-attention keys and values padded to
+    ``max_len`` slots, the cross-attention keys and values)."""
+    positions = torch.arange(x.shape[1], device=x.device)
+    enc_positions = torch.arange(enc.shape[1], device=x.device)
+    entries = []
+    for layer in model.dec_layers:
+        out, (k, v) = attention(cfg, layer.self_attn, apply_norm(cfg, layer, "ln1", x),
+                                positions=positions, causal=True, rope=False, return_kv=True)
+        x = x + out
+        out, (ck, cv) = attention(cfg, layer.cross_attn, apply_norm(cfg, layer, "ln_x", x),
+                                  positions=enc_positions, causal=False, rope=False,
+                                  kv_x=enc, return_kv=True)
+        x = x + out
+        x = tag(x + blocks.mlp(cfg, layer.mlp, apply_norm(cfg, layer, "ln2", x)), "dec_resid")
+        if max_len is not None:
+            entries.append({"k": _pad_cache(k, max_len), "v": _pad_cache(v, max_len),
+                            "cross_k": ck, "cross_v": cv})
+    return x, entries
+
+
+def _logits(cfg: ModelConfig, model: EncDec, x: torch.Tensor) -> torch.Tensor:
+    return torch.einsum("bse,ve->bsv", apply_norm(cfg, model, "ln_dec_f", x), model.tok_emb)
+
+
+def encdec_forward(cfg: ModelConfig, model: EncDec, tokens: torch.Tensor,
+                   frames: torch.Tensor) -> torch.Tensor:
+    """Token logits (B, S, padded_vocab) of the decoder over ``tokens (B, S)``
+    conditioned on ``frames (B, F, E)``."""
+    enc = encdec_encode(cfg, model, frames)
+    x, _ = _decoder(cfg, model, _embed(cfg, model, tokens, 0), enc, None)
+    return _logits(cfg, model, x)
+
+
+def encdec_prefill(cfg: ModelConfig, model: EncDec, tokens: torch.Tensor,
+                   frames: torch.Tensor, *, max_len: int | None = None):
+    """Encode the frames, forward the decoder prompt, build the decode cache.
+    Returns (last-position logits (B, padded_vocab), cache)."""
+    s = tokens.shape[1]
+    max_len = max_len or s
+    if max_len < s:
+        raise ValueError(f"max_len {max_len} is shorter than the prompt ({s})")
+    enc = encdec_encode(cfg, model, frames)
+    x, cache = _decoder(cfg, model, _embed(cfg, model, tokens, 0), enc, max_len)
+    return _logits(cfg, model, x[:, -1:])[:, 0], cache
+
+
+def encdec_decode_step(cfg: ModelConfig, model: EncDec, cache: list, tokens: torch.Tensor,
+                       pos: int):
+    """One decode step: tokens (B, 1) at absolute position ``pos``.  Returns
+    (logits (B, padded_vocab), the cache); the self-attention caches are
+    updated in place, the cross-attention caches are read only."""
+    x = _embed(cfg, model, tokens, pos)
+    for layer, entry in zip(model.dec_layers, cache):
+        h = apply_norm(cfg, layer, "ln1", x)
+        out, _ = decode_attention(cfg, layer.self_attn, h, entry, pos, rope=False)
+        x = x + out
+        x = x + cross_decode_attention(cfg, layer.cross_attn, apply_norm(cfg, layer, "ln_x", x),
+                                       entry["cross_k"], entry["cross_v"])
+        x = x + blocks.mlp(cfg, layer.mlp, apply_norm(cfg, layer, "ln2", x))
+    return _logits(cfg, model, x)[:, 0], cache
+
+
+def encdec_cache_defs(cfg: ModelConfig, batch: int, max_len: int) -> list[dict]:
+    """Per decoder layer, name -> (shape, fp32?) of the decode cache."""
+    cross = (batch, cfg.n_frames, cfg.n_kv_heads, cfg.resolved_head_dim)
+    return [{**kv_cache_defs(cfg, batch, max_len),
+             "cross_k": (cross, False), "cross_v": (cross, False)}
+            for _ in range(cfg.n_layers)]
+
+
+def encdec_init_cache(cfg: ModelConfig, batch: int, max_len: int, device) -> list[dict]:
+    """A zero decode cache on ``device``."""
+    return [_zeros(d, working_dtype(cfg), device)
+            for d in encdec_cache_defs(cfg, batch, max_len)]

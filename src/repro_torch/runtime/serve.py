@@ -4,7 +4,9 @@ training): the functions the serving launcher calls.
 PyTorch runs eagerly, so a factory only fixes the config, the device and the
 sampling temperature and returns a plain function.  The steps are the same
 for every arch the port runs (``configs.PORTED_ARCH_IDS``): what differs is
-the decoder's layers and their cache entries.
+the model's layers and their cache entries, and what the batch carries
+besides ``tokens``: ``frames`` for an encoder-decoder, ``vis_embeds`` for a
+vision-language model.
 """
 from __future__ import annotations
 
@@ -14,6 +16,7 @@ from .._device import resolve_device
 from ..configs.base import ModelConfig
 from ..models import arch_decode_step
 from ..models.decoder import prefill
+from ..models.encdec import encdec_prefill
 
 __all__ = ["make_prefill_step", "make_serve_step", "next_token"]
 
@@ -37,11 +40,19 @@ def next_token(cfg: ModelConfig, logits: torch.Tensor, temperature: float = 0.0,
 
 def make_prefill_step(cfg: ModelConfig, *, max_len: int | None = None,
                       device: str | torch.device = "cuda"):
-    """Prefill: (model, batch) -> (last-position logits (B, V), decode cache)."""
+    """Prefill: (model, batch) -> (last-position logits (B, V), decode cache).
+    An encoder-decoder encodes ``batch["frames"]`` first; a decoder takes
+    ``batch["vis_embeds"]`` where the batch has them."""
     dev = resolve_device(device)
 
     def prefill_step(model, batch):
-        return prefill(cfg, model, batch["tokens"].to(dev), max_len=max_len)
+        tokens = batch["tokens"].to(dev)
+        if cfg.encoder_layers:
+            return encdec_prefill(cfg, model, tokens, batch["frames"].to(dev),
+                                  max_len=max_len)
+        vis = batch.get("vis_embeds")
+        return prefill(cfg, model, tokens, vis_embeds=None if vis is None else vis.to(dev),
+                       max_len=max_len)
 
     return prefill_step
 

@@ -42,6 +42,17 @@ def test_without_a_gpu_it_fails_and_prints_no_result():
     assert "GPU" in out.stderr
 
 
+def test_the_slice_serves_child_fails_without_a_gpu_and_the_phase_raises(smoke):
+    """``--slice-serves`` (the MoE, encoder-decoder and vision serves in a
+    process of their own) refuses to run without a card, prints no result,
+    and the parent's phase raises on its exit code."""
+    out = subprocess.run([sys.executable, str(ROOT / "chip_smoke.py"), "--slice-serves"],
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode != 0 and out.stdout == "" and "GPU" in out.stderr
+    with pytest.raises(AssertionError, match="slice's serves failed"):
+        smoke.phase_slice_serves()
+
+
 @pytest.fixture(scope="module")
 def operands(smoke):
     inst, cands = smoke.candidate_batch(3, 33, 90, 12)
@@ -340,13 +351,15 @@ def test_teacher_forcing_reproduces_the_served_tokens(smoke):
     cfg = get_smoke_config("recurrentgemma-2b")
     model = arch_init_params(cfg, torch.Generator().manual_seed(4), device="cpu")
     prompts = torch.randint(1, cfg.vocab_size, (2, 70), generator=torch.Generator().manual_seed(5))
-    res = serve(cfg, model, prompts, 5, device="cpu")
-    logits = smoke.teacher_forced_logits(cfg, model, prompts, torch.from_numpy(res.ids), "cpu")
+    res = serve(cfg, model, {"tokens": prompts}, 5, device="cpu")
+    logits = smoke.teacher_forced_logits(cfg, model, {"tokens": prompts},
+                                         torch.from_numpy(res.ids), "cpu")
     assert len(logits) == 5
     greedy = torch.stack([lg[:, :cfg.vocab_size].argmax(-1) for lg in logits], 1)
     assert np.array_equal(greedy.numpy(), res.ids)
     with smoke.plain_kernels():
-        again = smoke.teacher_forced_logits(cfg, model, prompts, torch.from_numpy(res.ids), "cpu")
+        again = smoke.teacher_forced_logits(cfg, model, {"tokens": prompts},
+                                            torch.from_numpy(res.ids), "cpu")
     assert max(smoke.rel_err(a, b) for a, b in zip(again, logits)) == 0.0
 
 
@@ -483,7 +496,11 @@ def test_ssd_bound_of_a_decode_step_is_the_state(smoke):
 @pytest.mark.parametrize("arch,want", [
     ("recurrentgemma-2b", {"flash_attention": 8, "rglru_scan": 18 * 32, "ssd_chunked": 0}),
     ("mamba2-780m", {"flash_attention": 0, "rglru_scan": 0, "ssd_chunked": 48 * 32}),
-    ("qwen2.5-14b", {"flash_attention": 48, "rglru_scan": 0, "ssd_chunked": 0})])
+    ("qwen2.5-14b", {"flash_attention": 48, "rglru_scan": 0, "ssd_chunked": 0}),
+    ("granite-moe-1b-a400m", {"flash_attention": 24, "rglru_scan": 0, "ssd_chunked": 0}),
+    # 24 encoder layers, then 24 decoder layers' self- and cross-attention
+    ("whisper-medium", {"flash_attention": 72, "rglru_scan": 0, "ssd_chunked": 0}),
+    ("internvl2-26b", {"flash_attention": 48, "rglru_scan": 0, "ssd_chunked": 0})])
 def test_expected_launches_of_each_served_arch(smoke, arch, want):
     from repro_torch.configs import get_config
 
@@ -624,6 +641,110 @@ def test_kernels_line_lists_every_kernel_with_its_keys(smoke):
     assert k4["source"] == "src/repro_torch/kernels/csrc/ssd.cu"
 
 
+@pytest.mark.parametrize("arch, prompt, extra", [
+    ("qwen2.5-14b", 4096, {}), ("granite-moe-1b-a400m", 4096, {}),
+    ("whisper-medium", 416, {"frames": (4, 1500, 1024)}),
+    ("internvl2-26b", 4096, {"vis_embeds": (4, 256, 6144)})])
+def test_serve_batch_of_each_arch(smoke, arch, prompt, extra):
+    """The served batch: 4 prompts of 4096 tokens (whisper's decoder: 416,
+    so prompt + 32 generated = its 448-token context) and the stub
+    frontends' outputs; drawn from the generator after the tokens, so the
+    earlier archs' prompts are unchanged."""
+    from repro_torch.configs import get_config
+
+    cfg = get_config(arch)
+    assert smoke.serve_prompt_len(cfg) == prompt
+    batch = smoke.serve_batch(cfg, torch.Generator().manual_seed(0), torch.device("cpu"))
+    assert {k: tuple(v.shape) for k, v in batch.items()} == {"tokens": (4, prompt), **extra}
+    tokens = torch.randint(1, cfg.vocab_size, (4, prompt),
+                           generator=torch.Generator().manual_seed(0))
+    assert torch.equal(batch["tokens"], tokens)
+    if arch == "whisper-medium":
+        assert prompt + smoke.SERVE_GEN == 448
+
+
+@pytest.mark.parametrize("name, ops_ms", [
+    ("granite-moe-1b-a400m", 0.139), ("whisper-medium encoder", 0.0373),
+    ("whisper-medium cross", 0.0103), ("whisper-medium decoder self", 0.0014),
+    ("internvl2-26b", 0.834)])
+def test_flash_bound_at_the_slice_shapes(smoke, name, ops_ms):
+    """The operations bounds at 989 TFLOP/s, 4 D operations a visible pair:
+    causal pairs s (s + 1) / 2, non-causal Sq x Skv, per batch and q head."""
+    b, sq, skv, h, kvh, d, causal, window, qoff = smoke.FLASH_SLICE_SHAPES[name]
+    assert smoke.FLASH_SLICE_SHAPES[name] in smoke.FLASH_BF16_SHAPES
+    meta = torch.device("meta")
+    q = torch.empty((b, sq, h, d), dtype=torch.bfloat16, device=meta)
+    k = torch.empty((b, skv, kvh, d), dtype=torch.bfloat16, device=meta)
+    bound = smoke.flash_bound(q, k, k, causal=causal, window=window, q_offset=qoff)
+    per_head = sq * (sq + 1) // 2 if causal else sq * skv
+    assert bound["pairs"] == per_head * b * h and bound["operations"] == 4 * d * bound["pairs"]
+    assert abs(bound["ops_ms"] - ops_ms) < 0.03 * ops_ms
+    # the decoder's self-attention moves more bytes than its pairs take
+    assert bound["bound_by"] == ("bytes" if name.endswith("self") else "operations")
+    assert bound["bound_ms"] == max(bound["bytes_ms"], bound["ops_ms"])
+
+
+@pytest.mark.parametrize("case, want", [
+    ((1, 8, 8, 1, 1, 4, True, None, 0), {"is_causal": True}),
+    ((1, 8, 20, 1, 1, 4, False, None, 0), {"is_causal": False}),
+    ((1, 8, 8, 1, 1, 4, True, 3, 0), "band"),
+    ((1, 8, 20, 1, 1, 4, True, None, 12), "offset")])
+def test_sdpa_args_follow_the_kernels_mask(smoke, case, want):
+    """The library call is timed on K2's own mask: ``is_causal`` (True or
+    False) where that is the mask, else the mask itself, equal to the plain
+    version's."""
+    from repro_torch.kernels import flash_attention as fa
+
+    q, k, _, kw = smoke.flash_operands(case, torch.float32, torch.device("cpu"))
+    got = smoke.sdpa_args(q, k, **kw)
+    if isinstance(want, dict):
+        assert got == want
+    else:
+        assert torch.equal(got["attn_mask"], fa._mask(q.shape[1], k.shape[1], kw["q_offset"],
+                                                      kw["causal"], kw["window"], "cpu"))
+
+
+def test_teacher_forcing_reproduces_the_served_whisper_tokens(smoke):
+    """whisper-medium at its smoke config: the batch carries the frames; the
+    prefill encodes them and runs the decoder prompt, the steps read the
+    caches."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.launch.model_serve import make_batch, serve
+    from repro_torch.models import arch_init_params
+
+    cfg = get_smoke_config(smoke.ENCDEC_ARCH)
+    model = arch_init_params(cfg, torch.Generator().manual_seed(4), device="cpu")
+    batch = make_batch(cfg, 2, 30, torch.Generator().manual_seed(5), device="cpu")
+    res = serve(cfg, model, batch, 5, device="cpu")
+    logits = smoke.teacher_forced_logits(cfg, model, batch, torch.from_numpy(res.ids), "cpu")
+    greedy = torch.stack([lg[:, :cfg.vocab_size].argmax(-1) for lg in logits], 1)
+    assert np.array_equal(greedy.numpy(), res.ids)
+
+
+def test_memory_reckoning_of_the_slice_serves(smoke):
+    """internvl2-26b: the decode cache as qwen2.5-14b's (48 layers, 8 kv heads
+    of 128): 3.25 GB; the plain attention's fp32 score block 4 x 48 heads x
+    1024 x 4096 x 4 bytes = 3.2 GB.  whisper-medium: the decoder's self cache
+    at 448 slots and the cross cache of 1500 frames, 16 heads of 64.
+    granite-moe-1b-a400m: the dense dispatch's (4, 4096, 32, 1024) bf16."""
+    import types
+
+    from repro_torch.configs import get_config
+
+    fake = types.SimpleNamespace(parameters=lambda: [
+        torch.empty(1000, dtype=torch.bfloat16, device="meta")])
+    vlm = smoke.memory_reckoning(get_config(smoke.VLM_ARCH), fake)
+    assert vlm["decode_cache_bytes"] == 3_246_391_296
+    assert vlm["plain_attention_score_block_bytes"] == 4 * 48 * 1024 * 4096 * 4
+    assert vlm["teacher_forced_plain_peak_bytes"] == 2000 + 3_246_391_296 + 3 * 4 * 48 * 1024 \
+        * 4096 * 4
+    enc = smoke.memory_reckoning(get_config(smoke.ENCDEC_ARCH), fake)
+    assert enc["decode_cache_bytes"] == 24 * 2 * 4 * (448 + 1500) * 16 * 64 * 2
+    moe = smoke.memory_reckoning(get_config(smoke.MOE_ARCH), fake)
+    assert moe["moe_dispatch_bytes"] == 4 * 4096 * 32 * 1024 * 2
+    assert "moe_dispatch_bytes" not in vlm
+
+
 def test_teacher_forcing_reproduces_the_served_qwen_tokens(smoke):
     """qwen2.5-14b at its smoke config: global attention (K2 at every prefill
     layer, a linear cache in the decode), biases and an untied head."""
@@ -637,8 +758,9 @@ def test_teacher_forcing_reproduces_the_served_qwen_tokens(smoke):
         for name in ("bq", "bk", "bv", "bo"):
             getattr(layer.attn, name).normal_(generator=torch.Generator().manual_seed(6))
     prompts = torch.randint(1, cfg.vocab_size, (2, 70), generator=torch.Generator().manual_seed(5))
-    res = serve(cfg, model, prompts, 5, device="cpu")
-    logits = smoke.teacher_forced_logits(cfg, model, prompts, torch.from_numpy(res.ids), "cpu")
+    res = serve(cfg, model, {"tokens": prompts}, 5, device="cpu")
+    logits = smoke.teacher_forced_logits(cfg, model, {"tokens": prompts},
+                                         torch.from_numpy(res.ids), "cpu")
     greedy = torch.stack([lg[:, :cfg.vocab_size].argmax(-1) for lg in logits], 1)
     assert np.array_equal(greedy.numpy(), res.ids)
 
@@ -726,8 +848,9 @@ def test_teacher_forcing_reproduces_the_served_mamba2_tokens(smoke):
     cfg = get_smoke_config("mamba2-780m")
     model = arch_init_params(cfg, torch.Generator().manual_seed(4), device="cpu")
     prompts = torch.randint(1, cfg.vocab_size, (2, 70), generator=torch.Generator().manual_seed(5))
-    res = serve(cfg, model, prompts, 5, device="cpu")
-    logits = smoke.teacher_forced_logits(cfg, model, prompts, torch.from_numpy(res.ids), "cpu")
+    res = serve(cfg, model, {"tokens": prompts}, 5, device="cpu")
+    logits = smoke.teacher_forced_logits(cfg, model, {"tokens": prompts},
+                                         torch.from_numpy(res.ids), "cpu")
     greedy = torch.stack([lg[:, :cfg.vocab_size].argmax(-1) for lg in logits], 1)
     assert np.array_equal(greedy.numpy(), res.ids)
 
@@ -752,7 +875,7 @@ def test_float32_teacher_forced_check_on_the_cpu(smoke):
     cfg = get_smoke_config("mamba2-780m")
     prompts = torch.randint(1, cfg.vocab_size, (2, 40), generator=torch.Generator().manual_seed(6))
     ids = torch.randint(1, cfg.vocab_size, (2, 3), generator=torch.Generator().manual_seed(7))
-    out = smoke.float32_teacher_forced(cfg, prompts, ids, torch.device("cpu"))
+    out = smoke.float32_teacher_forced(cfg, {"tokens": prompts}, ids, torch.device("cpu"))
     assert out["float32_teacher_forced_rel_err"] == [0.0, 0.0, 0.0]
     assert out["float32_teacher_forced_limit"] == smoke.FLOAT32_TEACHER_FORCED_LIMIT
 
@@ -769,19 +892,20 @@ def test_checks_hold_the_served_logits_to_their_limits(smoke):
     model = arch_init_params(cfg, torch.Generator().manual_seed(8), device="cpu")
     prompts = torch.randint(1, cfg.vocab_size, (2, 70), generator=torch.Generator().manual_seed(9))
     ids = torch.randint(1, cfg.vocab_size, (2, 3), generator=torch.Generator().manual_seed(10))
-    plain = smoke.teacher_forced_logits(cfg, model, prompts, ids, cpu)
-    out = smoke.check_against_yardstick(cfg, model, prompts, ids, cpu, [0.0] * 3, plain)
+    plain = smoke.teacher_forced_logits(cfg, model, {"tokens": prompts}, ids, cpu)
+    out = smoke.check_against_yardstick(cfg, model, {"tokens": prompts}, ids, cpu, [0.0] * 3,
+                                        plain)
     yardstick = out["plain_vs_plain_other_chunk_rel_err"]
     assert len(yardstick) == 3 and 0.0 < max(yardstick) < 1e-5
     assert out["teacher_forced_limit"] == smoke.YARDSTICK_FACTOR * max(yardstick)
     assert out["float32_teacher_forced_rel_err"] == [0.0] * 3
     with pytest.raises(AssertionError, match="more than"):
-        smoke.check_against_yardstick(cfg, model, prompts, ids, cpu,
+        smoke.check_against_yardstick(cfg, model, {"tokens": prompts}, ids, cpu,
                                       [0.0, 2.5 * max(yardstick), 0.0], plain)
-    assert smoke.check_fixed_limit(cfg, model, prompts, ids, cpu, [3e-3], plain) == {
+    assert smoke.check_fixed_limit(cfg, model, {"tokens": prompts}, ids, cpu, [3e-3], plain) == {
         "teacher_forced_limit": smoke.TEACHER_FORCED_LIMIT}
     with pytest.raises(AssertionError, match="limit"):
-        smoke.check_fixed_limit(cfg, model, prompts, ids, cpu, [5e-3], plain)
+        smoke.check_fixed_limit(cfg, model, {"tokens": prompts}, ids, cpu, [5e-3], plain)
 
 
 @pytest.mark.parametrize("case", [(2, 300, 300, 10, 2, 32, True, None, 0),
@@ -819,14 +943,15 @@ def test_attention_yardstick_check_on_the_smoke_qwen(smoke):
     model = arch_init_params(cfg, torch.Generator().manual_seed(8), device="cpu")
     prompts = torch.randint(1, cfg.vocab_size, (2, 300), generator=torch.Generator().manual_seed(9))
     ids = torch.randint(1, cfg.vocab_size, (2, 3), generator=torch.Generator().manual_seed(10))
-    plain = smoke.teacher_forced_logits(cfg, model, prompts, ids, cpu)
-    out = smoke.check_attention_yardstick(cfg, model, prompts, ids, cpu, [0.0] * 3, plain)
+    plain = smoke.teacher_forced_logits(cfg, model, {"tokens": prompts}, ids, cpu)
+    out = smoke.check_attention_yardstick(cfg, model, {"tokens": prompts}, ids, cpu, [0.0] * 3,
+                                          plain)
     yardstick = out["plain_vs_plain_tpu_order_rel_err"]
     assert len(yardstick) == 3 and 0.0 < max(yardstick) < 1e-5
     assert out["teacher_forced_limit"] == smoke.YARDSTICK_FACTOR * max(yardstick)
     assert out["fixed_limit"] == smoke.TEACHER_FORCED_LIMIT and out["fixed_limit_held"]
     with pytest.raises(AssertionError, match="TPU kernel's order"):
-        smoke.check_attention_yardstick(cfg, model, prompts, ids, cpu,
+        smoke.check_attention_yardstick(cfg, model, {"tokens": prompts}, ids, cpu,
                                         [0.0, 2.5 * max(yardstick), 0.0], plain)
 
 
@@ -1142,3 +1267,84 @@ def test_plain_training_swaps_the_ops_and_restores_them(smoke):
         out.sum().backward()
         assert q.grad is not None and k.grad is not None
     assert (ops.flash_attention, ops.rglru_scan) == orig
+
+
+def test_moe_check_reports_the_float32_readings_on_the_cpu(smoke):
+    """granite's check: the bf16 yardstick gate, then the routing readings,
+    each held, in bf16 and in float32 (on the CPU the kernels' route is the
+    plain versions, so their readings are 0 and they swap nothing)."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.launch.model_serve import make_batch
+    from repro_torch.models import arch_init_params
+
+    cpu = torch.device("cpu")
+    cfg = get_smoke_config(smoke.MOE_ARCH)
+    model = arch_init_params(cfg, torch.Generator().manual_seed(8), device="cpu")
+    batch = make_batch(cfg, 2, 300, torch.Generator().manual_seed(9), device="cpu")
+    ids = torch.randint(1, cfg.vocab_size, (2, 3), generator=torch.Generator().manual_seed(10))
+    plain = smoke.teacher_forced_logits(cfg, model, batch, ids, cpu)
+    out = smoke.check_moe_yardstick(cfg, model, batch, ids, cpu, [0.0] * 3, plain)
+    assert out["teacher_forced_limit"] == smoke.YARDSTICK_FACTOR * max(
+        out["plain_vs_plain_tpu_order_rel_err"])
+    # 2 rows x (300 + 2 decode tokens) x the smoke model's layers
+    routings = 2 * 302 * cfg.n_layers
+    for what in ("routing_bf16", "routing_float32"):
+        r = out[what]
+        assert r["routings"] == routings
+        assert r["free_kernels_rel_err"] == r["pinned_kernels_rel_err"] == [0.0] * 3
+        assert r["free_kernels_swaps"] == r["pinned_kernels_swaps"] == 0
+        assert r["pinned_limit"] == smoke.YARDSTICK_FACTOR * max(r["pinned_tpu_order_rel_err"])
+    assert 0.0 < max(out["routing_float32"]["pinned_tpu_order_rel_err"]) < 1e-4
+
+
+def test_pinned_routing_records_counts_and_pins_the_expert_choice(smoke):
+    """A recorded run replayed on the same model swaps nothing and gives the
+    same logits; on a model whose router moved, the free run counts the
+    tokens it routes elsewhere, and the pinned run takes the recorded choice
+    (so it differs from the free run) and counts its own layer-local swaps."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.launch.model_serve import make_batch
+    from repro_torch.models import arch_init_params, blocks
+
+    cpu = torch.device("cpu")
+    cfg = get_smoke_config(smoke.MOE_ARCH)
+    model = arch_init_params(cfg, torch.Generator().manual_seed(8), device="cpu")
+    batch = make_batch(cfg, 2, 40, torch.Generator().manual_seed(9), device="cpu")
+    ids = torch.randint(1, cfg.vocab_size, (2, 3), generator=torch.Generator().manual_seed(10))
+    orig = blocks.moe_route
+    routes = []
+    with smoke.pinned_routing(routes, "record") as swaps:
+        want = smoke.teacher_forced_logits(cfg, model, batch, ids, cpu)
+    assert swaps == [] and len(routes) == 3 * cfg.n_layers
+    assert [tuple(r.shape) for r in routes[:cfg.n_layers]] == [(2, 40, cfg.top_k)] * cfg.n_layers
+    with smoke.pinned_routing(routes, "pin") as swaps:
+        got = smoke.teacher_forced_logits(cfg, model, batch, ids, cpu)
+    assert swaps == [0] * len(routes)
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+
+    with torch.no_grad():
+        for layer in model.layers:
+            layer.mlp.router.add_(0.05 * torch.randn(layer.mlp.router.shape,
+                                                    generator=torch.Generator().manual_seed(3)))
+    with smoke.pinned_routing(routes, "free") as free_swaps:
+        free = smoke.teacher_forced_logits(cfg, model, batch, ids, cpu)
+    with smoke.pinned_routing(routes, "pin") as pin_swaps:
+        pinned = smoke.teacher_forced_logits(cfg, model, batch, ids, cpu)
+    assert sum(free_swaps) > 0 and sum(pin_swaps) > 0
+    assert not all(torch.equal(a, b) for a, b in zip(free, pinned))
+    assert blocks.moe_route is orig
+    with pytest.raises(AssertionError, match="router calls"):
+        with smoke.pinned_routing(routes[:-1], "pin"):
+            smoke.teacher_forced_logits(cfg, model, batch, ids, cpu)
+    assert blocks.moe_route is orig
+
+
+@pytest.mark.parametrize("kernels, holds", [(3e-3, True), (4e-3, True), (4.1e-3, False)])
+def test_hold_pinned_is_yardstick_factor_times_the_tpu_order_reading(smoke, kernels, holds):
+    readings = {"pinned_tpu_order_rel_err": [1e-3, 2e-3], "pinned_kernels_rel_err": [1e-3, kernels]}
+    if holds:
+        assert smoke.hold_pinned("granite", "bf16", readings)["pinned_limit"] == \
+            smoke.YARDSTICK_FACTOR * 2e-3
+    else:
+        with pytest.raises(AssertionError, match="routing pinned"):
+            smoke.hold_pinned("granite", "bf16", readings)

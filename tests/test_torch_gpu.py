@@ -8,8 +8,9 @@ with bfloat16 x/B/C, a prefill on the tensor cores) against their plain
 versions, which kernel each input takes (the entry point its wrapper resolves), and
 K2's backward (1e-5 / 2e-2 of max |grad|) and K3's (bit for bit) against their
 plain versions, a smoke-size training step on the card against the CPU,
-smoke-size recurrentgemma-2b, mamba2-780m and qwen2.5-14b models served on
-the card against the CPU (same ids, logits within 1e-4), and the
+smoke-size recurrentgemma-2b, mamba2-780m, qwen2.5-14b, granite-moe-1b-a400m,
+mixtral-8x7b, whisper-medium and internvl2-26b models served on the card
+against the CPU (same ids, logits within 1e-4), and the
 device-resident search (its round captured as a CUDA graph) against the same
 search on the CPU, bit for bit, crashed and resumed from a checkpoint on the
 card, with its sequential prefix-sum kernel against
@@ -335,6 +336,14 @@ FLASH_BF16_CASES = [
     (1, 512, 512, 10, 1, 256, True, 256, 0),
     (2, 300, 300, 40, 8, 128, True, None, 0),
     (1, 257, 257, 32, 32, 128, True, None, 0),
+    # the MoE / encoder-decoder / vision slice: d 64 GQA 16:8 (granite);
+    # d 64 MHA non-causal over 1500 rows, 11 x 128 + 92 (whisper's encoder),
+    # and from 200 rows over those 1500 (its cross-attention, Sq != Skv); a
+    # group of 6 across the 128-row tile (internvl2's 48:8)
+    (2, 300, 300, 16, 8, 64, True, None, 0),
+    (1, 1500, 1500, 16, 16, 64, False, None, 0),
+    (2, 200, 1500, 16, 16, 64, False, None, 0),
+    (2, 300, 300, 48, 8, 128, True, None, 0),
 ]
 
 
@@ -500,10 +509,10 @@ def test_smoke_model_served_on_the_card_matches_the_cpu(cuda_device):
     cpu_model.load_state_dict({k: v.cpu() for k, v in model.state_dict().items()})
     prompts = torch.randint(1, cfg.vocab_size, (2, 80), generator=torch.Generator().manual_seed(0))
     before = (fa.flash_attention.launches, rg.rglru_scan.launches)
-    res = serve(cfg, model, prompts.to(cuda_device), 6, device=cuda_device)
+    res = serve(cfg, model, {"tokens": prompts.to(cuda_device)}, 6, device=cuda_device)
     assert (fa.flash_attention.launches - before[0], rg.rglru_scan.launches - before[1]) == \
         (2, 6 * 6)       # 2 attention layers once; 6 rec layers at the prefill + 5 steps
-    ref = serve(cfg, cpu_model, prompts, 6, device="cpu")
+    ref = serve(cfg, cpu_model, {"tokens": prompts}, 6, device="cpu")
     assert np.array_equal(res.ids, ref.ids)
     # the logits themselves, teacher-forced with the served ids past the ring
     # wrap (window 64 < 80 + 6): within 1e-4 of max |logit| (float32)
@@ -537,9 +546,9 @@ def test_qwen_smoke_model_served_on_the_card_matches_the_cpu(cuda_device):
     cpu_model.load_state_dict({k: v.cpu() for k, v in model.state_dict().items()})
     prompts = torch.randint(1, cfg.vocab_size, (2, 80), generator=torch.Generator().manual_seed(0))
     before = fa.flash_attention.launches
-    res = serve(cfg, model, prompts.to(cuda_device), 6, device=cuda_device)
+    res = serve(cfg, model, {"tokens": prompts.to(cuda_device)}, 6, device=cuda_device)
     assert fa.flash_attention.launches - before == cfg.n_layers   # every layer's prefill
-    ref = serve(cfg, cpu_model, prompts, 6, device="cpu")
+    ref = serve(cfg, cpu_model, {"tokens": prompts}, 6, device="cpu")
     assert np.array_equal(res.ids, ref.ids)
     ids = torch.from_numpy(res.ids)
     on_card = _teacher_forced(cfg, model, prompts.to(cuda_device), ids.to(cuda_device),
@@ -718,9 +727,9 @@ def test_mamba2_smoke_model_served_on_the_card_matches_the_cpu(cuda_device):
     cpu_model.load_state_dict({k: v.cpu() for k, v in model.state_dict().items()})
     prompts = torch.randint(1, cfg.vocab_size, (2, 150), generator=torch.Generator().manual_seed(0))
     before = ssd.ssd_chunked.launches
-    res = serve(cfg, model, prompts.to(cuda_device), 6, device=cuda_device)
+    res = serve(cfg, model, {"tokens": prompts.to(cuda_device)}, 6, device=cuda_device)
     assert ssd.ssd_chunked.launches - before == cfg.n_layers * 6   # prefill + 5 steps
-    ref = serve(cfg, cpu_model, prompts, 6, device="cpu")
+    ref = serve(cfg, cpu_model, {"tokens": prompts}, 6, device="cpu")
     assert np.array_equal(res.ids, ref.ids)
     ids = torch.from_numpy(res.ids)
     on_card = _teacher_forced(cfg, model, prompts.to(cuda_device), ids.to(cuda_device),
@@ -731,14 +740,56 @@ def test_mamba2_smoke_model_served_on_the_card_matches_the_cpu(cuda_device):
         assert err <= 1e-4, f"step {i}: card vs CPU {err:.3g} of max |logit|"
 
 
+@pytest.mark.parametrize("arch", ["granite-moe-1b-a400m", "mixtral-8x7b", "whisper-medium",
+                                  "internvl2-26b"])
+def test_slice_smoke_models_served_on_the_card_match_the_cpu(cuda_device, arch):
+    """The MoE (granite's global attention, mixtral's ring of 64 slots that
+    the 80-token prompt wraps), the encoder-decoder (32 frames, K2 over the
+    encoder, the decoder and the cross-attention) and the vision-token
+    decoder (8 vision embeddings) at their smoke configs, every bias drawn
+    nonzero: the same ids on the card and on the CPU, K2 launched at every
+    attention of the prefill only, the logits within 1e-4 of max |logit|
+    (float32)."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.launch.model_serve import make_batch, serve
+    from repro_torch.models import arch_init_params
+
+    cfg = get_smoke_config(arch)
+    model = arch_init_params(cfg, torch.Generator(device=cuda_device).manual_seed(3),
+                             device=cuda_device)
+    with torch.no_grad():
+        gen = torch.Generator(device=cuda_device).manual_seed(4)
+        for name, p in model.named_parameters():
+            if re.search(r"(^|\.)(b[qkvio]|\w+_b)$", name):
+                p.normal_(generator=gen)
+    cpu_model = arch_init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
+    cpu_model.load_state_dict({k: v.cpu() for k, v in model.state_dict().items()})
+    batch = make_batch(cfg, 2, 80, torch.Generator().manual_seed(0), device="cpu")
+    on_dev = {k: v.to(cuda_device) for k, v in batch.items()}
+    before = fa.flash_attention.launches
+    res = serve(cfg, model, on_dev, 6, device=cuda_device)
+    want = cfg.encoder_layers + 2 * cfg.n_layers if cfg.encoder_layers else cfg.n_layers
+    assert fa.flash_attention.launches - before == want
+    ref = serve(cfg, cpu_model, batch, 6, device="cpu")
+    assert np.array_equal(res.ids, ref.ids)
+    ids = torch.from_numpy(res.ids)
+    on_card = _teacher_forced(cfg, model, on_dev, ids.to(cuda_device), cuda_device)
+    on_cpu = _teacher_forced(cfg, cpu_model, batch, ids, "cpu")
+    for i, (got, want) in enumerate(zip(on_card, on_cpu)):
+        err = float((got.cpu() - want).abs().max() / want.abs().max())
+        assert err <= 1e-4, f"step {i}: card vs CPU {err:.3g} of max |logit|"
+
+
 def _teacher_forced(cfg, model, prompts, ids, device):
-    """Prefill logits, then each decode step's logits, feeding ``ids``."""
+    """Prefill logits, then each decode step's logits, feeding ``ids``;
+    ``prompts`` is the tokens or the whole batch dict."""
     from repro_torch.models import arch_decode_step
     from repro_torch.runtime import make_prefill_step
 
-    plen, gen = prompts.shape[1], ids.shape[1]
-    logits, cache = make_prefill_step(cfg, max_len=plen + gen, device=device)(
-        model, {"tokens": prompts})
+    batch = prompts if isinstance(prompts, dict) else {"tokens": prompts}
+    plen, gen = batch["tokens"].shape[1], ids.shape[1]
+    logits, cache = make_prefill_step(cfg, max_len=plen + gen, device=device)(model, batch)
     out = [logits.float()]
     for i in range(gen - 1):
         logits, cache = arch_decode_step(cfg, model, cache, ids[:, i:i + 1], plen + i)

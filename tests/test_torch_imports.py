@@ -156,6 +156,33 @@ def test_training_and_the_planner_leave_jax_and_repro_unloaded():
     assert "LEAKED=\n" in out.stdout + "\n", out.stdout
 
 
+_PROBE_SERVED = """
+import sys
+import repro_torch.models.encdec
+import repro_torch.models.blocks
+from repro_torch.launch.model_serve import serve_main
+for arch in ("whisper-medium", "granite-moe-1b-a400m", "internvl2-26b", "mixtral-8x7b"):
+    ids = serve_main(["--arch", arch, "--smoke", "--device", "cpu", "--batch", "2",
+                      "--prompt-len", "16", "--gen", "2"])
+    assert ids.shape == (2, 2)
+bad = sorted(m for m in sys.modules
+             if m == "jax" or m.startswith("jax.") or m == "jaxlib"
+             or m == "repro" or m.startswith("repro."))
+print("LEAKED=" + ",".join(bad))
+"""
+
+
+def test_the_encdec_moe_and_vision_archs_leave_jax_and_repro_unloaded():
+    """This slice's modules (``models.encdec``, the MoE block), imported and
+    run: a smoke serve of each arch it adds."""
+    out = subprocess.run(
+        [sys.executable, "-c", _PROBE_SERVED], capture_output=True, text=True,
+        env={"PYTHONPATH": str(ROOT / "src"), "PATH": "/usr/bin:/bin"},
+        timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert "LEAKED=\n" in out.stdout + "\n", out.stdout
+
+
 _FORBIDDEN = re.compile(
     r"^\s*(import\s+jax\b|from\s+jax\b|import\s+repro\b(?!_)|from\s+repro\b(?!_)"
     r"|from\s+repro\.)"

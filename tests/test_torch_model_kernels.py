@@ -38,6 +38,12 @@ def _sigmoid(z):
         (1, 256, 512, 4, 4, 64, True, None, 256, 128, 256),
         (2, 256, 256, 2, 1, 64, True, 64, 0, 128, 64),
         (1, 128, 128, 8, 8, 128, False, None, 0, 128, 128),
+        # the MoE / encoder-decoder / vision slice's forms: d 64 MHA,
+        # non-causal, Sq != Skv with kv rows ragged to the card's 128-row
+        # tiles (whisper's cross-attention); a GQA group of 6 (internvl2's 48:8)
+        (2, 96, 300, 4, 4, 64, False, None, 0, 32, 100),
+        (1, 128, 128, 12, 2, 64, True, None, 0, 64, 64),
+        (1, 64, 64, 12, 2, 128, True, None, 0, 64, 64),
     ],
 )
 def test_flash_plain_version_matches_pallas_kernel(b, sq, skv, h, kvh, d, causal, window,

@@ -1,6 +1,9 @@
 """Helpers shared by the ``test_torch_*`` parity tests: the same data goes
 through ``repro`` (the JAX/NumPy reference package) and ``repro_torch`` (the
 PyTorch/CUDA port) as plain NumPy arrays."""
+import re
+
+import jax.numpy as jnp
 import numpy as np
 import torch
 
@@ -74,3 +77,104 @@ def padded(a, fill, dtype, n_b):
     out = np.full((k, n_b), fill, dtype=dtype)
     out[:, :n] = a
     return out
+
+
+_BIAS = re.compile(r"^(b[qkvio]|.+_b)$")
+
+
+def draw_biases(tree: dict, rng, std: float) -> dict:
+    """A copy of the reference's parameter tree with every bias (``bq``,
+    ``bk``, ``bv``, ``bo``, ``bi`` and the LayerNorms' ``*_b``), which the
+    reference starts at zero, drawn from ``std * N(0, 1)``: a bias the two
+    sides dropped or misplaced then shows in the logits."""
+    out = {}
+    for name, leaf in tree.items():
+        if isinstance(leaf, dict):
+            out[name] = draw_biases(leaf, rng, std)
+        elif _BIAS.match(name):
+            assert not np.asarray(leaf).any(), name          # the reference's zeros
+            out[name] = jnp.asarray(std * rng.standard_normal(leaf.shape), leaf.dtype)
+        else:
+            out[name] = leaf
+    return out
+
+
+def rel_close(got, want, tol: float, what: str) -> None:
+    """max |got - want| / max |want| < tol."""
+    got = np.asarray(got, np.float64)
+    want = np.asarray(want, np.float64)
+    err = np.abs(got - want).max() / np.abs(want).max()
+    assert err < tol, f"{what}: max |diff| / max |want| = {err:.3g}"
+
+
+def init_per_layer(defs, key):
+    """The reference's initialiser (``repro.models.common.init_tree``) over a
+    parameter tree whose layers are stacked on a leading ``layers`` axis, with
+    each stacked leaf scaled by the fan-in of one layer's shape, as the
+    reference draws an unstacked (``layer_XXX``) tree.  Stacked, the
+    reference takes its fan-in from the layer axis (1 / sqrt(4) for a 4-layer
+    smoke model), which makes the smoke models' attention logits reach the
+    hundreds; there a change of one float32 unit in the parameters moves the
+    logits by more than 1e-4 of their maximum, so no parity bar near that
+    could tell a fault from rounding."""
+    import dataclasses as dc
+    import math
+
+    from repro.models.common import ParamDef, init_tree
+
+    def one(d):
+        if not (d.axes and d.axes[0] == "layers" and d.init == "normal" and d.scale is None):
+            return d
+        shape = d.shape[1:]
+        fan_in = shape[0] if len(shape) > 1 else max(1, shape[-1])
+        return dc.replace(d, scale=1.0 / math.sqrt(fan_in))
+
+    import jax
+    return init_tree(jax.tree.map(one, defs, is_leaf=lambda d: isinstance(d, ParamDef)), key)
+
+
+def one_unit_apart(tree, seed: int):
+    """``tree`` with every float32 leaf moved one unit in the last place,
+    up or down at random (``seed``)."""
+    import jax
+
+    rng = np.random.default_rng(seed)
+
+    def move(leaf):
+        leaf = np.asarray(leaf)
+        if leaf.dtype != np.float32:
+            return leaf
+        up = rng.random(leaf.shape) < 0.5
+        return np.where(up, np.nextafter(leaf, np.float32(np.inf)),
+                        np.nextafter(leaf, np.float32(-np.inf))).astype(np.float32)
+
+    return jax.tree.map(move, tree)
+
+
+def init_readings(ref_cfg, cfg, params, batch: dict, seed: int = 2) -> tuple[float, float]:
+    """The port's forward logits on the reference's ``params`` against
+    ``repro``'s, and against the port's own on the same parameters moved one
+    float32 unit (``one_unit_apart``): each max |diff| / max |logit|.  The
+    second is what rounding alone can do to the logits at these
+    parameters."""
+    import jax
+
+    from repro.models import arch_forward as ref_forward
+
+    from repro_torch.models import Decoder, EncDec, arch_forward
+
+    tree = jax.tree.map(np.asarray, params)
+    inputs = {k: torch.from_numpy(np.asarray(v)) for k, v in batch.items()}
+
+    def port(t):
+        model = (EncDec if cfg.encoder_layers else Decoder)(cfg, device="cpu")
+        model.load_state_dict(convert.model_params_from_arrays(cfg, t))
+        with torch.no_grad():
+            return arch_forward(cfg, model, inputs).numpy().astype(np.float64)
+
+    got = port(tree)
+    want = np.asarray(ref_forward(ref_cfg, params, {k: jnp.asarray(v) for k, v in batch.items()}),
+                      np.float64)
+    moved = port(one_unit_apart(tree, seed))
+    return (float(np.abs(got - want).max() / np.abs(want).max()),
+            float(np.abs(moved - got).max() / np.abs(got).max()))
