@@ -47,7 +47,10 @@ every kernel against its plain PyTorch version on the card:
   masters, bf16 compute, random from seed 0), batch 1 of 4096-token
   sequences, AdamW, under the HDATS planner's residency plan for one H100,
   through ``repro_torch.launch.train``'s path: K2 and K3 forward and their
-  hand-written backwards (K2 bwd, K3 bwd) in every step.
+  hand-written backwards (K2 bwd, K3 bwd) in every step;
+* training: mamba2-780m at its published width and depth (48 SSD layers,
+  780 M fp32 masters, bf16 compute) the same way, through K4 forward and its
+  hand-written backward (K4 bwd) in every layer of every step.
 
 Phases, one JSON line each:
 
@@ -69,8 +72,12 @@ Phases, one JSON line each:
                  max |grad| on the tensor cores; rows that see no key get zero
                  dq) at the reference's gradient test shapes, ragged ones and
                  the training shape, where two bf16 calls must give
-                 bit-identical gradients, and K3 bwd (bit for bit, with and
-                 without a last-state gradient)
+                 bit-identical gradients, K3 bwd (bit for bit, with and
+                 without a last-state gradient), and K4 bwd (dx, ddt, da_log,
+                 dB, dC, dd_skip, dh0: f32 1e-4, bf16 2e-2 of max |grad|) at
+                 K4's shapes, T < 64 with G < H and mamba2-780m's training
+                 shape, with h0, d_skip and a nonzero dh_last and without,
+                 two bf16 calls at the training shape bit-identical
   main_path      the solve on the card, against the port's NumPy backend,
                  certified, with the host time of each phase of the search round
   device_path    ``tabu_device`` at the same configuration: without Algorithm 3
@@ -115,8 +122,8 @@ Phases, one JSON line each:
                  prefill shapes), K3 and K4 at the serving shapes: kernel,
                  plain version, bound (K4's at the precision it computes
                  in, and at the fp32 rate), for K2 PyTorch's scaled_dot_product_attention, and
-                 the K3 and K4 decode steps beside their bounds; K2 bwd and
-                 K3 bwd at the training shape (K2 bwd, its four kernels with
+                 the K3 and K4 decode steps beside their bounds; K2 bwd, K3
+                 bwd and K4 bwd at the training shape (K2 bwd, its four kernels with
                  the dk/dv and dq passes on the tensor cores, beside the
                  backward of scaled_dot_product_attention through autograd,
                  with its achieved TFLOP/s on the design's 14 D a pair)
@@ -137,8 +144,8 @@ Phases, one JSON line each:
                  save / offload / remat per class, estimated step time), step
                  1's loss and gradients held against the same step on the
                  plain versions (loss 1e-3, every gradient 2e-2 of its max
-                 |grad|, or within twice the plain versions against
-                 themselves in another summation order; both printed), 4
+                 |grad|, each, or within twice the plain versions' own
+                 reading of it in another summation order; both printed), 4
                  steps through launch/train.py's path with K2 / K3 forward
                  and backward launches per step held to what the plan
                  implies, step time, tokens/s, model FLOPs / time / 989e12,
@@ -147,6 +154,10 @@ Phases, one JSON line each:
                  recovery drill at the smoke size (a run lost at steps 3 and
                  6, restored from its checkpoints: losses and parameters
                  bit-identical to the run that never failed)
+  train_ssm      (a child process, ``--train-ssm``, after ``train``) the same
+                 for mamba2-780m at full width: K4 / K4 bwd launches per step,
+                 the step-1 gate (the yardstick also runs the plain SSD at
+                 another chunk length), the profiled step, the recovery drill
 
 then a ``{"kernels": [...]}`` line, the card's ``nvidia-smi`` line, and last
 ``{"ok": true, "device": {...}}``.  Any failure raises: the exit code is
@@ -1942,10 +1953,13 @@ FLASH_BWD_KERNELS = ("flash_bwd_delta_kernel", "flash_bwd_dkdv_mma_kernel",
 # the step-1 gate of the full-width train against the same step on the plain
 # versions (written before the first run): the loss within TRAIN_LOSS_LIMIT
 # relative, every gradient tensor within TRAIN_GRAD_LIMIT of its max |grad|;
-# if bf16 noise defeats them, the limit is the plain versions against
-# themselves in another summation order (attention in the TPU kernel's order,
-# the backward's kv sums in blocks of TRAIN_YARDSTICK_CHUNK q rows) times
-# YARDSTICK_FACTOR, and both readings are printed
+# where bf16 noise defeats one of them, that reading's limit is the plain
+# versions' own reading of it in another summation order (attention in the
+# TPU kernel's order, the backward's kv sums in blocks of
+# TRAIN_YARDSTICK_CHUNK q rows; the SSD's forward and backward at
+# YARDSTICK_CHUNK steps a chunk) times YARDSTICK_FACTOR, and both readings
+# are printed (mamba2-780m's gradients read 2.66e-2 on the plain versions at
+# chunk 32 against 64, one H100 run: the fixed 2e-2 is below its noise)
 TRAIN_LOSS_LIMIT = 1e-3
 TRAIN_GRAD_LIMIT = 2e-2
 TRAIN_YARDSTICK_CHUNK = 64
@@ -1992,6 +2006,24 @@ SSD_SHAPES = ((2, 256, 4, 32, 2, 64), (1, 256, 4, 64, 1, 128), (2, 128, 8, 16, 8
 # to bf16, one unit in the last place is 2^-8); h_last stays fp32: 1e-4
 SSD_TOL = {"float32": 1e-4, "bfloat16": 2e-2}
 SSD_H_TOL = 1e-4
+# K4's backward against its plain version (written before the first run):
+# every SSD_SHAPES shape, T < 64 with G < H, and the training shape of
+# mamba2-780m (batch 1 x 4096), each in float32 and bf16, once with h0, d_skip
+# and a nonzero dh_last and once without them; max |diff| / max |grad| per
+# gradient: 1e-4 in float32 (the forward's SSD_TOL), 2e-2 in bf16 (K2 bwd's:
+# dx, dB and dC are rounded to bf16 once, the rest stays fp32)
+SSD_TRAIN = (TRAIN_BATCH, TRAIN_SEQ, 48, 64, 1, 128)
+SSD_BWD_SHAPES = SSD_SHAPES + ((2, 40, 6, 32, 3, 64), SSD_TRAIN)
+SSD_BWD_TOL = {"float32": 1e-4, "bfloat16": 2e-2}
+SSD_GRADS = ("dx", "ddt", "da_log", "dB", "dC", "dd_skip", "dh0")
+# the kernels one call of K4's backward launches, in order (csrc/ssd_bwd.cu)
+SSD_BWD_KERNELS = ("ssd_bwd_states_kernel", "ssd_bwd_chunk_kernel", "ssd_bwd_sum_bc_kernel",
+                   "ssd_bwd_sum_heads_kernel")
+# training mamba2-780m at its published width and depth, as recurrentgemma-2b
+# trains (batch 1 of 4096-token sequences, AdamW, 4 steps, the greedy H100
+# plan), in a process of its own (--train-ssm) after this one's last profiled
+# window
+SSM_TRAIN_ARCH = "mamba2-780m"
 # recurrentgemma-2b's served vs plain-version logits, as a share of max
 # |logit|: about ten times the 3.8e-4 a correct bf16 path reads on an H100 at
 # every step
@@ -2164,7 +2196,8 @@ def rglru_operands(shape, dtype, device, seed=0):
 
 
 def phase_model_kernels(device):
-    """K2, K3 and K4 against their plain versions on the card."""
+    """K2, K3 and K4, and the backwards of K2, K3 and K4, against their
+    plain versions on the card."""
     import torch
 
     from repro_torch.kernels import flash_attention as fa
@@ -2212,6 +2245,7 @@ def phase_model_kernels(device):
                 raise AssertionError(f"rglru_scan differs from its plain version: {shape} {dtype}")
     bwd = flash_bwd_checks(device)
     rg_bwd = rglru_bwd_checks(device)
+    ssd_bwd = ssd_bwd_checks(device)
     ssd_err = {"float32": 0.0, "bfloat16": 0.0}
     ssd_rel = {"float32": 0.0, "bfloat16": 0.0}
     ssd_h_err = 0.0
@@ -2264,12 +2298,21 @@ def phase_model_kernels(device):
         rglru_bwd_shapes=[list(s) for s in RGLRU_BWD_SHAPES],
         rglru_bwd_all_group_shapes=[list(s) for s in RGLRU_BWD_ALL_GROUPS],
         rglru_bwd_checks_by_group=rg_bwd["checks_by_group"],
-        rglru_bwd_bit_identical_repeat=rg_bwd["bit_identical_repeat"])
+        rglru_bwd_bit_identical_repeat=rg_bwd["bit_identical_repeat"],
+        ssd_bwd_checks=ssd_bwd["checks"], ssd_bwd_max_rel_err=ssd_bwd["rel"],
+        ssd_bwd_max_abs_err=ssd_bwd["abs"],
+        ssd_bwd_bit_identical_repeat=ssd_bwd["bit_identical_repeat"],
+        ssd_bwd_tolerance={**SSD_BWD_TOL, "measure": "max |diff| / max |grad| per gradient ("
+                                                     + ", ".join(SSD_GRADS) + ")"},
+        ssd_bwd_shapes=[list(s) for s in SSD_BWD_SHAPES])
     return {"flash_attention": max(worst.values()), "flash_f32": worst["float32"],
             "rglru_scan": worst_rg, "ssd_chunked": max(max(ssd_err.values()), ssd_h_err),
             "flash_attention_bwd": max(bwd["abs"].values()),
             "flash_attention_bwd_f32": bwd["abs"]["float32"],
-            "rglru_scan_bwd": rg_bwd["abs"]}
+            "rglru_scan_bwd": rg_bwd["abs"],
+            "ssd_chunked_bwd": max(ssd_bwd["abs"].values()),
+            "ssd_chunked_bwd_f32": ssd_bwd["abs"]["float32"],
+            "ssd_chunked_bwd_rel": ssd_bwd["rel"]}
 
 
 def flash_bwd_checks(device) -> dict:
@@ -2368,6 +2411,69 @@ def rglru_bwd_checks(device) -> dict:
                 raise AssertionError("two rglru_scan_bwd calls at the training shape differ")
     return {"checks": checks, "abs": worst, "checks_by_group": groups,
             "bit_identical_repeat": True}
+
+
+def ssd_bwd_operands(shape, dtype, device, with_extras=True, seed=0):
+    """K4's inputs (``ssd_operands``), ``dy`` in ``dtype`` and, with the
+    extras, a nonzero fp32 ``dh_last``."""
+    import torch
+
+    args = ssd_operands(shape, dtype, device, with_extras, seed)
+    b, t, h, p, g, n = shape
+    gen = torch.Generator(device=device).manual_seed(seed + 1)
+    dy = randn(gen, (b, t, h, p), device, dtype)
+    dh = randn(gen, (b, h, p, n), device) if with_extras else None
+    return args, dy, dh
+
+
+def ssd_bwd_checks(device) -> dict:
+    """K4's backward against its plain version on the same inputs: both input
+    types at every ``SSD_BWD_SHAPES`` shape, with h0, d_skip and a nonzero
+    dh_last and without them (then no dh0 and no dd_skip come back).  At the
+    training shape in bf16 a second call must give bit-identical gradients
+    (every sum in a fixed order, no atomics)."""
+    import torch
+
+    from repro_torch.kernels import ssd
+
+    rel = {"float32": 0.0, "bfloat16": 0.0}
+    err = {"float32": 0.0, "bfloat16": 0.0}
+    checks = 0
+    for i, shape in enumerate(SSD_BWD_SHAPES):
+        for name, dtype in (("float32", torch.float32), ("bfloat16", torch.bfloat16)):
+            for extras in (True, False):
+                args, dy, dh = ssd_bwd_operands(shape, dtype, device, extras, seed=700 + i)
+                before = ssd.ssd_chunked_bwd.launches
+                got = ssd.ssd_chunked_bwd(*args, dy, dh)
+                torch.cuda.synchronize()
+                if ssd.ssd_chunked_bwd.launches != before + 1:
+                    raise AssertionError("ssd_chunked_bwd did not launch its kernels")
+                want = ssd.ssd_chunked_bwd_torch(*args, dy, dh)
+                for label, a, b in zip(SSD_GRADS, got, want):
+                    if b is None or a is None:
+                        if (a is None) != (b is None):
+                            raise AssertionError(f"ssd_chunked_bwd {label}: {a is None} / "
+                                                 f"{b is None}")
+                        continue
+                    if a.dtype != b.dtype or a.shape != b.shape:
+                        raise AssertionError(f"ssd_chunked_bwd {label}: {a.dtype} {a.shape}")
+                    diff = float((a.float() - b.float()).abs().max())
+                    r = diff / max(float(b.float().abs().max()), 1e-30)
+                    rel[name], err[name] = max(rel[name], r), max(err[name], diff)
+                    if not (r < SSD_BWD_TOL[name] and bool(torch.isfinite(a).all())):
+                        raise AssertionError(
+                            f"ssd_chunked_bwd {label} differs from its plain version: {shape} "
+                            f"{name} h0/d_skip/dh_last={extras}: {r:.3g} of max |grad|")
+                checks += 1
+                if shape == SSD_TRAIN and dtype == torch.bfloat16 and not extras:
+                    again = ssd.ssd_chunked_bwd(*args, dy, dh)
+                    torch.cuda.synchronize()
+                    if not all(torch.equal(a, b) for a, b in zip(got, again) if a is not None):
+                        raise AssertionError("two calls of ssd_chunked_bwd on the same inputs "
+                                             "differ at the training shape")
+                    del again
+                del args, dy, dh, got, want
+    return {"checks": checks, "rel": rel, "abs": err, "bit_identical_repeat": True}
 
 
 def model_kernel_wrappers() -> dict:
@@ -2673,6 +2779,8 @@ def _kernel_class(name: str) -> str:
         return "K2 bwd flash_attention_bwd"
     if "rglru_scan_bwd" in name:     # K3's backward: the reverse scan
         return "K3 bwd rglru_scan_bwd"
+    if "ssd_bwd_" in name:           # K4's backward: states, chunks, the two sums
+        return "K4 bwd ssd_chunked_bwd"
     if "sweep_kernel" in name:       # K1's four instances
         return "K1 schedule_dp"
     if "seq_cumsum" in name:
@@ -2904,10 +3012,18 @@ def slice_serves(device) -> dict:
     return {"launches": launches, "timings": timings, "phase_seconds": seconds}
 
 
-def slice_serves_main() -> int:
-    """``python3 chip_smoke.py --slice-serves``: :func:`slice_serves` in a
-    process of its own, on the kernels the parent built; its result is the
-    last line."""
+def train_ssm(device) -> dict:
+    """mamba2-780m trained at full width (``phase_train`` as ``train_ssm``),
+    with the seconds it took."""
+    t0 = time.perf_counter()
+    out = phase_train(device, SSM_TRAIN_ARCH, "train_ssm")
+    return {**out, "phase_seconds": {"train_ssm": time.perf_counter() - t0}}
+
+
+def child_main(fn) -> int:
+    """A child process's body (``--slice-serves``, ``--train-ssm``): ``fn``
+    on the card, on the kernels the parent built; its result is the last
+    line."""
     import torch
 
     if not torch.cuda.is_available():
@@ -2916,19 +3032,22 @@ def slice_serves_main() -> int:
         return 1
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    print(json.dumps(slice_serves(torch.device("cuda", 0))), flush=True)
+    print(json.dumps(fn(torch.device("cuda", 0))), flush=True)
     return 0
 
 
-def phase_slice_serves() -> dict:
-    """:func:`slice_serves` in a child process (``--slice-serves``), whose
-    lines are relayed; run after this process's last profiled window.
-    Within one process torch.profiler loses the records of whole later
-    windows once many windows have been taken: with these serves in the
-    same process (their profiled decodes take 20,000 to 38,000 kernels a
-    window) ``model_timing`` saw 0 of 20 launches in three windows in a row;
-    with them in a child between qwen2.5-14b's serve and ``model_timing``,
-    the same; with ``model_timing`` moved before the serves, ``seq_cumsum``'s
+CHILDREN = {"--slice-serves": slice_serves, "--train-ssm": train_ssm}
+
+
+def run_child(flag: str, what: str) -> dict:
+    """``CHILDREN[flag]`` in a child process, whose lines are relayed; run
+    after this process's last profiled window.  Within one process
+    torch.profiler loses the records of whole later windows once many
+    windows have been taken: with the slice's serves in the same process
+    (their profiled decodes take 20,000 to 38,000 kernels a window)
+    ``model_timing`` saw 0 of 20 launches in three windows in a row; with
+    them in a child between qwen2.5-14b's serve and ``model_timing``, the
+    same; with ``model_timing`` moved before the serves, ``seq_cumsum``'s
     profiled window recorded nothing.  A fresh process after such a child
     kept every record."""
     import gc
@@ -2937,15 +3056,26 @@ def phase_slice_serves() -> dict:
 
     gc.collect()
     torch.cuda.empty_cache()
-    proc = subprocess.run([sys.executable, str(Path(__file__).resolve()), "--slice-serves"],
+    proc = subprocess.run([sys.executable, str(Path(__file__).resolve()), flag],
                           capture_output=True, text=True, timeout=900, cwd=ROOT)
     sys.stderr.write(proc.stderr)
     lines = proc.stdout.strip().splitlines()
     for line in lines[:-1]:
         print(line, flush=True)
     if proc.returncode != 0 or not lines:
-        raise AssertionError(f"the slice's serves failed (exit {proc.returncode})")
+        raise AssertionError(f"{what} failed (exit {proc.returncode})")
     return json.loads(lines[-1])
+
+
+def phase_slice_serves() -> dict:
+    """:func:`slice_serves` in a child process (``--slice-serves``)."""
+    return run_child("--slice-serves", "the slice's serves")
+
+
+def phase_train_ssm() -> dict:
+    """:func:`train_ssm` in a child process (``--train-ssm``): its profiled
+    step is a large window, so it runs after this process's last one."""
+    return run_child("--train-ssm", "the SSM training")
 
 
 def sdpa_backend(q, k, v, mask, is_causal: bool = False) -> str:
@@ -3019,8 +3149,8 @@ def flash_timing(shape, device, seed: int) -> dict:
 
 
 def phase_model_timing(device):
-    """K2, K3 and K4 at the serving shapes: kernel, plain version, bound,
-    library."""
+    """K2, K3 and K4 at the serving shapes and the backwards of K2, K3 and
+    K4 at the training shape: kernel, plain version, bound, library."""
     import torch
 
     from repro_torch.kernels import rglru as rg
@@ -3057,9 +3187,20 @@ def phase_model_timing(device):
     # decode step calls it (T = 1)
     args = ssd_operands(SSD_SERVE, torch.bfloat16, device, True, seed=9)
     s_ms = cuda_median_ms(lambda: ssd.ssd_chunked(*args), reps=20, warmup=3)
+    s_dev = profiled_device_ms(lambda: ssd.ssd_chunked(*args), "ssd_chunk_mma_kernel", reps=20)
     s_plain = cuda_median_ms(lambda: ssd.ssd_chunked_torch(*args), reps=3, warmup=1)
     s_bound = ssd_bound(args[0], args[3], args[5], args[6], chunk=ssd.CHUNK)
     del args
+    # ... and as a training step calls it (batch 1, d_skip, no h0)
+    x1, dt1, al1, bm1, cm1, d1, _ = ssd_operands(SSD_TRAIN, torch.bfloat16, device, True,
+                                                 seed=18)
+    s_b1 = {"shape": list(SSD_TRAIN),
+            "ms": cuda_median_ms(lambda: ssd.ssd_chunked(x1, dt1, al1, bm1, cm1, d1),
+                                 reps=20, warmup=3),
+            "device_ms": profiled_device_ms(lambda: ssd.ssd_chunked(x1, dt1, al1, bm1, cm1, d1),
+                                            "ssd_chunk_mma_kernel", reps=20),
+            "bound_ms": ssd_bound(x1, bm1, d1, None, chunk=ssd.CHUNK)["bound_ms"]}
+    del x1, dt1, al1, bm1, cm1, d1
     dec = ssd_operands((SERVE_BATCH, 1) + SSD_SERVE[2:], torch.bfloat16, device, True, seed=10)
     s_dec = cuda_median_ms(lambda: ssd.ssd_chunked(*dec), reps=50, warmup=5)
     s_dec_dev = profiled_device_ms(lambda: ssd.ssd_chunked(*dec), "ssd_chunk_kernel", reps=50)
@@ -3068,6 +3209,7 @@ def phase_model_timing(device):
     out = {
         "flash_attention_bwd": flash_bwd_timing(device, seed=13),
         "rglru_scan_bwd": rglru_bwd_timing(device, seed=14),
+        "ssd_chunked_bwd": ssd_bwd_timing(device, seed=17),
         "flash_attention_qwen2.5-14b": flash_timing(FLASH_QWEN, device, seed=11),
         "flash_attention_codeqwen1.5-7b": flash_timing(FLASH_CODEQWEN, device, seed=12),
         "flash_attention": flash,
@@ -3080,7 +3222,8 @@ def phase_model_timing(device):
                        "decode_step_bytes": r_decode_bound["bytes"],
                        "training_shape": r_b1,
                        "shape": [SERVE_BATCH, SERVE_PROMPT, 2560]},
-        "ssd_chunked": {"ms": s_ms, "plain_ms": s_plain, **s_bound, "library_ms": None,
+        "ssd_chunked": {"ms": s_ms, "device_ms": s_dev, "plain_ms": s_plain, **s_bound,
+                        "library_ms": None, "training_shape": s_b1,
                         "achieved_tflops": s_bound["kernel_operations"] / s_ms * 1e-9,
                         "decode_step_ms": s_dec, "decode_step_device_ms": s_dec_dev,
                         "decode_step_plain_ms": s_dec_plain,
@@ -3108,13 +3251,16 @@ def phase_model_timing(device):
              "redesigned; "
              "decode_step_ms is event-timed around one wrapper call (host work "
              "included), decode_step_device_ms the kernel's own time from "
-             "torch.profiler, mean of 50; flash_attention_bwd and rglru_scan_bwd at the "
-             "training shape: ms the median of 10 (20) event-timed wrapper calls, device_ms "
+             "torch.profiler, mean of 50; ssd device_ms: the tensor-core kernel's mean "
+             "device time over 20 launches, training_shape the same at (1, 4096) with no h0; "
+             "flash_attention_bwd, rglru_scan_bwd and ssd_chunked_bwd at the "
+             "training shape: ms the median of 10 (20, 10) event-timed wrapper calls, device_ms "
              "the profiler's time of the call's kernels (K2 bwd: delta, the tensor-core "
              "dk/dv pass, the group sum, the tensor-core dq pass; K3 bwd: the reverse scan "
              "in the group the wrapper picks, device_ms_by_group in each group there and "
              "at batch 4, chain_ms = T x fp32_chain_ms_per_step, one channel's dependent "
-             "add and multiply measured on one thread), plain_ms 3 calls "
+             "add and multiply measured on one thread; K4 bwd: its four kernels, the "
+             "state pass, the chunks, the two fixed-order sums), plain_ms 3 calls "
              "of the plain backward, library_ms (K2 bwd) the backward of "
              "scaled_dot_product_attention through autograd at the same shape; K2 bwd's "
              "kernel_operations is the design's 14 D a visible pair (S and dP in both "
@@ -3155,6 +3301,80 @@ def rglru_bwd_bound(a, h0, dh_last) -> dict:
     return {"bytes": nbytes, "operations": ops, "bytes_ms": t_bytes, "ops_ms": t_ops,
             "bound_ms": max(t_bytes, t_ops),
             "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+
+
+def ssd_bwd_operations(t: int, p: int, n: int, chunk: int) -> tuple[int, int]:
+    """Operations of K4's backward over ``t`` steps of one (batch, head),
+    split as (C B^T, the rest): per chunk of q steps 2 q^2 N for C B^T (once
+    per group); per head 2 q^2 P each for dy x^T and M^T dy, 2 q^2 N each for
+    the intra-chunk dB and dC, and 2 q N P each for the chunk's incoming state
+    (recomputed: the forward keeps none), dH' B^T, C H^T, the inter-chunk dB
+    and dC, and the state gradient passed back."""
+    cb = rest = 0
+    for c0 in range(0, t, chunk):
+        q = min(chunk, t - c0)
+        cb += 2 * q * q * n
+        rest += 4 * q * q * p + 4 * q * q * n + 12 * q * n * p
+    return cb, rest
+
+
+def ssd_bwd_bound(x, b_mat, d_skip, h0, dh_last, chunk: int) -> dict:
+    """Least time for K4's backward: x, dt, B, C, dy (x's type), a_log,
+    d_skip, h0 and dh_last read, dx, ddt, dB, dC, da_log, dd_skip and dh0
+    written once over the memory rate, against ``ssd_bwd_operations`` (C B^T
+    once per (batch, group), the rest per (batch, head)) at the peak rate of
+    the inputs' type; ``fp32_rate_*`` at the fp32 rate, where this kernel
+    computes."""
+    b, t, h, p = x.shape
+    g, n = b_mat.shape[2:]
+    cb, rest = ssd_bwd_operations(t, p, n, chunk)
+    ops = b * g * cb + b * h * rest
+    state = b * h * p * n * 4
+    nbytes = 3 * x.numel() * x.element_size() + 2 * b * t * h * 4 \
+        + 4 * b_mat.numel() * b_mat.element_size() + 2 * h * 4 \
+        + (2 * h * 4 if d_skip is not None else 0) + (2 * state if h0 is not None else 0) \
+        + (state if dh_last is not None else 0)
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / PEAK_FLOPS[str(x.dtype).split(".")[-1]] * 1e3
+    t_ops32 = ops / PEAK_FLOPS["float32"] * 1e3
+    return {"bytes": nbytes, "operations": ops, "chunk": chunk, "bytes_ms": t_bytes,
+            "ops_ms": t_ops, "bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "fp32_rate_bound_ms": max(t_bytes, t_ops32),
+            "fp32_rate_bound_by": "bytes" if t_bytes >= t_ops32 else "operations"}
+
+
+def ssd_bwd_timing(device, seed: int) -> dict:
+    """K4's backward in bf16 at the training shape, as a training step calls
+    it (d_skip, no h0, no last-state gradient): events around one wrapper
+    call, the profiler's device time of the ``SSD_BWD_KERNELS`` one call
+    launches (together and each on its own), the plain backward, the bound;
+    no single PyTorch call computes it (library_ms None)."""
+    import torch
+
+    from repro_torch.kernels import ssd
+
+    args, dy, _ = ssd_bwd_operands(SSD_TRAIN, torch.bfloat16, device, True, seed)
+    x, dt, a_log, bm, cm, d_skip, _ = args
+
+    def kernel():
+        return ssd.ssd_chunked_bwd(x, dt, a_log, bm, cm, d_skip, None, dy)
+
+    ms = cuda_median_ms(kernel, reps=10, warmup=2)
+    dev_ms = profiled_device_ms(kernel, "ssd_bwd_", reps=10, per_call=len(SSD_BWD_KERNELS))
+    by_kernel = {name: profiled_device_ms(kernel, name, reps=10) for name in SSD_BWD_KERNELS}
+    plain_ms = cuda_median_ms(
+        lambda: ssd.ssd_chunked_bwd_torch(x, dt, a_log, bm, cm, d_skip, None, dy),
+        reps=3, warmup=1)
+    bound = ssd_bwd_bound(x, bm, d_skip, None, None, ssd.CHUNK)
+    b, t, h, p, g, n = SSD_TRAIN
+    chunks = -(-t // ssd.CHUNK)
+    return {"ms": ms, "device_ms": dev_ms, "plain_ms": plain_ms, **bound, "library_ms": None,
+            "kernels": list(SSD_BWD_KERNELS), "device_ms_by_kernel": by_kernel,
+            "achieved_tflops": bound["operations"] / ms * 1e-9,
+            "blocks": {"states": b * h * 2 * -(-p // 16), "chunks": b * h * chunks},
+            "scratch_bytes": 2 * b * h * chunks * p * n * 4 + 2 * b * t * h * n * 4,
+            "shape": list(SSD_TRAIN), "dtype": "bfloat16 x/B/C/dy, fp32 dt/d_skip"}
 
 
 def flash_bwd_timing(device, seed: int) -> dict:
@@ -3297,24 +3517,28 @@ class _YardstickFlash:
 
 @contextlib.contextmanager
 def plain_training(yardstick: bool = False):
-    """The training path with K2 and K3 (forward and backward) replaced by
-    their plain versions (for the comparison only: the port has no such
+    """The training path with K2, K3 and K4 (forward and backward) replaced
+    by their plain versions (for the comparison only: the port has no such
     route); ``yardstick``: attention summed in another order
-    (``_YardstickFlash``)."""
+    (``_YardstickFlash``) and the SSD's forward and backward at
+    ``YARDSTICK_CHUNK`` steps a chunk."""
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import ops
     from repro_torch.kernels import rglru as rg
+    from repro_torch.kernels import ssd
 
     def yardstick_flash(q, k, v, *, causal=True, window=None, name=None):
         return _YardstickFlash.apply(q, k, v, causal, window)
 
-    orig = ops.flash_attention, ops.rglru_scan
+    orig = ops.flash_attention, ops.rglru_scan, ops.ssd_chunked
     ops.flash_attention = yardstick_flash if yardstick else fa.flash_attention_torch_grad
     ops.rglru_scan = rg.rglru_scan_torch_grad
+    ops.ssd_chunked = functools.partial(ssd.ssd_chunked_torch_grad, chunk=YARDSTICK_CHUNK) \
+        if yardstick else ssd.ssd_chunked_torch_grad
     try:
         yield
     finally:
-        ops.flash_attention, ops.rglru_scan = orig
+        ops.flash_attention, ops.rglru_scan, ops.ssd_chunked = orig
 
 
 def train_wrappers() -> dict:
@@ -3326,11 +3550,12 @@ def train_wrappers() -> dict:
 
     return {"flash_attention": fa.flash_attention, "flash_attention_bwd": fa.flash_attention_bwd,
             "rglru_scan": rg.rglru_scan, "rglru_scan_bwd": rg.rglru_scan_bwd,
-            "ssd_chunked": ssd.ssd_chunked, "schedule_dp": sdp.sweep}
+            "ssd_chunked": ssd.ssd_chunked, "ssd_chunked_bwd": ssd.ssd_chunked_bwd,
+            "schedule_dp": sdp.sweep}
 
 
 def expected_train_launches(cfg, scan_group, policy) -> dict:
-    """Kernel launches of one training step: K2 and K3 forward once per
+    """Kernel launches of one training step: K2, K3 and K4 forward once per
     layer plus once per replay the plan implies (none for a held class), and
     their backwards once per layer."""
     from repro_torch.models.decoder import kernel_forwards
@@ -3339,7 +3564,7 @@ def expected_train_launches(cfg, scan_group, policy) -> dict:
     return {"flash_attention": fwd["attn_out"],
             "flash_attention_bwd": cfg.kinds.count("attn_local") + cfg.kinds.count("attn"),
             "rglru_scan": fwd["rec_out"], "rglru_scan_bwd": cfg.kinds.count("rec"),
-            "ssd_chunked": 0}
+            "ssd_chunked": fwd["ssm_out"], "ssd_chunked_bwd": cfg.kinds.count("ssm")}
 
 
 def train_memory_reckoning(cfg, plan) -> dict:
@@ -3347,7 +3572,10 @@ def train_memory_reckoning(cfg, plan) -> dict:
     parameters, gradients and AdamW moments (16 B a parameter), the bf16
     casts of the weights autograd keeps (2 B), the planner's named activation
     classes, and the logits with their gradient (bf16) and one fp32 block of
-    the loss.  Unnamed intermediates (norm and gate values) are not in it."""
+    the loss; for SSM layers also K4's backward scratch (chunk states and
+    state gradients, per-head dB / dC, fp32), which one layer's backward
+    holds at a time.  Unnamed intermediates (norm and gate values) are not in
+    it."""
     from repro_torch.configs.base import ShapeCell
     from repro_torch.plan import H100, layer_costs
 
@@ -3359,6 +3587,13 @@ def train_memory_reckoning(cfg, plan) -> dict:
     logits = 2 * 2 * tokens * cfg.padded_vocab + 2 * 4 * 1024 * cfg.padded_vocab
     out = {"state_bytes": 16 * n, "weight_casts_bytes": 2 * n, "named_activations_bytes": acts,
            "logits_bytes": logits}
+    if "ssm" in cfg.kinds:
+        from repro_torch.kernels.ssd import CHUNK
+
+        chunks = -(-TRAIN_SEQ // CHUNK)
+        h, p, s = cfg.n_ssm_heads, cfg.ssm_head_dim, cfg.ssm_state
+        out["ssd_bwd_scratch_bytes"] = TRAIN_BATCH * h * (2 * chunks * p * s
+                                                          + 2 * TRAIN_SEQ * s) * 4
     out["total_bytes"] = sum(out.values())
     return out
 
@@ -3425,26 +3660,36 @@ def train_step1_gate(tr, device) -> dict:
     fixed = loss_err <= TRAIN_LOSS_LIMIT and grad_err <= TRAIN_GRAD_LIMIT
     by_yardstick = loss_err <= YARDSTICK_FACTOR * max(yard_loss_err, 1e-7) and \
         grad_err <= YARDSTICK_FACTOR * yard_grad_err
-    if not (finite and math.isfinite(kern_loss) and (fixed or by_yardstick)):
+    # each reading against its own limit: the fixed one, or twice the
+    # yardstick's reading of the same quantity where that is larger
+    loss_limit = max(TRAIN_LOSS_LIMIT, YARDSTICK_FACTOR * yard_loss_err)
+    grad_limit = max(TRAIN_GRAD_LIMIT, YARDSTICK_FACTOR * yard_grad_err)
+    worst = sorted(kern.items(), key=lambda kv: -kv[1])[:5]
+    yard_worst = sorted(yard.items(), key=lambda kv: -kv[1])[:5]
+    if not (finite and math.isfinite(kern_loss) and loss_err <= loss_limit
+            and grad_err <= grad_limit):
         raise AssertionError(
             f"train step 1 differs from the plain versions: loss {loss_err:.3g} (limit "
             f"{TRAIN_LOSS_LIMIT}, yardstick {yard_loss_err:.3g}), gradients {grad_err:.3g} "
-            f"(limit {TRAIN_GRAD_LIMIT}, yardstick {yard_grad_err:.3g}), finite={finite}")
-    worst = sorted(kern.items(), key=lambda kv: -kv[1])[:5]
+            f"(limit {TRAIN_GRAD_LIMIT}, yardstick {yard_grad_err:.3g}), finite={finite}; "
+            f"worst {worst}, yardstick's worst {yard_worst}")
     return {"loss_kernels": kern_loss, "loss_plain": plain_loss, "loss_yardstick": yard_loss,
             "loss_rel_err": loss_err, "grad_rel_err_max": grad_err,
             "yardstick_loss_rel_err": yard_loss_err, "yardstick_grad_rel_err_max": yard_grad_err,
             "within_fixed_limits": fixed, "within_yardstick": by_yardstick,
             "limits": {"loss": TRAIN_LOSS_LIMIT, "grad": TRAIN_GRAD_LIMIT,
                        "yardstick_factor": YARDSTICK_FACTOR},
-            "worst_grads": worst, "plain_step_s": plain_s, "kernel_step_s": kern_s,
+            "loss_limit": loss_limit, "grad_limit": grad_limit,
+            "worst_grads": worst, "yardstick_worst_grads": yard_worst,
+            "plain_step_s": plain_s, "kernel_step_s": kern_s,
             "grad_tensors": len(kern)}
 
 
-def recovery_drill(device) -> dict:
-    """``run_with_recovery`` at the smoke size on the card: a run lost at
-    ``RECOVERY_FAIL_AT`` and restored from its checkpoints against the run
-    that never failed; losses and final parameters must be bit-identical."""
+def recovery_drill(device, arch: str = TRAIN_ARCH) -> dict:
+    """``run_with_recovery`` of ``arch`` at the smoke size on the card: a run
+    lost at ``RECOVERY_FAIL_AT`` and restored from its checkpoints against
+    the run that never failed; losses and final parameters must be
+    bit-identical."""
     import shutil
 
     import torch
@@ -3454,9 +3699,9 @@ def recovery_drill(device) -> dict:
 
     runs = []
     for name, fail in (("clean", ()), ("failing", RECOVERY_FAIL_AT)):
-        ckpt = ROOT / "build" / f"recovery_{name}"
+        ckpt = ROOT / "build" / f"recovery_{arch}_{name}"
         shutil.rmtree(ckpt, ignore_errors=True)
-        tr = build_trainer(parse_args(["--arch", TRAIN_ARCH, "--smoke", "--device", "cuda",
+        tr = build_trainer(parse_args(["--arch", arch, "--smoke", "--device", device.type,
                                        "--batch", "2", "--seq", "128", "--lr", "3e-3"]))
         losses = {}
         state, restarts = run_with_recovery(
@@ -3479,21 +3724,42 @@ def recovery_drill(device) -> dict:
             "losses_bit_identical": True, "params_bit_identical": True}
 
 
-def phase_train(device) -> dict:
-    """recurrentgemma-2b trained at its published width and depth through
+def train_model_flops(cfg) -> int:
+    """Model FLOPs of one training step: 6 N per token, plus the mixing the
+    parameter count leaves out, x3 for the backward: attention's scores (4 D
+    per visible pair) and the SSD's chunked form (``ssd_operations`` at the
+    kernel's chunk, C B^T once per group)."""
+    from repro_torch.kernels.ssd import CHUNK
+
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    attn_pairs = flash_pairs(TRAIN_SEQ, TRAIN_SEQ, True, cfg.attn_window, 0) * TRAIN_BATCH
+    attn = 4 * cfg.resolved_head_dim * attn_pairs * cfg.n_heads * cfg.kinds.count("attn_local") \
+        if "attn_local" in cfg.kinds else 0
+    ssd_ops = 0
+    if "ssm" in cfg.kinds:
+        cb, rest = ssd_operations(TRAIN_SEQ, cfg.ssm_head_dim, cfg.ssm_state, CHUNK)
+        ssd_ops = TRAIN_BATCH * (cfg.ssm_groups * cb + cfg.n_ssm_heads * rest) \
+            * cfg.kinds.count("ssm")
+    return 6 * cfg.param_count() * tokens + 3 * (attn + ssd_ops)
+
+
+def phase_train(device, arch: str = TRAIN_ARCH, phase: str = "train") -> dict:
+    """``arch`` trained at its published width and depth through
     ``launch/train.py``'s path under the planner's residency plan: the
     step-1 gate against the plain versions, TRAIN_STEPS steps with every
     training kernel's count set to 0 just before and read just after, one
-    profiled step, and the recovery drill at the smoke size."""
+    profiled step, and the recovery drill at the smoke size; printed as
+    ``phase``.  In the main process (``train``) it is the last profiled
+    phase, and probes what later windows keep."""
     import gc
 
     import torch
 
     from repro_torch.launch.train import build_trainer, parse_args, train_main
 
-    argv = ["--arch", TRAIN_ARCH, "--device", "cuda", "--steps", str(TRAIN_STEPS),
+    argv = ["--arch", arch, "--device", device.type, "--steps", str(TRAIN_STEPS),
             "--batch", str(TRAIN_BATCH), "--seq", str(TRAIN_SEQ), "--log-every", "1",
-            "--ckpt-every", "1000000", "--ckpt-dir", str(ROOT / "build" / "train_ckpt")]
+            "--ckpt-every", "1000000", "--ckpt-dir", str(ROOT / "build" / f"train_ckpt_{arch}")]
     t0 = time.perf_counter()
     tr = build_trainer(parse_args(argv))
     torch.cuda.synchronize()
@@ -3518,30 +3784,30 @@ def phase_train(device) -> dict:
     if not all(math.isfinite(x) for x in losses) or len(losses) != TRAIN_STEPS:
         raise AssertionError(f"train losses {losses}")
     profile = device_breakdown(lambda: tr.step_fn(state, tr.batch_at(TRAIN_STEPS)), top=8)
-    # do profiled windows after the profiled full-width step keep their
-    # records (one such window has been seen to keep 6 of 20)?  Three in a
-    # row, with acc_events, without, and with again, so the flag and the
-    # order can be told apart
-    from repro_torch.kernels import schedule_dp as sdp
+    records_after = None
+    if phase == "train":
+        # do profiled windows after the profiled full-width step keep their
+        # records (one such window has been seen to keep 6 of 20)?  Three in
+        # a row, with acc_events, without, and with again, so the flag and
+        # the order can be told apart
+        from repro_torch.kernels import schedule_dp as sdp
 
-    probe = torch.rand((80, 1280), dtype=torch.float64, device=device)
-    records_after = [
-        {"acc_events": acc, "seen": profiler_records_seen(
-            lambda: sdp.seq_cumsum(probe), "seq_cumsum", reps=20, acc_events=acc)}
-        for acc in (True, False, True)]
-    del probe
+        probe = torch.rand((80, 1280), dtype=torch.float64, device=device)
+        records_after = {"of": 20, "windows": [
+            {"acc_events": acc, "seen": profiler_records_seen(
+                lambda: sdp.seq_cumsum(probe), "seq_cumsum", reps=20, acc_events=acc)}
+            for acc in (True, False, True)]}
+        del probe
     tokens = TRAIN_BATCH * TRAIN_SEQ
     steady = statistics.median(step_s[1:]) if len(step_s) > 1 else step_s[0]
-    attn_pairs = flash_pairs(TRAIN_SEQ, TRAIN_SEQ, True, cfg.attn_window, 0) * TRAIN_BATCH
-    model_flops = 6 * cfg.param_count() * tokens + 3 * 4 * cfg.resolved_head_dim * \
-        attn_pairs * cfg.n_heads * cfg.kinds.count("attn_local")
+    model_flops = train_model_flops(cfg)
     offloaded = tr.policy.offloaded_bytes if tr.policy is not None else 0
     reckoned = train_memory_reckoning(cfg, plan)
     del tr, state
     gc.collect()
     torch.cuda.empty_cache()
-    drill = recovery_drill(device)
-    out = {"arch": TRAIN_ARCH, "layers": cfg.n_layers, "d_model": cfg.d_model,
+    drill = recovery_drill(device, arch)
+    out = {"arch": arch, "layers": cfg.n_layers, "d_model": cfg.d_model,
            "vocab": cfg.vocab_size, "params": cfg.param_count(), "dtype": cfg.dtype,
            "masters": "float32", "batch": TRAIN_BATCH, "seq": TRAIN_SEQ, "steps": TRAIN_STEPS,
            "optimizer": "adamw", "init_s": init_s,
@@ -3560,17 +3826,19 @@ def phase_train(device) -> dict:
            "launches_per_step": per_step, "expected_launches_per_step": want,
            "step1_gate": gate, "step1_loss_reproduced_in_training": gate["loss_kernels"] ==
            losses[0], "device_profile_one_step": profile,
-           "profiler_records_after_profile": {"windows": records_after, "of": 20},
+           "profiler_records_after_profile": records_after,
            "recovery": drill}
-    say("train", **out,
+    say(phase, **out,
         note="step_s: wall per step, synchronised by the loss read (the first includes "
              "set-up); step_ms_steady: median of the later steps; model_flops: 6 N tokens "
-             "plus the attention scores (4 D per visible pair, x3 for the backward); "
+             "plus the attention scores (4 D per visible pair) or the SSD's chunked form, "
+             "x3 for the backward; "
              "device_profile_one_step: torch.profiler (acc_events) over one more step; "
-             "profiler_records_after_profile: seq_cumsum records a profiled window of 20 "
-             "launches kept in each of three windows right after it (with acc_events, "
-             "without, with); recovery: the "
-             "smoke config (a full-width checkpoint would be ~43 GB per save)")
+             "profiler_records_after_profile (train only): seq_cumsum records a profiled "
+             "window of 20 launches kept in each of three windows right after it (with "
+             "acc_events, without, with); recovery: the smoke config (a full-width "
+             "checkpoint would be ~43 GB per save for recurrentgemma-2b, ~12.5 GB for "
+             "mamba2-780m)")
     return out
 
 
@@ -3594,13 +3862,18 @@ KERNELS = (
      "src/repro/kernels/flash_xla.py:76"),
     ("rglru_scan_bwd", "src/repro_torch/kernels/csrc/rglru.cu",
      "src/repro/kernels/rglru_xla.py:56"),
+    # K4's backward: the reference differentiates through its chunked SSD in
+    # jnp (autodiff of a lax.scan), so it too replaces no TPU kernel
+    ("ssd_chunked_bwd", "src/repro_torch/kernels/csrc/ssd_bwd.cu",
+     "src/repro/kernels/ref.py:205"),
     # a helper of the device-resident round, with no TPU kernel: it replaces
     # the reference's blocked sequential lax.scan of the durations
     ("seq_cumsum", "src/repro_torch/kernels/csrc/schedule_dp.cu",
      "src/repro/core/device_search.py:199"),
 )
 HELPERS = ("seq_cumsum",)
-BACKWARDS = {"flash_attention_bwd": "flash_attention", "rglru_scan_bwd": "rglru_scan"}
+BACKWARDS = {"flash_attention_bwd": "flash_attention", "rglru_scan_bwd": "rglru_scan",
+             "ssd_chunked_bwd": "ssd_chunked"}
 
 
 def kernel_entries(launches: dict, errs: dict, times: dict, extras: dict) -> list:
@@ -3688,8 +3961,11 @@ def main() -> int:
     # launches), which the earlier phases' profiled gates and timings must
     # not meet
     train = timed("train", phase_train, device)
-    # then the MoE, encoder-decoder and vision serves in a process of their
-    # own, once this one has taken its last profiled window
+    # then mamba2-780m's training and the MoE, encoder-decoder and vision
+    # serves, each in a process of its own, once this one has taken its last
+    # profiled window
+    ssm = timed("train_ssm child", phase_train_ssm)
+    phase_s.update(ssm.pop("phase_seconds"))
     slice_out = timed("slice_serves", phase_slice_serves)
     phase_s.update(slice_out["phase_seconds"])
     slice_launches, slice_times = slice_out["launches"], slice_out["timings"]
@@ -3699,9 +3975,10 @@ def main() -> int:
                                 "device_path": device_launches,
                                 "crash_resume": crash_launches,
                                 "solve_service": service_launches,
-                                "train": {"schedule_dp": train["launches"]["schedule_dp"]}})
-    tl = train["launches"]
-    fb, rb = mtime["flash_attention_bwd"], mtime["rglru_scan_bwd"]
+                                "train": {"schedule_dp": train["launches"]["schedule_dp"]},
+                                "train_ssm": {"schedule_dp": ssm["launches"]["schedule_dp"]}})
+    tl, sl = train["launches"], ssm["launches"]
+    fb, rb, sb = mtime["flash_attention_bwd"], mtime["rglru_scan_bwd"], mtime["ssd_chunked_bwd"]
     fl, rg, sd = mtime["flash_attention"], mtime["rglru_scan"], mtime["ssd_chunked"]
     fq, fc = mtime["flash_attention_qwen2.5-14b"], mtime["flash_attention_codeqwen1.5-7b"]
     entries = kernel_entries(
@@ -3710,7 +3987,8 @@ def main() -> int:
                   "ssd_chunked": mamba_launches["ssd_chunked"],
                   "seq_cumsum": device_launches["seq_cumsum"],
                   "flash_attention_bwd": tl["flash_attention_bwd"],
-                  "rglru_scan_bwd": tl["rglru_scan_bwd"]},
+                  "rglru_scan_bwd": tl["rglru_scan_bwd"],
+                  "ssd_chunked_bwd": sl["ssd_chunked_bwd"]},
         errs={"schedule_dp": worst, **model_err, "seq_cumsum": cum["max_abs_err"]},
         times={"schedule_dp": fwd, **mtime, "flash_attention": fq, "seq_cumsum": cum},
         extras={
@@ -3773,7 +4051,22 @@ def main() -> int:
                            "decode_step_bound_ms": rg["decode_step_bound_ms"],
                            "decode_step_bound_by": rg["decode_step_bound_by"],
                            "training_shape": rg["training_shape"]},
+            "ssd_chunked_bwd": {
+                "path": "train_ssm", "launches_per_step": ssm["launches_per_step"][
+                    "ssd_chunked_bwd"],
+                "launches_by_path": {"train_ssm": sl["ssd_chunked_bwd"]},
+                "max_abs_err_f32": model_err["ssd_chunked_bwd_f32"],
+                "max_rel_err": model_err["ssd_chunked_bwd_rel"],
+                "device_ms": sb["device_ms"], "shape": sb["shape"], "dtype": sb["dtype"],
+                "operations": sb["operations"], "achieved_tflops": sb["achieved_tflops"],
+                "fp32_rate_bound_ms": sb["fp32_rate_bound_ms"], "kernels": sb["kernels"],
+                "device_ms_by_kernel": sb["device_ms_by_kernel"], "blocks": sb["blocks"],
+                "scratch_bytes": sb["scratch_bytes"]},
             "ssd_chunked": {"shape": sd["shape"], "dtype": sd["dtype"],
+                            "launches_by_path": {"model_serve " + MAMBA_ARCH:
+                                                 mamba_launches["ssd_chunked"],
+                                                 "train_ssm": sl["ssd_chunked"]},
+                            "device_ms": sd["device_ms"], "training_shape": sd["training_shape"],
                             "precision": sd["precision"],
                             "fp32_rate_bound_ms": sd["fp32_rate_bound_ms"],
                             "fp32_rate_bound_by": sd["fp32_rate_bound_by"],
@@ -3805,4 +4098,5 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(slice_serves_main() if sys.argv[1:] == ["--slice-serves"] else main())
+    child = CHILDREN.get(sys.argv[1]) if len(sys.argv) == 2 else None
+    sys.exit(child_main(child) if child is not None else main())

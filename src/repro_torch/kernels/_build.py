@@ -36,6 +36,7 @@ KERNEL_SOURCES = {
     "rglru": "rglru.cu",
     "ssd": "ssd.cu",
     "flash_attention_bwd": "flash_attention_bwd.cu",
+    "ssd_bwd": "ssd_bwd.cu",
 }
 
 _loaded: dict[str, ctypes.CDLL] = {}

@@ -26,6 +26,27 @@ is rounded to ``x``'s type once.
   chunk of one step.
 
 Returns ``(y (B, T, H, P) in x's type, h_last (B, H, P, N) fp32)``.
+
+When an input requires a gradient, :func:`ssd_chunked` is differentiable
+(``_SSD``); its backward is :func:`ssd_chunked_bwd`: the kernels of
+``csrc/ssd_bwd.cu`` for CUDA tensors (counted in
+``ssd_chunked_bwd.launches``), :func:`ssd_chunked_bwd_torch` for CPU
+tensors.  The reference has no TPU kernel for it: it differentiates through
+``ref.ssd_chunked_reference``.  Per (batch, head) and chunk, with the
+chunk's incoming state ``H``, the gradient ``dH'`` of its outgoing state,
+``E[t, s] = exp(L_t - L_s)`` for ``s <= t`` (else 0), ``W_s = dt_s
+exp(L_last - L_s)`` and ``V_s = dH' B_s``::
+
+    dx_s  = sum_t M[t, s] dy_t + W_s V_s + D dy_s
+    dB_s  = sum_t E[t, s] dt_s (dy_t . x_s) C_t + W_s dH'^T x_s
+    dC_t  = sum_s E[t, s] dt_s (dy_t . x_s) B_s + exp(L_t) H^T dy_t
+    dH    = exp(L_last) dH' + sum_t exp(L_t) dy_t C_t^T      (to the chunk before)
+
+and ``dt`` reaches the loss twice: directly (through M and W) and through
+``L``.  The gradient ``dl_u`` of ``l_u = dt_u a`` sums the terms ``l_u``
+moves (the pairs ``s < u <= t`` of M, ``exp(L_t)`` in ``y_t`` for ``t >= u``,
+``W_s`` for ``s < u``, and ``exp(L_last)`` on ``H``) and gives ``ddt_u +=
+dl_u a`` and ``da = sum dl_u dt_u``; ``da_log = da a``, ``dD = sum dy . x``.
 """
 from __future__ import annotations
 
@@ -33,8 +54,11 @@ import ctypes
 
 import torch
 
+from . import replay
+
 __all__ = ["CHUNK", "MAX_HEAD_DIM", "MAX_STATE", "TENSOR_CORE_MIN_T", "on_tensor_cores",
-           "ssd_chunked", "ssd_chunked_torch"]
+           "ssd_chunked", "ssd_chunked_torch", "ssd_chunked_bwd", "ssd_chunked_bwd_torch",
+           "ssd_chunked_torch_grad"]
 
 CHUNK = 64          # time steps per chunk, the kernel's and the plain version's
 MAX_HEAD_DIM = 64   # P: the kernel's register tiles cover 64 columns
@@ -78,23 +102,31 @@ def _check(x, dt, a_log, b_mat, c_mat, d_skip, h0):
     return b, t, h, p, g, n
 
 
-def ssd_chunked_torch(x, dt, a_log, b_mat, c_mat, d_skip=None, h0=None, chunk: int = CHUNK):
+def _sum_type(x: torch.Tensor) -> torch.dtype:
+    """The plain versions' type of every sum: float32, or float64 for
+    float64 inputs (a test's exact reading; the kernels take no float64)."""
+    return torch.float64 if x.dtype == torch.float64 else torch.float32
+
+
+def ssd_chunked_torch(x, dt, a_log, b_mat, c_mat, d_skip=None, h0=None, chunk: int = CHUNK, *,
+                      name: str | None = None):
     """The plain version: the chunked algorithm, one chunk of ``chunk`` steps
     (the kernel's ``CHUNK`` unless asked) at a time, all (batch, head) pairs
-    at once.  ``C B^T`` is taken once per group; the causal mask selects
-    (``torch.where``), so the ``exp`` of a positive ``L_t - L_s`` above the
-    diagonal never reaches the result."""
+    at once (``name`` is the wrapper's and is not used here).  ``C B^T`` is
+    taken once per group; the causal mask is applied to ``L_t - L_s`` before
+    the ``exp`` and selects again after it (``torch.where``), so the ``exp``
+    of a positive ``L_t - L_s`` above the diagonal is never taken."""
     b, t, h, p, g, n = _check(x, dt, a_log, b_mat, c_mat, d_skip, h0)
     r = h // g
-    dev = x.device
-    a = -torch.exp(a_log.float()).reshape(g, r)                        # (G, R)
-    xf = x.float().reshape(b, t, g, r, p)
-    dtf = dt.float().reshape(b, t, g, r)
-    bf, cf = b_mat.float(), c_mat.float()                               # (B, T, G, N)
-    state = torch.zeros((b, h, p, n), dtype=torch.float32, device=dev) if h0 is None \
-        else h0.float().clone()
+    dev, ft = x.device, _sum_type(x)
+    a = -torch.exp(a_log.to(ft)).reshape(g, r)                          # (G, R)
+    xf = x.to(ft).reshape(b, t, g, r, p)
+    dtf = dt.to(ft).reshape(b, t, g, r)
+    bf, cf = b_mat.to(ft), c_mat.to(ft)                                 # (B, T, G, N)
+    state = torch.zeros((b, h, p, n), dtype=ft, device=dev) if h0 is None \
+        else h0.to(ft).clone()
     state = state.reshape(b, g, r, p, n)
-    y = torch.empty((b, t, g, r, p), dtype=torch.float32, device=dev)
+    y = torch.empty((b, t, g, r, p), dtype=ft, device=dev)
     for c0 in range(0, t, chunk):
         q = min(chunk, t - c0)
         xc, dtc = xf[:, c0:c0 + q], dtf[:, c0:c0 + q]                   # (B,Q,G,R,P), (B,Q,G,R)
@@ -103,7 +135,9 @@ def ssd_chunked_torch(x, dt, a_log, b_mat, c_mat, d_skip=None, h0=None, chunk: i
         causal = torch.ones((q, q), dtype=torch.bool, device=dev).tril()
         cb = torch.einsum("btgn,bsgn->bgts", cc, bc)                   # (B, G, Q, Q)
         lt = L.permute(0, 2, 3, 1)                                      # (B, G, R, Q)
-        decay = torch.exp(lt[..., :, None] - lt[..., None, :])          # (B, G, R, Q, Q)
+        # masked before the exp: exp(L_t - L_s) above the diagonal may be inf,
+        # and autograd through the plain version would meet inf * 0
+        decay = torch.exp(torch.where(causal, lt[..., :, None] - lt[..., None, :], -torch.inf))
         m = torch.where(causal, cb[:, :, None] * decay * dtc.permute(0, 2, 3, 1)[..., None, :],
                         0.0)
         yc = torch.einsum("bgrts,bsgrp->btgrp", m, xc)
@@ -113,8 +147,98 @@ def ssd_chunked_torch(x, dt, a_log, b_mat, c_mat, d_skip=None, h0=None, chunk: i
         state = torch.exp(L[:, -1])[..., None, None] * state + torch.einsum(
             "bsgrp,bsgn->bgrpn", xc * w[..., None], bc)
     if d_skip is not None:
-        y = y + d_skip.float().reshape(g, r)[:, :, None] * xf
+        y = y + d_skip.to(ft).reshape(g, r)[:, :, None] * xf
     return y.reshape(b, t, h, p).to(x.dtype), state.reshape(b, h, p, n)
+
+
+def ssd_chunked_bwd_torch(x, dt, a_log, b_mat, c_mat, d_skip, h0, dy, dh_last=None,
+                          chunk: int = CHUNK):
+    """The plain backward: the gradients of :func:`ssd_chunked_torch`'s
+    ``(y, h_last)`` given ``dy`` and ``dh_last`` (None: zeros), as the
+    module docstring writes them.  A loop forward over the chunks gives each
+    chunk's incoming state; a loop backward carries the state gradient from
+    chunk to chunk.  The causal mask is applied to ``L_t - L_s`` before the
+    ``exp``.  Returns ``(dx, ddt, da_log, dB, dC, dd_skip, dh0)``: dx, dB,
+    dC in their inputs' types, the rest fp32; ``dd_skip`` / ``dh0`` None
+    where ``d_skip`` / ``h0`` is."""
+    b, t, h, p, g, n = _check(x, dt, a_log, b_mat, c_mat, d_skip, h0)
+    if tuple(dy.shape) != (b, t, h, p):
+        raise ValueError(f"dy must be {(b, t, h, p)}, got {tuple(dy.shape)}")
+    if dh_last is not None and tuple(dh_last.shape) != (b, h, p, n):
+        raise ValueError(f"dh_last must be {(b, h, p, n)}, got {tuple(dh_last.shape)}")
+    r = h // g
+    dev, ft = x.device, _sum_type(x)
+    a = -torch.exp(a_log.to(ft)).reshape(g, r)                          # (G, R)
+    xf = x.to(ft).reshape(b, t, g, r, p)
+    dyf = dy.to(ft).reshape(b, t, g, r, p)
+    dtf = dt.to(ft).reshape(b, t, g, r)
+    bf, cf = b_mat.to(ft), c_mat.to(ft)                                 # (B, T, G, N)
+    starts = list(range(0, t, chunk))
+    # the incoming state of every chunk, in the forward's order
+    state = torch.zeros((b, g, r, p, n), dtype=ft, device=dev) if h0 is None \
+        else h0.to(ft).reshape(b, g, r, p, n).clone()
+    states = []
+    for c0 in starts:
+        q = min(chunk, t - c0)
+        dtc, bc = dtf[:, c0:c0 + q], bf[:, c0:c0 + q]
+        L = torch.cumsum(dtc * a, dim=1)
+        states.append(state)
+        w = dtc * torch.exp(L[:, -1:] - L)
+        state = torch.exp(L[:, -1])[..., None, None] * state + torch.einsum(
+            "bsgrp,bsgn->bgrpn", xf[:, c0:c0 + q] * w[..., None], bc)
+    dx = torch.empty((b, t, g, r, p), dtype=ft, device=dev)
+    ddt = torch.empty((b, t, g, r), dtype=ft, device=dev)
+    db = torch.empty((b, t, g, n), dtype=ft, device=dev)
+    dc = torch.empty((b, t, g, n), dtype=ft, device=dev)
+    da = torch.zeros((g, r), dtype=ft, device=dev)
+    dstate = torch.zeros((b, g, r, p, n), dtype=ft, device=dev) if dh_last is None \
+        else dh_last.to(ft).reshape(b, g, r, p, n).clone()
+    for c0, hs in zip(reversed(starts), reversed(states)):
+        q = min(chunk, t - c0)
+        xc, dyc, dtc = xf[:, c0:c0 + q], dyf[:, c0:c0 + q], dtf[:, c0:c0 + q]
+        bc, cc = bf[:, c0:c0 + q], cf[:, c0:c0 + q]
+        L = torch.cumsum(dtc * a, dim=1)                                # (B, Q, G, R)
+        lt = L.permute(0, 2, 3, 1)                                      # (B, G, R, Q)
+        causal = torch.ones((q, q), dtype=torch.bool, device=dev).tril()
+        e = torch.exp(torch.where(causal, lt[..., :, None] - lt[..., None, :], -torch.inf))
+        dts = dtc.permute(0, 2, 3, 1)[..., None, :]                     # dt_s (B, G, R, 1, Q)
+        cb = torch.einsum("btgn,bsgn->bgts", cc, bc)[:, :, None]       # (B, G, 1, Q, Q)
+        dyx = torch.einsum("btgrp,bsgrp->bgrts", dyc, xc)               # dy_t . x_s
+        m = cb * e * dts
+        sm = e * dts * dyx                                              # the dB / dC weights
+        gd = cb * e * dyx                                               # d y / d dt_s, per t
+        el, elast = torch.exp(L), torch.exp(L[:, -1])                   # (B,Q,G,R), (B,G,R)
+        f = torch.exp(L[:, -1:] - L)                                    # exp(L_last - L_s)
+        w = dtc * f
+        v = torch.einsum("bsgn,bgrpn->bsgrp", bc, dstate)               # dH' B_s
+        z = torch.einsum("btgn,bgrpn->btgrp", cc, hs)                   # H C_t
+        dx[:, c0:c0 + q] = torch.einsum("bgrts,btgrp->bsgrp", m, dyc) + w[..., None] * v
+        db[:, c0:c0 + q] = torch.einsum("bgrts,btgn->bsgn", sm, cc) + torch.einsum(
+            "bsgrp,bgrpn->bsgn", xc * w[..., None], dstate)
+        dc[:, c0:c0 + q] = torch.einsum("bgrts,bsgn->btgn", sm, bc) + torch.einsum(
+            "btgrp,bgrpn->btgn", dyc * el[..., None], hs)
+        xv = (xc * v).sum(-1)                                           # x_s . V_s
+        # dl_u, the gradient of l_u = dt_u a, is summed over what l_u moves:
+        # the pairs s < u <= t of M, exp(L_t) in y_t for t >= u, W_s for s < u
+        # and exp(L_last); no term is added and taken away again
+        gm = gd * dts                                                   # G[t, s]
+        before = torch.cumsum(torch.nn.functional.pad(gm[..., :-1], (1, 0)), -1)  # s < u
+        pairs = torch.where(causal, before, 0.0).sum(-2).permute(0, 3, 1, 2)   # over t >= u
+        yz = el * (dyc * z).sum(-1)                                     # (B, Q, G, R)
+        kx = w * xv
+        dl = pairs + torch.flip(torch.cumsum(torch.flip(yz, (1,)), 1), (1,)) \
+            + torch.cumsum(torch.cat([torch.zeros_like(kx[:, :1]), kx[:, :-1]], 1), 1) + (elast * (dstate * hs).sum((-2, -1)))[:, None]
+        ddt[:, c0:c0 + q] = gd.sum(-2).permute(0, 3, 1, 2) + f * xv + dl * a
+        da += (dl * dtc).sum((0, 1))
+        dstate = elast[..., None, None] * dstate + torch.einsum(
+            "btgrp,btgn->bgrpn", dyc * el[..., None], cc)
+    dd_skip = None
+    if d_skip is not None:
+        dx += d_skip.to(ft).reshape(g, r)[:, :, None] * dyf
+        dd_skip = (dyf * xf).sum((0, 1, 4)).reshape(h)
+    return (dx.reshape(b, t, h, p).to(x.dtype), ddt.reshape(b, t, h), (da * a).reshape(h),
+            db.to(b_mat.dtype), dc.to(c_mat.dtype), dd_skip,
+            None if h0 is None else dstate.reshape(b, h, p, n))
 
 
 def _c_fn(dtype: torch.dtype, t: int):
@@ -133,7 +257,8 @@ def _unit_last(t: torch.Tensor) -> torch.Tensor:
     return t if t.stride(-1) == 1 else t.contiguous()
 
 
-def _launch_cuda(x, dt, a_log, b_mat, c_mat, d_skip, h0, shape):
+def _check_cuda_types(x, dt, a_log, b_mat, c_mat, d_skip, h0, shape):
+    """What the forward and the backward kernels take, or raise."""
     b, t, h, p, g, n = shape
     if x.dtype not in _DTYPES:
         raise TypeError(f"the SSD kernel takes x in float32 or bfloat16, got {x.dtype}")
@@ -148,6 +273,11 @@ def _launch_cuda(x, dt, a_log, b_mat, c_mat, d_skip, h0, shape):
                          f"{MAX_HEAD_DIM} and a state <= {MAX_STATE} that is a multiple of 4")
     if b >= 65536 or max(x.numel(), b_mat.numel(), b * h * p * n) >= 2**62:
         raise ValueError(f"shape {tuple(x.shape)} exceeds the kernel's grid")
+
+
+def _launch_cuda(x, dt, a_log, b_mat, c_mat, d_skip, h0, shape):
+    b, t, h, p, g, n = shape
+    _check_cuda_types(x, dt, a_log, b_mat, c_mat, d_skip, h0, shape)
     x, b_mat, c_mat = _unit_last(x), _unit_last(b_mat), _unit_last(c_mat)
     dt, a_log = dt.contiguous(), a_log.contiguous()
     d_skip = None if d_skip is None else d_skip.contiguous()
@@ -168,23 +298,179 @@ def _launch_cuda(x, dt, a_log, b_mat, c_mat, d_skip, h0, shape):
     return y, h_last
 
 
-def ssd_chunked(x, dt, a_log, b_mat, c_mat, d_skip=None, h0=None):
+def _c_bwd_fns(dtype: torch.dtype):
+    from . import _build
+
+    lib = _build.load("ssd_bwd")
+    suffix = {torch.float32: "f32", torch.bfloat16: "bf16"}[dtype]
+    p, ll, i = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
+    states = getattr(lib, f"ssd_bwd_states_{suffix}")
+    states.argtypes = [p] * 11 + [ll] * 9 + [i] * 6 + [p]
+    chunks = getattr(lib, f"ssd_bwd_chunks_{suffix}")
+    chunks.argtypes = [p] * 14 + [ll] * 9 + [i] * 6 + [p]
+    reduce = getattr(lib, f"ssd_bwd_reduce_{suffix}")
+    reduce.argtypes = [p] * 8 + [i] * 6 + [p]
+    for fn in (states, chunks, reduce):
+        fn.restype = ctypes.c_int
+    return states, chunks, reduce
+
+
+def _launch_bwd_cuda(x, dt, a_log, b_mat, c_mat, d_skip, h0, dy, dh_last):
+    """The passes of ``csrc/ssd_bwd.cu`` on the current stream: the chunk
+    states and state gradients (and dh0), every chunk's gradients (per-head
+    dB / dC, per-chunk da / dD partials), and the fixed-order sums."""
+    b, t, h, p, g, n = shape = _check(x, dt, a_log, b_mat, c_mat, d_skip, h0)
+    dev = x.device
+    if tuple(dy.shape) != (b, t, h, p) or dy.device != dev:
+        raise ValueError(f"dy must be {(b, t, h, p)} on {dev}, got {tuple(dy.shape)} on "
+                         f"{dy.device}")
+    if dh_last is not None and (tuple(dh_last.shape) != (b, h, p, n) or dh_last.device != dev):
+        raise ValueError(f"dh_last must be {(b, h, p, n)} on {dev}")
+    _check_cuda_types(x, dt, a_log, b_mat, c_mat, d_skip, h0, shape)
+    for name, v in (("dy", dy), ("dh_last", dh_last)):
+        if v is not None and v.dtype != (x.dtype if name == "dy" else torch.float32):
+            raise TypeError(f"{name} is {v.dtype}: the SSD backward takes dy in x's type "
+                            "and dh_last in float32")
+    x, b_mat, c_mat = _unit_last(x), _unit_last(b_mat), _unit_last(c_mat)
+    dt, a_log, dy = dt.contiguous(), a_log.contiguous(), dy.contiguous()
+    d_skip = None if d_skip is None else d_skip.contiguous()
+    h0 = None if h0 is None else h0.contiguous()
+    dh_last = None if dh_last is None else dh_last.contiguous()
+    nc = -(-t // CHUNK)
+    f32 = dict(dtype=torch.float32, device=dev)
+    # chunk-start states and the state gradients at chunk ends, then per-head
+    # dB / dC and per-(b, h, chunk) da / dD partials, summed in a fixed order
+    states = torch.empty((b, h, nc, p, n), **f32)
+    dstates = torch.empty((b, h, nc, p, n), **f32)
+    db_part = torch.empty((b, t, h, n), **f32)
+    dc_part = torch.empty((b, t, h, n), **f32)
+    head_part = torch.empty((2, b, h, nc), **f32)
+    dx = torch.empty((b, t, h, p), dtype=x.dtype, device=dev)
+    ddt = torch.empty((b, t, h), **f32)
+    db = torch.empty((b, t, g, n), dtype=b_mat.dtype, device=dev)
+    dc = torch.empty((b, t, g, n), dtype=c_mat.dtype, device=dev)
+    da_log = torch.empty((h,), **f32)
+    dd_skip = None if d_skip is None else torch.empty((h,), **f32)
+    dh0 = None if h0 is None else torch.empty((b, h, p, n), **f32)
+    ptr = lambda v: None if v is None else v.data_ptr()  # noqa: E731
+    strides = (*x.stride()[:3], *b_mat.stride()[:3], *c_mat.stride()[:3])
+    dims = (b, t, h, g, p, n)
+    fn_states, fn_chunks, fn_reduce = _c_bwd_fns(x.dtype)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = fn_states(x.data_ptr(), dt.data_ptr(), a_log.data_ptr(), b_mat.data_ptr(),
+                        c_mat.data_ptr(), ptr(h0), dy.data_ptr(), ptr(dh_last),
+                        states.data_ptr(), dstates.data_ptr(), ptr(dh0), *strides, *dims,
+                        stream)
+        if err == 0:
+            err = fn_chunks(x.data_ptr(), dt.data_ptr(), a_log.data_ptr(), b_mat.data_ptr(),
+                            c_mat.data_ptr(), ptr(d_skip), dy.data_ptr(), states.data_ptr(),
+                            dstates.data_ptr(), dx.data_ptr(), ddt.data_ptr(),
+                            db_part.data_ptr(), dc_part.data_ptr(), head_part.data_ptr(),
+                            *strides, *dims, stream)
+        if err == 0:
+            err = fn_reduce(db_part.data_ptr(), dc_part.data_ptr(), head_part.data_ptr(),
+                            a_log.data_ptr(), db.data_ptr(), dc.data_ptr(), da_log.data_ptr(),
+                            ptr(dd_skip), *dims, stream)
+    if err != 0:
+        raise RuntimeError(f"ssd backward kernel launch failed: CUDA error {err}")
+    ssd_chunked_bwd.launches += 1
+    return dx, ddt, da_log, db, dc, dd_skip, dh0
+
+
+def ssd_chunked_bwd(x, dt, a_log, b_mat, c_mat, d_skip, h0, dy, dh_last=None):
+    """``(dx, ddt, da_log, dB, dC, dd_skip, dh0)`` of :func:`ssd_chunked`
+    from its inputs, ``dy`` and ``dh_last`` (None: zeros): the kernels of
+    ``csrc/ssd_bwd.cu`` for CUDA tensors (asynchronous, on the current
+    stream; dx, dB, dC in x's type, the rest fp32), :func:`ssd_chunked_bwd_torch`
+    for CPU tensors."""
+    if x.device.type == "cpu":
+        return ssd_chunked_bwd_torch(x, dt, a_log, b_mat, c_mat, d_skip, h0, dy, dh_last)
+    if x.device.type != "cuda":
+        raise ValueError(f"ssd_chunked_bwd runs on cuda or cpu tensors, got {x.device}")
+    return _launch_bwd_cuda(x, dt, a_log, b_mat, c_mat, d_skip, h0, dy, dh_last)
+
+
+ssd_chunked_bwd.launches = 0  # calls that launched the kernels (four kernels each)
+
+
+class _SSD(torch.autograd.Function):
+    """The SSD ``(x, dt, a_log, B, C, d_skip, h0) -> (y, h_last)`` with the
+    hand-written backward (``plain``: the plain versions of both, on any
+    device, at ``chunk`` steps a chunk).  ``name`` is the output's activation
+    class for a residency plan's keeper (:mod:`.replay`)."""
+
+    @staticmethod
+    def forward(ctx, x, dt, a_log, b_mat, c_mat, d_skip, h0, plain, chunk, name):
+        keeper = replay.current() if name else None
+        key = keeper.key(name) if keeper is not None else None
+        held = keeper.lookup(key) if keeper is not None else None
+        if held is not None:
+            y, h_last = held
+        else:
+            if plain:
+                y, h_last = ssd_chunked_torch(x, dt, a_log, b_mat, c_mat, d_skip, h0, chunk)
+            else:
+                y, h_last = _launch_cuda(x, dt, a_log, b_mat, c_mat, d_skip, h0,
+                                         _check(x, dt, a_log, b_mat, c_mat, d_skip, h0))
+            if keeper is not None:
+                keeper.keep(key, (y, h_last))
+        ctx.save_for_backward(x, dt, a_log, b_mat, c_mat, d_skip, h0)
+        ctx.plain, ctx.chunk = plain, chunk
+        ctx.keeper, ctx.key = keeper, key
+        return y, h_last
+
+    @staticmethod
+    def backward(ctx, dy, dh_last):
+        x, dt, a_log, b_mat, c_mat, d_skip, h0 = ctx.saved_tensors
+        if ctx.keeper is not None:
+            ctx.keeper.release(ctx.key)
+        if dy is None:
+            dy = torch.zeros_like(x)
+        if ctx.plain:
+            grads = ssd_chunked_bwd_torch(x, dt, a_log, b_mat, c_mat, d_skip, h0, dy, dh_last,
+                                          ctx.chunk)
+        else:
+            grads = _launch_bwd_cuda(x, dt, a_log, b_mat, c_mat, d_skip, h0,
+                                     dy.to(x.dtype), dh_last)
+        return (*(g if need else None for g, need in zip(grads, ctx.needs_input_grad)),
+                None, None, None)
+
+
+def _needs_grad(*tensors) -> bool:
+    return torch.is_grad_enabled() and any(t is not None and t.requires_grad for t in tensors)
+
+
+def ssd_chunked(x, dt, a_log, b_mat, c_mat, d_skip=None, h0=None, *, name: str | None = None):
     """Mamba-2 SSD over ``x (B, T, H, P)``, ``dt (B, T, H)``, ``a_log (H,)``,
     ``b_mat``/``c_mat (B, T, G, N)``, optional ``d_skip (H,)`` and ``h0 (B, H,
     P, N)`` (zeros if None): the CUDA kernel for CUDA tensors (asynchronous, on
-    the current stream), the plain version for CPU tensors.  It has no
-    backward yet: an input that requires a gradient raises (ROADMAP A8)."""
-    if torch.is_grad_enabled() and any(
-            t is not None and t.requires_grad for t in (x, dt, a_log, b_mat, c_mat, d_skip, h0)):
-        raise NotImplementedError(
-            "ssd_chunked has no backward yet (K4's backward, ROADMAP A8): "
-            "call it under torch.no_grad() or on tensors that need no gradient")
+    the current stream), the plain version for CPU tensors.  When an input
+    requires a gradient the call is differentiable, its backward
+    :func:`ssd_chunked_bwd`; ``name`` is then the output's activation class
+    for a residency plan."""
     shape = _check(x, dt, a_log, b_mat, c_mat, d_skip, h0)
+    if x.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"ssd_chunked runs on cuda or cpu tensors, got {x.device}")
+    if _needs_grad(x, dt, a_log, b_mat, c_mat, d_skip, h0):
+        return _SSD.apply(x, dt, a_log, b_mat, c_mat, d_skip, h0, x.device.type == "cpu",
+                          CHUNK, name)
     if x.device.type == "cpu":
         return ssd_chunked_torch(x, dt, a_log, b_mat, c_mat, d_skip, h0)
-    if x.device.type != "cuda":
-        raise ValueError(f"ssd_chunked runs on cuda or cpu tensors, got {x.device}")
     return _launch_cuda(x, dt, a_log, b_mat, c_mat, d_skip, h0, shape)
+
+
+def ssd_chunked_torch_grad(x, dt, a_log, b_mat, c_mat, d_skip=None, h0=None, *,
+                           chunk: int = CHUNK, name: str | None = None):
+    """The plain forward and the plain backward as one differentiable
+    function, on any device, at ``chunk`` steps a chunk: what
+    :func:`ssd_chunked` runs for CPU tensors.  The port routes no CUDA tensor
+    here; a comparison of the kernels with their plain versions on the card
+    does."""
+    _check(x, dt, a_log, b_mat, c_mat, d_skip, h0)
+    if _needs_grad(x, dt, a_log, b_mat, c_mat, d_skip, h0):
+        return _SSD.apply(x, dt, a_log, b_mat, c_mat, d_skip, h0, True, chunk, None)
+    return ssd_chunked_torch(x, dt, a_log, b_mat, c_mat, d_skip, h0, chunk)
 
 
 ssd_chunked.launches = 0  # kernel launches made through this wrapper

@@ -176,7 +176,7 @@ def ssm_block(cfg: ModelConfig, p, x: torch.Tensor, state: dict | None = None):
     dt = F.softplus((x @ p.wdt).float() + p.dt_bias)
     y, h_last = ops.ssd_chunked(xin.reshape(b, t, nh, hp), dt, p.a_log,
                                 bmat.reshape(b, t, g, n), cmat.reshape(b, t, g, n), p.d_skip,
-                                None if state is None else state["h"])
+                                None if state is None else state["h"], name="ssm_out")
     # gated RMSNorm (mamba2), in fp32
     yf = tag(y.reshape(b, t, di), "ssm_out").float() * F.silu(z.float())
     yf = yf * torch.rsqrt(torch.mean(yf * yf, dim=-1, keepdim=True) + 1e-6) * p.norm_w

@@ -21,10 +21,10 @@ Training (:func:`forward` with gradients on a model of fp32 masters,
 (:mod:`.remat`): recompute regions per layer nested in regions per pattern
 period or scan group, as the reference's nested ``jax.checkpoint``, unless
 the plan keeps every class.  :func:`cross_entropy_loss` is the reference's
-(padded vocabulary masked, ``z_loss``).  Training runs the rec, attn_local
-and attn kinds with RMSNorm and an unbiased GLU MLP; the SSM kind waits for
-K4's backward (ROADMAP A8), and MoE, vision tokens, LayerNorm, biased or
-non-GLU MLPs (and the encoder-decoder) for their training slice.
+(padded vocabulary masked, ``z_loss``).  Training runs every kind (rec,
+attn_local, ssm, attn) with RMSNorm and, where the layer has one, an
+unbiased GLU MLP; MoE, vision tokens, LayerNorm, biased or non-GLU MLPs (and
+the encoder-decoder) wait for their training slice.
 """
 from __future__ import annotations
 
@@ -73,9 +73,8 @@ def has_mlp(cfg: ModelConfig, kind: str) -> bool:
 
 def check_supported(cfg: ModelConfig, *, training: bool = False) -> None:
     """Raise for what the port's models do not run yet (``training``: for
-    training, which also refuses the SSM kind and what only serving runs:
-    MoE, the encoder-decoder, vision tokens, LayerNorm, biased or non-GLU
-    MLPs)."""
+    training, which also refuses what only serving runs: MoE, the
+    encoder-decoder, vision tokens, LayerNorm, biased or non-GLU MLPs)."""
     missing = [k for k in sorted(set(cfg.kinds)) if k not in KINDS]
     if missing:
         raise NotImplementedError(f"{cfg.arch_id}: layer kinds {missing} are not ported "
@@ -88,10 +87,6 @@ def check_supported(cfg: ModelConfig, *, training: bool = False) -> None:
         raise NotImplementedError(f"{cfg.arch_id}: working type {cfg.dtype!r} not ported")
     if not training:
         return
-    if "ssm" in cfg.kinds:
-        raise NotImplementedError(
-            f"{cfg.arch_id}: training the SSM kind needs K4's backward, which is not "
-            "ported yet (ROADMAP A8)")
     serve_only = {
         "encoder_layers": cfg.encoder_layers, "n_experts": cfg.n_experts,
         "n_vis_tokens": cfg.n_vis_tokens, "mlp_bias": cfg.mlp_bias,

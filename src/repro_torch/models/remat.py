@@ -19,7 +19,8 @@ plan as follows (:class:`Residency`):
   forward is handed back (:mod:`..kernels.replay`), from the card for a kept
   class or copied back from pinned host memory for an offloaded one.  These
   are the classes produced by a hand-written kernel with its own backward
-  (``attn_out``: K2's output and log-sum-exp; ``rec_out``: K3's states); every
+  (``attn_out``: K2's output and log-sum-exp; ``rec_out``: K3's states;
+  ``ssm_out``: K4's output and last state); every
   other class inside a region is recomputed whatever the plan says, since its
   producer has no backward that could start from the held value (as
   PyTorch's selective checkpointing, too, re-runs every op it does not

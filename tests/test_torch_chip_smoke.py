@@ -601,11 +601,11 @@ def smoke_report(smoke):
 def test_kernels_line_lists_every_kernel_with_its_keys(smoke):
     names = [k[0] for k in smoke.KERNELS]
     assert names == ["schedule_dp", "flash_attention", "rglru_scan", "ssd_chunked",
-                     "flash_attention_bwd", "rglru_scan_bwd", "seq_cumsum"]
+                     "flash_attention_bwd", "rglru_scan_bwd", "ssd_chunked_bwd", "seq_cumsum"]
     times = {n: {"ms": 1.0 + i, "plain_ms": 2.0, "bound_ms": 0.5, "bound_by": "bytes",
                  "library_ms": None} for i, n in enumerate(names)}
     entries = smoke.kernel_entries(
-        launches=dict(zip(names, (30, 8, 576, 1536, 32, 72, 1000))),
+        launches=dict(zip(names, (30, 8, 576, 1536, 32, 72, 192, 1000))),
         errs=dict.fromkeys(names, 0.0),
         times=times, extras={"ssd_chunked": {"decode_step_ms": 0.01}})
     assert [e["name"] for e in entries] == names
@@ -630,7 +630,12 @@ def test_kernels_line_lists_every_kernel_with_its_keys(smoke):
     assert bwd["rglru_scan_bwd"]["replaces"] == "src/repro/kernels/rglru_xla.py:56"
     assert "def _scan_bwd" in (ROOT / "src/repro/kernels/rglru_xla.py").read_text(
     ).splitlines()[55]
-    helper = entries[6]
+    assert bwd["ssd_chunked_bwd"]["backward_of"] == "ssd_chunked"
+    assert bwd["ssd_chunked_bwd"]["replaces"] == "src/repro/kernels/ref.py:205"
+    assert bwd["ssd_chunked_bwd"]["source"] == "src/repro_torch/kernels/csrc/ssd_bwd.cu"
+    assert "def ssd_chunked_reference" in (ROOT / "src/repro/kernels/ref.py").read_text(
+    ).splitlines()[204]
+    helper = entries[7]
     assert helper["replaces"] == "src/repro/core/device_search.py:199"
     assert helper["tpu_kernel"] is None and "_seq_cumsum" in (ROOT / "src/repro/core/"
                                                               "device_search.py").read_text(
@@ -1231,11 +1236,85 @@ def test_expected_train_launches_follow_the_plan(smoke):
     keep_all = Residency(tuple(classes_of(cfg)))
     assert smoke.expected_train_launches(cfg, 1, keep_all) == {
         "flash_attention": 8, "flash_attention_bwd": 8, "rglru_scan": 18,
-        "rglru_scan_bwd": 18, "ssd_chunked": 0}
+        "rglru_scan_bwd": 18, "ssd_chunked": 0, "ssd_chunked_bwd": 0}
     got = smoke.expected_train_launches(cfg, 1, Residency(("rec_out",)))
     assert got["flash_attention"] == 8 * 3 and got["rglru_scan"] == 18
     got = smoke.expected_train_launches(cfg, 1, None)
     assert got["flash_attention"] == 8 * 3 and got["rglru_scan"] == 16 * 3 + 2 * 2
+
+
+def test_expected_train_launches_of_mamba2(smoke):
+    """mamba2-780m: 48 SSD layers in one uniform scanned stack.  The H100
+    plan keeps every class: K4 and K4 bwd 48 a step.  Recomputing in groups
+    of 6 layers, each layer replays twice unless ``ssm_out`` is held."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.remat import Residency, classes_of
+
+    cfg = get_config("mamba2-780m")
+    assert smoke.expected_train_launches(cfg, 6, Residency(tuple(classes_of(cfg)))) == {
+        "flash_attention": 0, "flash_attention_bwd": 0, "rglru_scan": 0, "rglru_scan_bwd": 0,
+        "ssd_chunked": 48, "ssd_chunked_bwd": 48}
+    assert smoke.expected_train_launches(cfg, 6, Residency(("ssm_out",)))["ssd_chunked"] == 48
+    assert smoke.expected_train_launches(cfg, 6, None)["ssd_chunked"] == 48 * 3
+
+
+def test_train_memory_reckoning_of_mamba2(smoke):
+    """The state (~12.5 GB), the named activations, and K4 bwd's scratch:
+    chunk states and their gradients (2 x 48 x 64 x 64 x 128 fp32) and the
+    per-head dB / dC (2 x 4096 x 48 x 128 fp32), 0.4 GB."""
+    from repro_torch.configs import get_config
+
+    cfg = get_config("mamba2-780m")
+    r = smoke.train_memory_reckoning(cfg, None)
+    assert r["state_bytes"] == 16 * cfg.param_count() and 12.4e9 < r["state_bytes"] < 12.6e9
+    assert r["ssd_bwd_scratch_bytes"] == (2 * 48 * 64 * 64 * 128 + 2 * 4096 * 48 * 128) * 4
+    assert "ssd_bwd_scratch_bytes" not in smoke.train_memory_reckoning(
+        get_config("recurrentgemma-2b"), None)
+
+
+def test_model_flops_count_the_ssd(smoke):
+    """6 N per token plus three times the SSD's chunked-form operations."""
+    from repro_torch.configs import get_config
+
+    cfg = get_config("mamba2-780m")
+    cb, rest = smoke.ssd_operations(4096, 64, 128, 64)
+    assert smoke.train_model_flops(cfg) == 6 * cfg.param_count() * 4096 + 3 * 48 * (cb + 48 * rest)
+
+
+def test_train_phase_on_the_cpu(smoke, monkeypatch, capsys):
+    """``phase_train`` for mamba2-780m rehearsed on the CPU at the smoke size
+    (the plain versions on both sides of the gate, so it reads 0; no launch
+    is counted off the card, and no profiler): the gate, the steps, the
+    recovery drill and the printed line."""
+    import json
+
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.launch import train as launch_train
+
+    monkeypatch.setattr(launch_train, "get_config", get_smoke_config)
+    monkeypatch.setattr(smoke, "TRAIN_SEQ", 96)
+    monkeypatch.setattr(smoke, "TRAIN_STEPS", 2)
+    monkeypatch.setattr(smoke, "RECOVERY_STEPS", 4)
+    monkeypatch.setattr(smoke, "RECOVERY_FAIL_AT", (3,))
+    monkeypatch.setattr(smoke, "expected_train_launches",
+                        lambda cfg, g, policy: dict.fromkeys(
+                            ("flash_attention", "flash_attention_bwd", "rglru_scan",
+                             "rglru_scan_bwd", "ssd_chunked", "ssd_chunked_bwd"), 0))
+    monkeypatch.setattr(smoke, "device_breakdown", lambda fn, top=0: fn() and {})
+    for name in ("synchronize", "reset_peak_memory_stats", "empty_cache"):
+        monkeypatch.setattr(torch.cuda, name, lambda *a, **k: None)
+    monkeypatch.setattr(torch.cuda, "max_memory_allocated", lambda *a, **k: 0)
+    out = smoke.phase_train(torch.device("cpu"), "mamba2-780m", "train_ssm")
+    line = json.loads([ln for ln in capsys.readouterr().out.splitlines()
+                       if '"phase": "train_ssm"' in ln][-1])
+    assert out["arch"] == line["arch"] == "mamba2-780m" and line["layers"] == 4
+    assert line["step1_gate"]["loss_rel_err"] == 0.0 and line["step1_gate"]["within_fixed_limits"]
+    assert line["step1_gate"]["grad_tensors"] == len(list(
+        launch_train.build_trainer(launch_train.parse_args(
+            ["--arch", "mamba2-780m", "--smoke", "--device", "cpu"])).model.parameters()))
+    assert len(line["losses"]) == 2 and line["step1_loss_reproduced_in_training"]
+    assert line["plan"]["save"] and line["profiler_records_after_profile"] is None
+    assert line["recovery"]["losses_bit_identical"] and line["recovery"]["restarts"] == 1
 
 
 def test_train_memory_reckoning_of_recurrentgemma(smoke):
@@ -1254,10 +1333,13 @@ def test_plain_training_swaps_the_ops_and_restores_them(smoke):
     from repro_torch.kernels import ops
     from repro_torch.kernels import rglru as rg
 
-    orig = ops.flash_attention, ops.rglru_scan
+    from repro_torch.kernels import ssd
+
+    orig = ops.flash_attention, ops.rglru_scan, ops.ssd_chunked
     with smoke.plain_training():
         assert ops.flash_attention is fa.flash_attention_torch_grad
         assert ops.rglru_scan is rg.rglru_scan_torch_grad
+        assert ops.ssd_chunked is ssd.ssd_chunked_torch_grad
     with smoke.plain_training(yardstick=True):
         q = torch.randn(1, 70, 2, 16, requires_grad=True)
         k = torch.randn(1, 70, 1, 16, requires_grad=True)
@@ -1266,7 +1348,15 @@ def test_plain_training_swaps_the_ops_and_restores_them(smoke):
         assert float((out - want).abs().max()) < 1e-5
         out.sum().backward()
         assert q.grad is not None and k.grad is not None
-    assert (ops.flash_attention, ops.rglru_scan) == orig
+        # the SSD at the yardstick's chunk length, differentiable
+        args = [a.requires_grad_() if a is not None else a for a in smoke.ssd_operands(
+            (1, 100, 2, 8, 1, 8), torch.float32, torch.device("cpu"))]
+        y, _ = ops.ssd_chunked(*args, name="ssm_out")
+        want, _ = ssd.ssd_chunked_torch(*args, chunk=smoke.YARDSTICK_CHUNK)
+        assert torch.equal(y, want)
+        y.sum().backward()
+        assert all(a.grad is not None for a in args)
+    assert (ops.flash_attention, ops.rglru_scan, ops.ssd_chunked) == orig
 
 
 def test_moe_check_reports_the_float32_readings_on_the_cpu(smoke):

@@ -6,8 +6,10 @@ float32 on the CUDA cores), the RG-LRU scan kernel (bit for bit) and the
 Mamba-2 SSD kernel (1e-4 relative in float32; y 2e-2 relative, h_last 1e-4
 with bfloat16 x/B/C, a prefill on the tensor cores) against their plain
 versions, which kernel each input takes (the entry point its wrapper resolves), and
-K2's backward (1e-5 / 2e-2 of max |grad|) and K3's (bit for bit) against their
-plain versions, a smoke-size training step on the card against the CPU,
+K2's backward (1e-5 / 2e-2 of max |grad|), K3's (bit for bit) and K4's (1e-4 /
+2e-2 of max |grad|, bit-identical repeats) against their plain versions,
+smoke-size recurrentgemma-2b and mamba2-780m training steps on the card
+against the CPU,
 smoke-size recurrentgemma-2b, mamba2-780m, qwen2.5-14b, granite-moe-1b-a400m,
 mixtral-8x7b, whisper-medium and internvl2-26b models served on the card
 against the CPU (same ids, logits within 1e-4), and the
@@ -1245,6 +1247,130 @@ def test_smoke_training_step_on_the_card_matches_the_cpu(cuda_device):
         loss.backward()
         out.append((float(loss.detach()), {k: p.grad.cpu() for k, p in model.named_parameters()}))
     assert fa.flash_attention_bwd.launches > 0 and rg.rglru_scan_bwd.launches > 0
+    (lc, gc), (lg, gg) = out
+    assert abs(lg - lc) / abs(lc) < 1e-4
+    for k in gc:
+        assert float((gg[k] - gc[k]).abs().max() / gc[k].abs().max().clamp_min(1e-30)) < 1e-3, k
+
+
+# K4's backward: the forward's cases and T < 64 with G < H; with h0, d_skip and
+# a nonzero last-state gradient, and without them
+SSD_BWD_CASES = SSD_CASES + [(2, 40, 6, 32, 3, 64)]
+SSD_GRAD_NAMES = ("dx", "ddt", "da_log", "dB", "dC", "dd_skip", "dh0")
+
+
+def _ssd_bwd_inputs(case, dtype, device, with_extras, seed=0):
+    args = ssd_inputs(case, dtype, device, with_extras, seed)
+    b, t, h, p, g, n = case
+    gen = torch.Generator(device=device).manual_seed(seed + 1)
+    dy = torch.randn((b, t, h, p), generator=gen, device=device).to(dtype)
+    dh = torch.randn((b, h, p, n), generator=gen, device=device) if with_extras else None
+    return args, dy, dh
+
+
+@pytest.mark.parametrize("with_extras", [True, False])
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4), (torch.bfloat16, 2e-2)])
+@pytest.mark.parametrize("case", SSD_BWD_CASES)
+def test_ssd_bwd_kernel_matches_plain_version(cuda_device, case, dtype, tol, with_extras):
+    from repro_torch.kernels import ssd
+
+    args, dy, dh = _ssd_bwd_inputs(case, dtype, cuda_device, with_extras, seed=sum(case))
+    before = ssd.ssd_chunked_bwd.launches
+    got = ssd.ssd_chunked_bwd(*args, dy, dh)
+    torch.cuda.synchronize()
+    assert ssd.ssd_chunked_bwd.launches == before + 1
+    want = ssd.ssd_chunked_bwd_torch(*args, dy, dh)
+    for name, a, w in zip(SSD_GRAD_NAMES, got, want):
+        assert (a is None) == (w is None), name
+        if w is not None:
+            # da_log of one step from a zero state is exactly 0 on both sides
+            err = float((a.float() - w.float()).abs().max()
+                        / w.float().abs().max().clamp_min(1e-30))
+            assert a.dtype == w.dtype and a.shape == w.shape, name
+            assert bool(torch.isfinite(a.float()).all()) and err < tol, name
+
+
+def test_ssd_bwd_kernel_repeats_bit_for_bit_at_the_training_shape(cuda_device):
+    from repro_torch.kernels import ssd
+
+    args, dy, _ = _ssd_bwd_inputs((1, 4096, 48, 64, 1, 128), torch.bfloat16, cuda_device, False)
+    first = ssd.ssd_chunked_bwd(*args, dy)
+    again = ssd.ssd_chunked_bwd(*args, dy)
+    assert all(torch.equal(a, b) for a, b in zip(first, again) if a is not None)
+
+
+def test_ssd_gradient_through_the_models_views_launches_the_kernels(cuda_device):
+    """x, B and C as bf16 views into one tensor that requires a gradient, as
+    ssm_block hands them: autograd through ``ssd_chunked`` launches the
+    forward and the backward once each, and every gradient is the plain
+    versions' (``ssd_chunked_torch_grad``) within 2e-2 of its max |grad|."""
+    from repro_torch.kernels import ssd
+
+    b, t, h, p, n = 2, 150, 4, 16, 32
+    gen = torch.Generator(device=cuda_device).manual_seed(3)
+    base = (0.5 * torch.randn((b, t, h * p + 2 * n), generator=gen, device=cuda_device)).bfloat16()
+    dt0 = torch.nn.functional.softplus(torch.randn((b, t, h), generator=gen, device=cuda_device))
+    al0 = 0.5 * torch.randn(h, generator=gen, device=cuda_device)
+    d0 = torch.randn(h, generator=gen, device=cuda_device)
+    w = torch.randn((b, t, h, p), generator=gen, device=cuda_device)
+
+    def grads(fn):
+        xbc, dt, a_log, d_skip = (v.clone().requires_grad_() for v in (base, dt0, al0, d0))
+        x, bm, cm = torch.split(xbc, [h * p, n, n], dim=-1)
+        y, _ = fn(x.reshape(b, t, h, p), dt, a_log, bm.reshape(b, t, 1, n),
+                  cm.reshape(b, t, 1, n), d_skip)
+        (y.float() * w).sum().backward()
+        return [v.grad for v in (xbc, dt, a_log, d_skip)]
+
+    fwd, bwd = ssd.ssd_chunked.launches, ssd.ssd_chunked_bwd.launches
+    got = grads(ssd.ssd_chunked)
+    torch.cuda.synchronize()
+    assert (ssd.ssd_chunked.launches, ssd.ssd_chunked_bwd.launches) == (fwd + 1, bwd + 1)
+    want = grads(ssd.ssd_chunked_torch_grad)
+    assert (ssd.ssd_chunked.launches, ssd.ssd_chunked_bwd.launches) == (fwd + 1, bwd + 1)
+    for a, b_ in zip(got, want):
+        assert a.dtype == b_.dtype and _rel(a, b_) < 2e-2
+
+
+def test_ssd_bwd_wrapper_raises_on_what_the_kernels_do_not_take(cuda_device):
+    from repro_torch.kernels import ssd
+
+    args, dy, dh = _ssd_bwd_inputs((1, 8, 2, 16, 1, 16), torch.float32, cuda_device, True)
+    with pytest.raises(TypeError, match="dy"):
+        ssd.ssd_chunked_bwd(*args, dy.bfloat16(), dh)
+    with pytest.raises(TypeError, match="dh_last"):
+        ssd.ssd_chunked_bwd(*args, dy, dh.double())
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        x, dt, a_log, bm, cm, d_skip, h0 = args
+        ssd.ssd_chunked_bwd(x.half(), dt, a_log, bm.half(), cm.half(), d_skip, h0, dy.half())
+    with pytest.raises(ValueError, match="dy must be"):
+        ssd.ssd_chunked_bwd(*args, dy[:, :4], dh)
+
+
+def test_mamba2_smoke_training_step_on_the_card_matches_the_cpu(cuda_device):
+    """mamba2-780m's smoke config (float32) trained one step on the card and
+    on the CPU from the same parameters and batch (K4 forward and backward on
+    the card): the loss within 1e-4 relative and every gradient within 1e-3
+    of its max |grad|."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.kernels import ssd
+    from repro_torch.models import Decoder, arch_forward, cross_entropy_loss, init_params_
+    from repro_torch.runtime import SyntheticLM
+
+    cfg = get_smoke_config("mamba2-780m")
+    cpu = init_params_(Decoder(cfg, device="cpu", master=True), torch.Generator().manual_seed(0))
+    gpu = Decoder(cfg, device=cuda_device, master=True)
+    gpu.load_state_dict(cpu.state_dict())
+    batch = {k: torch.as_tensor(v).long()
+             for k, v in SyntheticLM(cfg, batch=2, seq_len=200, seed=0).batch_at(0).items()}
+    before = ssd.ssd_chunked_bwd.launches
+    out = []
+    for model, dev in ((cpu, "cpu"), (gpu, cuda_device)):
+        bt = {k: v.to(dev) for k, v in batch.items()}
+        loss = cross_entropy_loss(cfg, arch_forward(cfg, model, bt), bt["labels"])
+        loss.backward()
+        out.append((float(loss.detach()), {k: p.grad.cpu() for k, p in model.named_parameters()}))
+    assert ssd.ssd_chunked_bwd.launches == before + cfg.n_layers
     (lc, gc), (lg, gg) = out
     assert abs(lg - lc) / abs(lc) < 1e-4
     for k in gc:

@@ -156,6 +156,35 @@ def test_training_and_the_planner_leave_jax_and_repro_unloaded():
     assert "LEAKED=\n" in out.stdout + "\n", out.stdout
 
 
+_PROBE_SSM_TRAIN = """
+import sys
+import tempfile
+import repro_torch.kernels.ssd as ssd
+from repro_torch.launch.train import train_main
+assert {"ssd_chunked_bwd", "ssd_chunked_bwd_torch", "ssd_chunked_torch_grad"} <= set(ssd.__all__)
+state = train_main(["--arch", "mamba2-780m", "--smoke", "--device", "cpu", "--steps", "3",
+                    "--batch", "2", "--seq", "72", "--ckpt-every", "2", "--fail-at", "3",
+                    "--ckpt-dir", tempfile.mkdtemp()])
+assert state.step == 3
+bad = sorted(m for m in sys.modules
+             if m == "jax" or m.startswith("jax.") or m == "jaxlib"
+             or m == "repro" or m.startswith("repro."))
+print("LEAKED=" + ",".join(bad))
+"""
+
+
+def test_the_ssm_training_leaves_jax_and_repro_unloaded():
+    """K4's backward (``kernels.ssd``'s new names) and mamba2-780m's smoke
+    training through the launcher, with a recovery, import neither JAX nor
+    the reference."""
+    out = subprocess.run(
+        [sys.executable, "-c", _PROBE_SSM_TRAIN], capture_output=True, text=True,
+        env={"PYTHONPATH": str(ROOT / "src"), "PATH": "/usr/bin:/bin"},
+        timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert "LEAKED=\n" in out.stdout + "\n", out.stdout
+
+
 _PROBE_SERVED = """
 import sys
 import repro_torch.models.encdec
