@@ -75,9 +75,11 @@ Phases, one JSON line each:
                  bit-identical gradients, K3 bwd (bit for bit, with and
                  without a last-state gradient), and K4 bwd (dx, ddt, da_log,
                  dB, dC, dd_skip, dh0: f32 1e-4, bf16 2e-2 of max |grad|) at
-                 K4's shapes, T < 64 with G < H and mamba2-780m's training
-                 shape, with h0, d_skip and a nonzero dh_last and without,
-                 two bf16 calls at the training shape bit-identical
+                 K4's shapes, T < 64 with G < H, mamba2-780m's training
+                 shape and the edges of its tensor-core passes (T 4097, P 16
+                 and 32, N 32 and 64, G = H, 1 < G < H, T = 1), with h0,
+                 d_skip and a nonzero dh_last and without, two bf16 calls at
+                 the training shape bit-identical
   main_path      the solve on the card, against the port's NumPy backend,
                  certified, with the host time of each phase of the search round
   device_path    ``tabu_device`` at the same configuration: without Algorithm 3
@@ -126,7 +128,8 @@ Phases, one JSON line each:
                  bwd and K4 bwd at the training shape (K2 bwd, its four kernels with
                  the dk/dv and dq passes on the tensor cores, beside the
                  backward of scaled_dot_product_attention through autograd,
-                 with its achieved TFLOP/s on the design's 14 D a pair)
+                 with its achieved TFLOP/s on the design's 14 D a pair); in a
+                 child process, ``--model-timing``, whose lines are relayed
   solve_service  the solve service: warm-up (one WarmSpec per signature
                  class), the Poisson trace with no capture during traffic,
                  the K1 / seq_cumsum launches of the served run, one served
@@ -1689,6 +1692,30 @@ def profiled_device_ms(fn, kernel: str, reps: int, per_call: int = 1) -> float:
     raise AssertionError(f"the profiler saw {seen} launches of {kernel}, expected {reps}")
 
 
+def profiled_grids(fn, kernels, trace: Path) -> dict:
+    """The grid of each of ``kernels`` (a name each kernel's holds) as one
+    call of ``fn`` launched it, from the kernel events of torch.profiler's
+    trace of that call (written to ``trace``); a window that lost a record is
+    taken again, at most three in all."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        prof.export_chrome_trace(str(trace))
+        events = [e for e in json.loads(trace.read_text())["traceEvents"]
+                  if e.get("cat") == "kernel"]
+        found = {k: [e["args"]["grid"] for e in events if k in e.get("name", "")]
+                 for k in kernels}
+        if all(len(v) == 1 for v in found.values()):
+            return {k: v[0] for k, v in found.items()}
+    raise AssertionError(f"the profiler's kernel events of one call: {found}")
+
+
 def profiled_kernel_names(fn) -> list:
     """Names of the kernels a call of ``fn`` launches (over 10 calls, so one
     lost record loses no name), from torch.profiler."""
@@ -2013,12 +2040,19 @@ SSD_H_TOL = 1e-4
 # gradient: 1e-4 in float32 (the forward's SSD_TOL), 2e-2 in bf16 (K2 bwd's:
 # dx, dB and dC are rounded to bf16 once, the rest stays fp32)
 SSD_TRAIN = (TRAIN_BATCH, TRAIN_SEQ, 48, 64, 1, 128)
-SSD_BWD_SHAPES = SSD_SHAPES + ((2, 40, 6, 32, 3, 64), SSD_TRAIN)
+# ... and the edges of the tensor-core passes (bf16): T past a chunk boundary
+# at full width, head_dim 16 and 32, state 32 and 64, G = H, 1 < G < H, and
+# T = 1 (one chunk of one step)
+SSD_BWD_EDGES = ((TRAIN_BATCH, TRAIN_SEQ + 1, 48, 64, 1, 128), (2, 200, 6, 16, 2, 64),
+                 (2, 130, 4, 32, 1, 32), (1, 300, 4, 64, 4, 64), (2, 1, 4, 64, 1, 128))
+SSD_BWD_SHAPES = SSD_SHAPES + ((2, 40, 6, 32, 3, 64), SSD_TRAIN) + SSD_BWD_EDGES
 SSD_BWD_TOL = {"float32": 1e-4, "bfloat16": 2e-2}
 SSD_GRADS = ("dx", "ddt", "da_log", "dB", "dC", "dd_skip", "dh0")
-# the kernels one call of K4's backward launches, in order (csrc/ssd_bwd.cu)
-SSD_BWD_KERNELS = ("ssd_bwd_states_kernel", "ssd_bwd_chunk_kernel", "ssd_bwd_sum_bc_kernel",
-                   "ssd_bwd_sum_heads_kernel")
+# the kernels one bf16 call of K4's backward launches at the training shape,
+# in order (csrc/ssd_bwd.cu): the tensor-core state pass, chunk pass and dB / dC
+# pass, then the heads' sums
+SSD_BWD_KERNELS = ("ssd_bwd_states_mma_kernel", "ssd_bwd_chunk_mma_kernel",
+                   "ssd_bwd_dbdc_mma_kernel", "ssd_bwd_sum_heads_kernel")
 # training mamba2-780m at its published width and depth, as recurrentgemma-2b
 # trains (batch 1 of 4096-token sequences, AdamW, 4 steps, the greedy H100
 # plan), in a process of its own (--train-ssm) after this one's last profiled
@@ -2779,7 +2813,7 @@ def _kernel_class(name: str) -> str:
         return "K2 bwd flash_attention_bwd"
     if "rglru_scan_bwd" in name:     # K3's backward: the reverse scan
         return "K3 bwd rglru_scan_bwd"
-    if "ssd_bwd_" in name:           # K4's backward: states, chunks, the two sums
+    if "ssd_bwd_" in name:           # K4's backward: states, chunks, dB / dC, the sums
         return "K4 bwd ssd_chunked_bwd"
     if "sweep_kernel" in name:       # K1's four instances
         return "K1 schedule_dp"
@@ -3021,7 +3055,8 @@ def train_ssm(device) -> dict:
 
 
 def child_main(fn) -> int:
-    """A child process's body (``--slice-serves``, ``--train-ssm``): ``fn``
+    """A child process's body (``--slice-serves``, ``--train-ssm``,
+    ``--model-timing``): ``fn``
     on the card, on the kernels the parent built; its result is the last
     line."""
     import torch
@@ -3036,9 +3071,6 @@ def child_main(fn) -> int:
     return 0
 
 
-CHILDREN = {"--slice-serves": slice_serves, "--train-ssm": train_ssm}
-
-
 def run_child(flag: str, what: str) -> dict:
     """``CHILDREN[flag]`` in a child process, whose lines are relayed; run
     after this process's last profiled window.  Within one process
@@ -3049,7 +3081,9 @@ def run_child(flag: str, what: str) -> dict:
     them in a child between qwen2.5-14b's serve and ``model_timing``, the
     same; with ``model_timing`` moved before the serves, ``seq_cumsum``'s
     profiled window recorded nothing.  A fresh process after such a child
-    kept every record."""
+    kept every record.  ``model_timing`` runs in one of its own for the
+    same reason: after the three serves' profiled windows in this process,
+    K3 bwd's windows have kept 9 of 20 records three times running."""
     import gc
 
     import torch
@@ -3259,8 +3293,11 @@ def phase_model_timing(device):
              "dk/dv pass, the group sum, the tensor-core dq pass; K3 bwd: the reverse scan "
              "in the group the wrapper picks, device_ms_by_group in each group there and "
              "at batch 4, chain_ms = T x fp32_chain_ms_per_step, one channel's dependent "
-             "add and multiply measured on one thread; K4 bwd: its four kernels, the "
-             "state pass, the chunks, the two fixed-order sums), plain_ms 3 calls "
+             "add and multiply measured on one thread; K4 bwd: its four bf16 kernels, the "
+             "tensor-core state, chunk and dB / dC passes and the heads' sums, each with "
+             "its grid (the profiler's trace of one call), registers, shared memory and "
+             "blocks an SM; scratch_bytes the allocator's peak during one call less what "
+             "stays allocated after it), plain_ms 3 calls "
              "of the plain backward, library_ms (K2 bwd) the backward of "
              "scaled_dot_product_attention through autograd at the same shape; K2 bwd's "
              "kernel_operations is the design's 14 D a visible pair (S and dP in both "
@@ -3323,8 +3360,9 @@ def ssd_bwd_bound(x, b_mat, d_skip, h0, dh_last, chunk: int) -> dict:
     d_skip, h0 and dh_last read, dx, ddt, dB, dC, da_log, dd_skip and dh0
     written once over the memory rate, against ``ssd_bwd_operations`` (C B^T
     once per (batch, group), the rest per (batch, head)) at the peak rate of
-    the inputs' type; ``fp32_rate_*`` at the fp32 rate, where this kernel
-    computes."""
+    the inputs' type (bf16: the tensor cores, where the bf16 route computes);
+    ``fp32_rate_*`` the same work at the fp32 rate, the CUDA-core route's for
+    float32 inputs."""
     b, t, h, p = x.shape
     g, n = b_mat.shape[2:]
     cb, rest = ssd_bwd_operations(t, p, n, chunk)
@@ -3344,12 +3382,45 @@ def ssd_bwd_bound(x, b_mat, d_skip, h0, dh_last, chunk: int) -> dict:
             "fp32_rate_bound_by": "bytes" if t_bytes >= t_ops32 else "operations"}
 
 
+def ssd_bwd_resources() -> dict:
+    """Registers, spills and static shared memory (the build's ``ptxas -v``)
+    of each of ``SSD_BWD_KERNELS``, and for the tensor-core passes their
+    dynamic shared memory and blocks an SM on this card
+    (``ssd_bwd_mma_resources``)."""
+    import ctypes
+
+    from repro_torch.kernels import _build
+
+    report = ptxas_report(_build.build_log("ssd_bwd"))
+    query = _build.load("ssd_bwd").ssd_bwd_mma_resources
+    query.argtypes = [ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p]
+    query.restype = ctypes.c_int
+    out = {}
+    for name in SSD_BWD_KERNELS:
+        found = [f for f in report if name in f["kernel"]]
+        if len(found) != 1:
+            raise AssertionError(f"ptxas reports {len(found)} functions named {name}")
+        entry = {k: found[0][k] for k in ("registers", "spill_stores", "spill_loads",
+                                          "static_smem")}
+        if name in SSD_BWD_KERNELS[:3]:
+            smem, blocks = ctypes.c_int(), ctypes.c_int()
+            err = query(SSD_BWD_KERNELS.index(name), ctypes.byref(smem), ctypes.byref(blocks))
+            if err != 0:
+                raise RuntimeError(f"ssd_bwd_mma_resources({name}): CUDA error {err}")
+            entry.update(dynamic_smem=smem.value, blocks_per_sm=blocks.value)
+        out[name] = entry
+    return out
+
+
 def ssd_bwd_timing(device, seed: int) -> dict:
     """K4's backward in bf16 at the training shape, as a training step calls
     it (d_skip, no h0, no last-state gradient): events around one wrapper
     call, the profiler's device time of the ``SSD_BWD_KERNELS`` one call
-    launches (together and each on its own), the plain backward, the bound;
-    no single PyTorch call computes it (library_ms None)."""
+    launches (together and each on its own) and their gap, the plain backward,
+    the bound, each kernel's grid (from the profiler's trace of one call) and
+    resources, and the scratch one call holds (the allocator's peak during the
+    call less what stays allocated after it: the outputs); no single PyTorch
+    call computes it (library_ms None)."""
     import torch
 
     from repro_torch.kernels import ssd
@@ -3363,18 +3434,35 @@ def ssd_bwd_timing(device, seed: int) -> dict:
     ms = cuda_median_ms(kernel, reps=10, warmup=2)
     dev_ms = profiled_device_ms(kernel, "ssd_bwd_", reps=10, per_call=len(SSD_BWD_KERNELS))
     by_kernel = {name: profiled_device_ms(kernel, name, reps=10) for name in SSD_BWD_KERNELS}
+    grids = profiled_grids(kernel, SSD_BWD_KERNELS, ROOT / "build" / "ssd_bwd_trace.json")
+    torch.cuda.synchronize(device)
+    torch.cuda.reset_peak_memory_stats(device)
+    outs = kernel()
+    torch.cuda.synchronize(device)
+    scratch = torch.cuda.max_memory_allocated(device) - torch.cuda.memory_allocated(device)
+    del outs
     plain_ms = cuda_median_ms(
         lambda: ssd.ssd_chunked_bwd_torch(x, dt, a_log, bm, cm, d_skip, None, dy),
         reps=3, warmup=1)
     bound = ssd_bwd_bound(x, bm, d_skip, None, None, ssd.CHUNK)
-    b, t, h, p, g, n = SSD_TRAIN
-    chunks = -(-t // ssd.CHUNK)
     return {"ms": ms, "device_ms": dev_ms, "plain_ms": plain_ms, **bound, "library_ms": None,
+            "event_minus_device_ms": ms - dev_ms,
             "kernels": list(SSD_BWD_KERNELS), "device_ms_by_kernel": by_kernel,
+            "entry_points": list(ssd.bwd_entry_points(torch.bfloat16)),
             "achieved_tflops": bound["operations"] / ms * 1e-9,
-            "blocks": {"states": b * h * 2 * -(-p // 16), "chunks": b * h * chunks},
-            "scratch_bytes": 2 * b * h * chunks * p * n * 4 + 2 * b * t * h * n * 4,
+            "grids": grids, "blocks": {k: math.prod(v) for k, v in grids.items()},
+            "resources": ssd_bwd_resources(), "scratch_bytes": scratch,
             "shape": list(SSD_TRAIN), "dtype": "bfloat16 x/B/C/dy, fp32 dt/d_skip"}
+
+
+def ssd_bwd_scratch_bytes(dtype, b: int, t: int, h: int, p: int, n: int) -> int:
+    """The bytes of the scratch one K4 backward allocates (``ssd.bwd_scratch``):
+    on the tensor cores every chunk's state and state gradient as hi + lo bf16
+    pairs and the per-(batch, head, chunk) da / dD partials."""
+    from repro_torch.kernels import ssd
+
+    return sum(math.prod(shape) * dt.itemsize
+               for shape, dt in ssd.bwd_scratch(dtype, b, t, h, p, n).values())
 
 
 def flash_bwd_timing(device, seed: int) -> dict:
@@ -3573,8 +3661,8 @@ def train_memory_reckoning(cfg, plan) -> dict:
     casts of the weights autograd keeps (2 B), the planner's named activation
     classes, and the logits with their gradient (bf16) and one fp32 block of
     the loss; for SSM layers also K4's backward scratch (chunk states and
-    state gradients, per-head dB / dC, fp32), which one layer's backward
-    holds at a time.  Unnamed intermediates (norm and gate values) are not in
+    state gradients as hi + lo bf16, per-chunk da / dD), which one layer's
+    backward holds at a time.  Unnamed intermediates (norm and gate values) are not in
     it."""
     from repro_torch.configs.base import ShapeCell
     from repro_torch.plan import H100, layer_costs
@@ -3588,12 +3676,11 @@ def train_memory_reckoning(cfg, plan) -> dict:
     out = {"state_bytes": 16 * n, "weight_casts_bytes": 2 * n, "named_activations_bytes": acts,
            "logits_bytes": logits}
     if "ssm" in cfg.kinds:
-        from repro_torch.kernels.ssd import CHUNK
+        import torch
 
-        chunks = -(-TRAIN_SEQ // CHUNK)
-        h, p, s = cfg.n_ssm_heads, cfg.ssm_head_dim, cfg.ssm_state
-        out["ssd_bwd_scratch_bytes"] = TRAIN_BATCH * h * (2 * chunks * p * s
-                                                          + 2 * TRAIN_SEQ * s) * 4
+        out["ssd_bwd_scratch_bytes"] = ssd_bwd_scratch_bytes(
+            torch.bfloat16, TRAIN_BATCH, TRAIN_SEQ, cfg.n_ssm_heads, cfg.ssm_head_dim,
+            cfg.ssm_state)
     out["total_bytes"] = sum(out.values())
     return out
 
@@ -3954,7 +4041,7 @@ def main() -> int:
     qwen_launches = timed("model_serve " + QWEN_ARCH, phase_model_serve, device, QWEN_ARCH,
                           check_attention_yardstick)
     timing = timed("timing", phase_timing, device, max_rows)
-    mtime = timed("model_timing", phase_model_timing, device)
+    mtime = timed("model_timing", run_child, "--model-timing", "the kernels' timing")
     service_launches = timed("solve_service", phase_solve_service, device)
     # last in this process: after its profiled full-width step the profiler
     # has been seen to drop most kernel records of later windows (6 of 20
@@ -4059,8 +4146,10 @@ def main() -> int:
                 "max_rel_err": model_err["ssd_chunked_bwd_rel"],
                 "device_ms": sb["device_ms"], "shape": sb["shape"], "dtype": sb["dtype"],
                 "operations": sb["operations"], "achieved_tflops": sb["achieved_tflops"],
-                "fp32_rate_bound_ms": sb["fp32_rate_bound_ms"], "kernels": sb["kernels"],
-                "device_ms_by_kernel": sb["device_ms_by_kernel"], "blocks": sb["blocks"],
+                "kernels": sb["kernels"], "device_ms_by_kernel": sb["device_ms_by_kernel"],
+                "grids": sb["grids"], "blocks": sb["blocks"],
+                "resources": sb["resources"], "entry_points": sb["entry_points"],
+                "event_minus_device_ms": sb["event_minus_device_ms"],
                 "scratch_bytes": sb["scratch_bytes"]},
             "ssd_chunked": {"shape": sd["shape"], "dtype": sd["dtype"],
                             "launches_by_path": {"model_serve " + MAMBA_ARCH:
@@ -4095,6 +4184,10 @@ def main() -> int:
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)
     return 0
+
+
+CHILDREN = {"--slice-serves": slice_serves, "--train-ssm": train_ssm,
+            "--model-timing": phase_model_timing}
 
 
 if __name__ == "__main__":

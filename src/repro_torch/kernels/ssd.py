@@ -30,8 +30,9 @@ Returns ``(y (B, T, H, P) in x's type, h_last (B, H, P, N) fp32)``.
 When an input requires a gradient, :func:`ssd_chunked` is differentiable
 (``_SSD``); its backward is :func:`ssd_chunked_bwd`: the kernels of
 ``csrc/ssd_bwd.cu`` for CUDA tensors (counted in
-``ssd_chunked_bwd.launches``), :func:`ssd_chunked_bwd_torch` for CPU
-tensors.  The reference has no TPU kernel for it: it differentiates through
+``ssd_chunked_bwd.launches``; bf16 takes the tensor-core passes, float32
+the CUDA-core ones, :func:`bwd_entry_points`), :func:`ssd_chunked_bwd_torch`
+for CPU tensors.  The reference has no TPU kernel for it: it differentiates through
 ``ref.ssd_chunked_reference``.  Per (batch, head) and chunk, with the
 chunk's incoming state ``H``, the gradient ``dH'`` of its outgoing state,
 ``E[t, s] = exp(L_t - L_s)`` for ``s <= t`` (else 0), ``W_s = dt_s
@@ -51,14 +52,15 @@ dl_u a`` and ``da = sum dl_u dt_u``; ``da_log = da a``, ``dD = sum dy . x``.
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
 from . import replay
 
 __all__ = ["CHUNK", "MAX_HEAD_DIM", "MAX_STATE", "TENSOR_CORE_MIN_T", "on_tensor_cores",
-           "ssd_chunked", "ssd_chunked_torch", "ssd_chunked_bwd", "ssd_chunked_bwd_torch",
-           "ssd_chunked_torch_grad"]
+           "bwd_entry_points", "bwd_scratch", "ssd_chunked", "ssd_chunked_torch",
+           "ssd_chunked_bwd", "ssd_chunked_bwd_torch", "ssd_chunked_torch_grad"]
 
 CHUNK = 64          # time steps per chunk, the kernel's and the plain version's
 MAX_HEAD_DIM = 64   # P: the kernel's register tiles cover 64 columns
@@ -241,10 +243,14 @@ def ssd_chunked_bwd_torch(x, dt, a_log, b_mat, c_mat, d_skip, h0, dy, dh_last=No
             None if h0 is None else dstate.reshape(b, h, p, n))
 
 
-def _c_fn(dtype: torch.dtype, t: int):
+@functools.cache
+def _c_fn(dtype: torch.dtype, tensor_cores: bool):
+    """The forward's C entry point for ``dtype`` (``tensor_cores``: the
+    tensor-core kernel, see :func:`on_tensor_cores`), built and loaded at
+    first use and typed once."""
     from . import _build
 
-    name = "ssd_chunked_bf16_mma" if on_tensor_cores(dtype, t) else \
+    name = "ssd_chunked_bf16_mma" if tensor_cores else \
         {torch.float32: "ssd_chunked_f32", torch.bfloat16: "ssd_chunked_bf16"}[dtype]
     fn = getattr(_build.load("ssd"), name)
     p, ll, i = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
@@ -286,7 +292,7 @@ def _launch_cuda(x, dt, a_log, b_mat, c_mat, d_skip, h0, shape):
     y = torch.empty((b, t, h, p), dtype=x.dtype, device=dev)
     h_last = torch.empty((b, h, p, n), dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
-        err = _c_fn(x.dtype, t)(
+        err = _c_fn(x.dtype, on_tensor_cores(x.dtype, t))(
             x.data_ptr(), dt.data_ptr(), a_log.data_ptr(), b_mat.data_ptr(), c_mat.data_ptr(),
             None if d_skip is None else d_skip.data_ptr(),
             None if h0 is None else h0.data_ptr(), y.data_ptr(), h_last.data_ptr(),
@@ -298,17 +304,49 @@ def _launch_cuda(x, dt, a_log, b_mat, c_mat, d_skip, h0, shape):
     return y, h_last
 
 
-def _c_bwd_fns(dtype: torch.dtype):
+def bwd_entry_points(dtype: torch.dtype) -> tuple[str, str, str]:
+    """The C entry points of ``csrc/ssd_bwd.cu`` a backward with x/B/C in
+    ``dtype`` launches, in order: the state pass, the chunk pass and the sums.
+    bf16 (any T) takes the tensor-core passes: hi + lo bf16 chunk states and
+    state gradients, dB / dC summed over each group's heads inside the chunk
+    pass, and the heads' da / dD sums alone.  float32 takes the CUDA-core
+    passes (fp32 FMAs, fp32 states, per-head dB / dC partials), which the
+    1e-4 float32 gate needs."""
+    if dtype == torch.bfloat16:
+        return "ssd_bwd_states_bf16_mma", "ssd_bwd_chunks_bf16_mma", "ssd_bwd_reduce_heads"
+    if dtype == torch.float32:
+        return "ssd_bwd_states_f32", "ssd_bwd_chunks_f32", "ssd_bwd_reduce_f32"
+    raise TypeError(f"the SSD backward kernels take float32 or bfloat16, got {dtype}")
+
+
+def bwd_scratch(dtype: torch.dtype, b: int, t: int, h: int, p: int, n: int
+                ) -> dict[str, tuple[tuple[int, ...], torch.dtype]]:
+    """The scratch one backward with x/B/C in ``dtype`` allocates, by name:
+    ``(shape, type)``.  Every chunk's incoming state and the gradient of its
+    outgoing state (fp32, or on the tensor cores hi + lo bf16 pairs in the
+    same bytes), the per-(batch, head, chunk) da / dD partials and, off the
+    tensor cores, the per-head dB / dC rows that the sums add up (on the
+    tensor cores the chunk pass writes dB / dC whole)."""
+    nc = -(-t // CHUNK)
+    if dtype == torch.bfloat16:
+        state = ((b, h, nc, 2, p, n), torch.bfloat16)
+        return {"states": state, "dstates": state, "head_part": ((2, b, h, nc), torch.float32)}
+    state = ((b, h, nc, p, n), torch.float32)
+    return {"states": state, "dstates": state, "head_part": ((2, b, h, nc), torch.float32),
+            "db_part": ((b, t, h, n), torch.float32), "dc_part": ((b, t, h, n), torch.float32)}
+
+
+@functools.cache
+def _c_bwd_fns(names: tuple[str, str, str]):
+    """The backward's C entry points ``names`` (:func:`bwd_entry_points`),
+    built and loaded at first use and typed once."""
     from . import _build
 
     lib = _build.load("ssd_bwd")
-    suffix = {torch.float32: "f32", torch.bfloat16: "bf16"}[dtype]
     p, ll, i = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
-    states = getattr(lib, f"ssd_bwd_states_{suffix}")
+    states, chunks, reduce = (getattr(lib, name) for name in names)
     states.argtypes = [p] * 11 + [ll] * 9 + [i] * 6 + [p]
-    chunks = getattr(lib, f"ssd_bwd_chunks_{suffix}")
     chunks.argtypes = [p] * 14 + [ll] * 9 + [i] * 6 + [p]
-    reduce = getattr(lib, f"ssd_bwd_reduce_{suffix}")
     reduce.argtypes = [p] * 8 + [i] * 6 + [p]
     for fn in (states, chunks, reduce):
         fn.restype = ctypes.c_int
@@ -316,9 +354,10 @@ def _c_bwd_fns(dtype: torch.dtype):
 
 
 def _launch_bwd_cuda(x, dt, a_log, b_mat, c_mat, d_skip, h0, dy, dh_last):
-    """The passes of ``csrc/ssd_bwd.cu`` on the current stream: the chunk
-    states and state gradients (and dh0), every chunk's gradients (per-head
-    dB / dC, per-chunk da / dD partials), and the fixed-order sums."""
+    """The passes of ``csrc/ssd_bwd.cu`` on the current stream
+    (:func:`bwd_entry_points`): the chunk states and state gradients (and
+    dh0), every chunk's gradients (dB / dC whole on the tensor cores, else
+    per head), and the fixed-order sums."""
     b, t, h, p, g, n = shape = _check(x, dt, a_log, b_mat, c_mat, d_skip, h0)
     dev = x.device
     if tuple(dy.shape) != (b, t, h, p) or dy.device != dev:
@@ -336,26 +375,25 @@ def _launch_bwd_cuda(x, dt, a_log, b_mat, c_mat, d_skip, h0, dy, dh_last):
     d_skip = None if d_skip is None else d_skip.contiguous()
     h0 = None if h0 is None else h0.contiguous()
     dh_last = None if dh_last is None else dh_last.contiguous()
-    nc = -(-t // CHUNK)
     f32 = dict(dtype=torch.float32, device=dev)
-    # chunk-start states and the state gradients at chunk ends, then per-head
-    # dB / dC and per-(b, h, chunk) da / dD partials, summed in a fixed order
-    states = torch.empty((b, h, nc, p, n), **f32)
-    dstates = torch.empty((b, h, nc, p, n), **f32)
-    db_part = torch.empty((b, t, h, n), **f32)
-    dc_part = torch.empty((b, t, h, n), **f32)
-    head_part = torch.empty((2, b, h, nc), **f32)
+    tensor_cores = x.dtype == torch.bfloat16
+    scratch = {name: torch.empty(shape, dtype=dtype, device=dev)
+               for name, (shape, dtype) in bwd_scratch(x.dtype, b, t, h, p, n).items()}
+    states, dstates, head_part = scratch["states"], scratch["dstates"], scratch["head_part"]
     dx = torch.empty((b, t, h, p), dtype=x.dtype, device=dev)
     ddt = torch.empty((b, t, h), **f32)
     db = torch.empty((b, t, g, n), dtype=b_mat.dtype, device=dev)
     dc = torch.empty((b, t, g, n), dtype=c_mat.dtype, device=dev)
+    # the chunk pass writes into db_part / dc_part: dB / dC themselves on the
+    # tensor cores, else the per-head rows that the sums add up
+    db_part, dc_part = (db, dc) if tensor_cores else (scratch["db_part"], scratch["dc_part"])
     da_log = torch.empty((h,), **f32)
     dd_skip = None if d_skip is None else torch.empty((h,), **f32)
     dh0 = None if h0 is None else torch.empty((b, h, p, n), **f32)
     ptr = lambda v: None if v is None else v.data_ptr()  # noqa: E731
     strides = (*x.stride()[:3], *b_mat.stride()[:3], *c_mat.stride()[:3])
     dims = (b, t, h, g, p, n)
-    fn_states, fn_chunks, fn_reduce = _c_bwd_fns(x.dtype)
+    fn_states, fn_chunks, fn_reduce = _c_bwd_fns(bwd_entry_points(x.dtype))
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = fn_states(x.data_ptr(), dt.data_ptr(), a_log.data_ptr(), b_mat.data_ptr(),
@@ -369,9 +407,10 @@ def _launch_bwd_cuda(x, dt, a_log, b_mat, c_mat, d_skip, h0, dy, dh_last):
                             db_part.data_ptr(), dc_part.data_ptr(), head_part.data_ptr(),
                             *strides, *dims, stream)
         if err == 0:
-            err = fn_reduce(db_part.data_ptr(), dc_part.data_ptr(), head_part.data_ptr(),
-                            a_log.data_ptr(), db.data_ptr(), dc.data_ptr(), da_log.data_ptr(),
-                            ptr(dd_skip), *dims, stream)
+            sums = (None, None) if tensor_cores else (db_part, dc_part)
+            out = (None, None) if tensor_cores else (db, dc)
+            err = fn_reduce(*map(ptr, sums), head_part.data_ptr(), a_log.data_ptr(),
+                            *map(ptr, out), da_log.data_ptr(), ptr(dd_skip), *dims, stream)
     if err != 0:
         raise RuntimeError(f"ssd backward kernel launch failed: CUDA error {err}")
     ssd_chunked_bwd.launches += 1

@@ -1259,15 +1259,16 @@ def test_expected_train_launches_of_mamba2(smoke):
 
 
 def test_train_memory_reckoning_of_mamba2(smoke):
-    """The state (~12.5 GB), the named activations, and K4 bwd's scratch:
-    chunk states and their gradients (2 x 48 x 64 x 64 x 128 fp32) and the
-    per-head dB / dC (2 x 4096 x 48 x 128 fp32), 0.4 GB."""
+    """The state (~12.5 GB), the named activations, and K4 bwd's scratch on
+    the tensor cores: chunk states and their gradients (2 x 48 x 64 x 64 x
+    128 hi + lo bf16 pairs, the bytes of fp32) and the per-chunk da / dD
+    partials (2 x 48 x 64 fp32), 0.2 GB; dB / dC leave the chunk pass whole."""
     from repro_torch.configs import get_config
 
     cfg = get_config("mamba2-780m")
     r = smoke.train_memory_reckoning(cfg, None)
     assert r["state_bytes"] == 16 * cfg.param_count() and 12.4e9 < r["state_bytes"] < 12.6e9
-    assert r["ssd_bwd_scratch_bytes"] == (2 * 48 * 64 * 64 * 128 + 2 * 4096 * 48 * 128) * 4
+    assert r["ssd_bwd_scratch_bytes"] == (2 * 48 * 64 * 64 * 128 + 2 * 48 * 64) * 4
     assert "ssd_bwd_scratch_bytes" not in smoke.train_memory_reckoning(
         get_config("recurrentgemma-2b"), None)
 

@@ -1254,8 +1254,13 @@ def test_smoke_training_step_on_the_card_matches_the_cpu(cuda_device):
 
 
 # K4's backward: the forward's cases and T < 64 with G < H; with h0, d_skip and
-# a nonzero last-state gradient, and without them
-SSD_BWD_CASES = SSD_CASES + [(2, 40, 6, 32, 3, 64)]
+# a nonzero last-state gradient, and without them; then the edges of the
+# tensor-core passes (bf16): T past a chunk boundary at full width, head_dim
+# 16 and 32, state 32 and 64, G = H, 1 < G < H, and T = 1 (one chunk of one
+# step)
+SSD_BWD_CASES = SSD_CASES + [(2, 40, 6, 32, 3, 64), (1, 4097, 48, 64, 1, 128),
+                             (2, 200, 6, 16, 2, 64), (2, 130, 4, 32, 1, 32),
+                             (1, 300, 4, 64, 4, 64), (2, 1, 4, 64, 1, 128)]
 SSD_GRAD_NAMES = ("dx", "ddt", "da_log", "dB", "dC", "dd_skip", "dh0")
 
 
@@ -1330,6 +1335,67 @@ def test_ssd_gradient_through_the_models_views_launches_the_kernels(cuda_device)
     assert (ssd.ssd_chunked.launches, ssd.ssd_chunked_bwd.launches) == (fwd + 1, bwd + 1)
     for a, b_ in zip(got, want):
         assert a.dtype == b_.dtype and _rel(a, b_) < 2e-2
+
+
+@pytest.mark.parametrize("lead", [0, 1])
+def test_ssd_bwd_kernels_take_the_models_strided_views(cuda_device, lead):
+    """bf16 x, B and C as ssm_block hands them, views into the conv output
+    (row stride lead + h p + 2 n), with 16-byte row starts (lead 0) and with
+    every row start one element off them (lead 1, the element-by-element loads):
+    the tensor-core passes' gradients are the plain backward's within 2e-2 of
+    max |grad|, at mamba2-780m's width."""
+    from repro_torch.kernels import ssd
+
+    b, t, h, p, n = 1, 700, 48, 64, 128
+    gen = torch.Generator(device=cuda_device).manual_seed(11 + lead)
+    conv = (0.5 * torch.randn((b, t, lead + h * p + 2 * n), generator=gen,
+                              device=cuda_device)).bfloat16()
+    x, bm, cm = torch.split(conv[..., lead:], [h * p, n, n], dim=-1)
+    x, bm, cm = x.reshape(b, t, h, p), bm.reshape(b, t, 1, n), cm.reshape(b, t, 1, n)
+    dt = torch.nn.functional.softplus(torch.randn((b, t, h), generator=gen, device=cuda_device))
+    a_log = 0.5 * torch.randn(h, generator=gen, device=cuda_device)
+    d_skip = torch.randn(h, generator=gen, device=cuda_device)
+    dy = torch.randn((b, t, h, p), generator=gen, device=cuda_device).bfloat16()
+    assert x.stride()[1] == lead + h * p + 2 * n and (x.data_ptr() % 16 == 0) == (lead == 0)
+    before = ssd.ssd_chunked_bwd.launches
+    got = ssd.ssd_chunked_bwd(x, dt, a_log, bm, cm, d_skip, None, dy)
+    torch.cuda.synchronize()
+    assert ssd.ssd_chunked_bwd.launches == before + 1
+    want = ssd.ssd_chunked_bwd_torch(x, dt, a_log, bm, cm, d_skip, None, dy)
+    for name, a, w in zip(SSD_GRAD_NAMES, got, want):
+        assert (a is None) == (w is None), name
+        if w is not None:
+            assert a.dtype == w.dtype and a.shape == w.shape, name
+            assert bool(torch.isfinite(a.float()).all()) and _rel(a, w) < 2e-2, name
+
+
+@pytest.mark.parametrize("dtype,t", [(torch.bfloat16, 300), (torch.bfloat16, 1),
+                                     (torch.float32, 300)])
+def test_ssd_bwd_route_follows_type_and_length(cuda_device, monkeypatch, dtype, t):
+    """bf16, also a step of T = 1, resolves the tensor-core entry points,
+    whose kernels are in the build log; float32 the CUDA-core ones."""
+    from repro_torch.kernels import ssd
+
+    seen, orig = [], ssd._c_bwd_fns
+
+    def spy(names):
+        seen.append(names)
+        return orig(names)
+
+    monkeypatch.setattr(ssd, "_c_bwd_fns", spy)
+    args, dy, dh = _ssd_bwd_inputs((2, t, 4, 64, 1, 128), dtype, cuda_device, True, seed=t)
+    got = ssd.ssd_chunked_bwd(*args, dy, dh)
+    torch.cuda.synchronize()
+    assert seen == [ssd.bwd_entry_points(dtype)]
+    assert seen[0][0].endswith("_mma") == (dtype == torch.bfloat16)
+    kernels = _entry_kernels("ssd_bwd")
+    for name in ("ssd_bwd_states_mma_kernel", "ssd_bwd_chunk_mma_kernel",
+                 "ssd_bwd_dbdc_mma_kernel"):
+        assert sum(name in k for k in kernels) == 1, name
+    want = ssd.ssd_chunked_bwd_torch(*args, dy, dh)
+    for name, a, w in zip(SSD_GRAD_NAMES, got, want):
+        if w is not None:
+            assert _rel(a, w) < (2e-2 if dtype == torch.bfloat16 else 1e-4), name
 
 
 def test_ssd_bwd_wrapper_raises_on_what_the_kernels_do_not_take(cuda_device):

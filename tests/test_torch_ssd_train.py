@@ -156,6 +156,40 @@ def test_no_h0_and_no_skip_give_no_such_gradients():
                                                  (1, 70, 1, 8)]
 
 
+@pytest.mark.parametrize("dtype,t,tensor_cores", [
+    (torch.bfloat16, 4096, True), (torch.bfloat16, 2, True), (torch.bfloat16, 1, True),
+    (torch.float32, 4096, False), (torch.float32, 1, False)])
+def test_backward_route_follows_type_and_length(dtype, t, tensor_cores):
+    """bf16 at every T takes the tensor-core passes of ``csrc/ssd_bwd.cu``
+    (hi + lo bf16 states, dB / dC whole from the chunk pass, the heads' sums
+    alone); float32 the CUDA-core passes, with per-head dB / dC and their
+    sums.  Each entry point is one of the source's C functions, the source
+    has no other bf16 backward, and the scratch is the route's: hi + lo bf16
+    states and no per-head dB / dC on the tensor cores."""
+    import re
+    from pathlib import Path
+
+    names = ssd.bwd_entry_points(dtype)
+    if tensor_cores:
+        assert names == ("ssd_bwd_states_bf16_mma", "ssd_bwd_chunks_bf16_mma",
+                         "ssd_bwd_reduce_heads")
+    else:
+        assert names == ("ssd_bwd_states_f32", "ssd_bwd_chunks_f32", "ssd_bwd_reduce_f32")
+    source = (Path(ssd.__file__).parent / "csrc" / "ssd_bwd.cu").read_text()
+    for name in names:
+        assert f"int {name}(" in source, name
+    entries = re.findall(r"^int (ssd_bwd_(?:states|chunks|reduce)_\w+)\(", source, re.M)
+    assert sorted(entries) == sorted(
+        ssd.bwd_entry_points(torch.bfloat16) + ssd.bwd_entry_points(torch.float32))
+    scratch = ssd.bwd_scratch(dtype, 2, t, 4, 64, 128)
+    nc = -(-t // ssd.CHUNK)
+    state = ((2, 4, nc, 2, 64, 128), torch.bfloat16) if tensor_cores else \
+        ((2, 4, nc, 64, 128), torch.float32)
+    assert scratch["states"] == scratch["dstates"] == state
+    assert scratch["head_part"] == ((2, 2, 4, nc), torch.float32)
+    assert ("db_part" in scratch) == ("dc_part" in scratch) == (not tensor_cores)
+
+
 def test_serving_takes_the_no_grad_path_and_counts_nothing():
     """Under no_grad (all serving) ``ssd_chunked`` runs the plain forward
     directly, no autograd node; with a gradient it is differentiable."""
