@@ -161,6 +161,18 @@ Phases, one JSON line each:
                  for mamba2-780m at full width: K4 / K4 bwd launches per step,
                  the step-1 gate (the yardstick also runs the plain SSD at
                  another chunk length), the profiled step, the recovery drill
+  train_moe      (a child process, ``--train-moe``, after ``train_ssm``)
+                 granite-moe-1b-a400m at full width the same way (batch 1 x
+                 4096), its step-1 gate with every run on the plain run's
+                 expert choice and the unpinned swaps counted, the dense
+                 dispatch's held activations reckoned beside the peak, and
+                 the MoE block's share of the step
+  train_encdec   (a child process, ``--train-encdec``) whisper-medium at full
+                 width the same way at batch 16 of 1500 frames and 448
+                 decoder tokens, every layer in a recompute region (K2 144 /
+                 K2 bwd 72 a step), tokens/s and frames/s, and step 1 also
+                 held in float32 (its bf16 gate reads rounding noise: the
+                 random tied embedding's logits reach +-140)
 
 then a ``{"kernels": [...]}`` line, the card's ``nvidia-smi`` line, and last
 ``{"ok": true, "device": {...}}``.  Any failure raises: the exit code is
@@ -1957,11 +1969,26 @@ TRAIN_ARCH = "recurrentgemma-2b"
 TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 1, 4096, 4
 FLASH_TRAIN = (TRAIN_BATCH, TRAIN_SEQ, TRAIN_SEQ, 10, 1, 256, True, 2048, 0)
 RGLRU_TRAIN = (TRAIN_BATCH, TRAIN_SEQ, 2560, False)
+# training granite-moe-1b-a400m (as recurrentgemma-2b trains) and
+# whisper-medium (batch 16 of its 30-second window, 1500 frames after the
+# stubbed conv stem, and its 448-token decoder context) at published width
+# and depth, each in a process of its own (--train-moe, --train-encdec) after
+# train_ssm; K2 and its backward at their d-64 shapes: granite's causal GQA
+# 16:8, whisper's encoder self-attention (non-causal), decoder self-attention
+# (causal) and cross-attention (448 decoder rows over the 1500 encoder rows)
+ENCDEC_TRAIN_BATCH, ENCDEC_TRAIN_SEQ = 16, 448
+FLASH_BWD_GRANITE = (TRAIN_BATCH, TRAIN_SEQ, TRAIN_SEQ, 16, 8, 64, True, None, 0)
+FLASH_BWD_WHISPER = {
+    "encoder": (ENCDEC_TRAIN_BATCH, 1500, 1500, 16, 16, 64, False, None, 0),
+    "decoder self": (ENCDEC_TRAIN_BATCH, ENCDEC_TRAIN_SEQ, ENCDEC_TRAIN_SEQ, 16, 16, 64, True,
+                     None, 0),
+    "cross": (ENCDEC_TRAIN_BATCH, ENCDEC_TRAIN_SEQ, 1500, 16, 16, 64, False, None, 0)}
 # K2's backward against its plain version: the reference's gradient test
 # shapes (tests/test_kernels.py::test_flash_xla_custom_vjp_grads: 2 x 512, 4
 # heads over 2, d 32, windows None and 128), ragged shapes, rows that see no
-# key (q_offset -5), and the training shape; max |diff| / max |grad| per
-# gradient: 1e-5 in float32 (the reference's own bar), 2e-2 in bf16 (K2's)
+# key (q_offset -5), the training shape, and granite's and whisper's training
+# shapes; max |diff| / max |grad| per gradient: 1e-5 in float32 (the
+# reference's own bar), 2e-2 in bf16 (K2's)
 FLASH_BWD_SHAPES = (
     (2, 512, 512, 4, 2, 32, True, None, 0),
     (2, 512, 512, 4, 2, 32, True, 128, 0),
@@ -1970,6 +1997,8 @@ FLASH_BWD_SHAPES = (
     (1, 96, 96, 8, 1, 256, True, None, -5),
     (1, 100, 1000, 2, 1, 32, True, 300, 900),
     FLASH_TRAIN,
+    FLASH_BWD_GRANITE,
+    *FLASH_BWD_WHISPER.values(),
 )
 FLASH_BWD_TOL = {"float32": 1e-5, "bfloat16": 2e-2}
 # the kernels one bf16 call of K2's backward launches, in order
@@ -2083,6 +2112,22 @@ TPU_BLOCK_KV = 128
 # weights from seed 0 in float32): about ten times the 5e-6 a correct path
 # reads (1e-6 to 5e-6 per step, as the plain version against itself at chunk 32)
 FLOAT32_TEACHER_FORCED_LIMIT = 5e-5
+# archs whose step-1 gate runs in float32 at full width and depth (limits
+# written before its first run): whisper-medium's random tied N(0, 1)
+# embedding over d 1024 gives logits of about +-140, where one bf16 unit is
+# 0.5 to 1, so rounding moves the softmax's argmax and the bf16 gate's
+# gradients read ~2.4 of max |grad| on the plain versions against
+# themselves: no fault could show there, and its bf16 reading is printed,
+# not gated.  In float32 the loss within 1e-5 relative and every gradient
+# tensor within 1e-3 of its max |grad| (a key bias of its block's wk,
+# ``grad_errors``).  The first run read 2.7e-3 (the first decoder layers'
+# cross-attention wq / wk, whose gradients pass the softmax's cancellation
+# 48 layers down) and 1.03e-3 for the key biases, so, as in bf16, each
+# reading is held to its fixed limit or twice the plain versions' own
+# reading in the yardstick's summation order, whichever is larger
+STEP1_FLOAT32_ARCHS = (ENCDEC_ARCH,)
+FLOAT32_TRAIN_LOSS_LIMIT = 1e-5
+FLOAT32_TRAIN_GRAD_LIMIT = 1e-3
 
 
 def randn(gen, shape, device, dtype=None):
@@ -2278,6 +2323,10 @@ def phase_model_kernels(device):
             if not (torch.equal(y, want_y) and torch.equal(h, want_h)):
                 raise AssertionError(f"rglru_scan differs from its plain version: {shape} {dtype}")
     bwd = flash_bwd_checks(device)
+    for name in worst:
+        worst[name] = max(worst[name], bwd["fwd_abs"][name])
+        worst_lse[name] = max(worst_lse[name], bwd["fwd_lse_abs"][name])
+    n_flash += bwd["checks"]
     rg_bwd = rglru_bwd_checks(device)
     ssd_bwd = ssd_bwd_checks(device)
     ssd_err = {"float32": 0.0, "bfloat16": 0.0}
@@ -2313,6 +2362,8 @@ def phase_model_kernels(device):
         flash_shapes=[list(s) for s in FLASH_SHAPES + (FLASH_SERVE,)],
         flash_bf16_only_shapes=[list(s) for s in FLASH_BF16_SHAPES],
         flash_f32_only_shapes=[list(s) for s in FLASH_F32_SERVED],
+        flash_fwd_at_bwd_shapes={"checks": bwd["checks"], "max_abs_err": bwd["fwd_abs"],
+                                 "lse_max_abs_err": bwd["fwd_lse_abs"]},
         rglru_checks=2 * len(RGLRU_SHAPES), rglru_max_abs_err=worst_rg,
         rglru_tolerance="0 (torch.equal), float32 and bfloat16 inputs",
         rglru_shapes=[list(s) for s in RGLRU_SHAPES],
@@ -2351,21 +2402,38 @@ def phase_model_kernels(device):
 
 def flash_bwd_checks(device) -> dict:
     """K2's backward against its plain version on the same (q, k, v, out,
-    lse, dO): both input types at every ``FLASH_BWD_SHAPES`` shape.  Rows
-    that see no key must get zero dq.  At the training shape in bf16 a second
-    call on the same inputs must give bit-identical dq, dk and dv (the kernels
-    sum in a fixed order, with no atomics)."""
+    lse, dO): both input types at every ``FLASH_BWD_SHAPES`` shape.  The
+    forward that made ``out`` and ``lse`` is held against its plain version
+    there too (``FLASH_TOL``, ``FLASH_LSE_TOL``): these are the shapes the
+    training paths give it.  Rows that see no key must get zero dq.  At the
+    training shape in bf16 a second call on the same inputs must give
+    bit-identical dq, dk and dv (the kernels sum in a fixed order, with no
+    atomics)."""
     import torch
 
     from repro_torch.kernels import flash_attention as fa
 
     rel = {"float32": 0.0, "bfloat16": 0.0}
     err = {"float32": 0.0, "bfloat16": 0.0}
+    fwd = {"float32": 0.0, "bfloat16": 0.0}
+    fwd_lse = {"float32": 0.0, "bfloat16": 0.0}
     checks, no_key = 0, True
     for i, shape in enumerate(FLASH_BWD_SHAPES):
         for name, dtype in (("float32", torch.float32), ("bfloat16", torch.bfloat16)):
             q, k, v, kw = flash_operands(shape, dtype, device, seed=300 + i)
+            before = fa.flash_attention.launches
             out, lse = fa.flash_attention(q, k, v, return_lse=True, **kw)
+            torch.cuda.synchronize()
+            if fa.flash_attention.launches != before + 1:
+                raise AssertionError("flash_attention did not launch its kernel")
+            want_out, want_lse = fa.flash_attention_torch(q, k, v, return_lse=True, **kw)
+            ok_lse, e_lse = _within(lse, want_lse, FLASH_LSE_TOL)
+            ok_out, e_out = _within(out, want_out, FLASH_TOL[name])
+            fwd[name], fwd_lse[name] = max(fwd[name], e_out), max(fwd_lse[name], e_lse)
+            if not (ok_lse and ok_out):
+                raise AssertionError(f"flash_attention differs from its plain version: {shape} "
+                                     f"{name} out {e_out:.3g}, lse {e_lse:.3g}")
+            del want_out, want_lse
             gen = torch.Generator(device=device).manual_seed(400 + i)
             do = randn(gen, q.shape, device, dtype)
             before = fa.flash_attention_bwd.launches
@@ -2399,7 +2467,7 @@ def flash_bwd_checks(device) -> dict:
                 del again
             del q, k, v, out, lse, do, got, want
     return {"checks": checks, "rel": rel, "abs": err, "no_key_rows_zero": no_key,
-            "bit_identical_repeat": True}
+            "bit_identical_repeat": True, "fwd_abs": fwd, "fwd_lse_abs": fwd_lse}
 
 
 def rglru_bwd_checks(device) -> dict:
@@ -3046,19 +3114,35 @@ def slice_serves(device) -> dict:
     return {"launches": launches, "timings": timings, "phase_seconds": seconds}
 
 
-def train_ssm(device) -> dict:
-    """mamba2-780m trained at full width (``phase_train`` as ``train_ssm``),
-    with the seconds it took."""
+def timed_train(device, arch: str, phase: str, batch: int = TRAIN_BATCH,
+                seq: int = TRAIN_SEQ) -> dict:
+    """``phase_train`` of ``arch`` as ``phase``, with the seconds it took."""
     t0 = time.perf_counter()
-    out = phase_train(device, SSM_TRAIN_ARCH, "train_ssm")
-    return {**out, "phase_seconds": {"train_ssm": time.perf_counter() - t0}}
+    out = phase_train(device, arch, phase, batch, seq)
+    return {**out, "phase_seconds": {phase: time.perf_counter() - t0}}
+
+
+def train_ssm(device) -> dict:
+    """mamba2-780m trained at full width."""
+    return timed_train(device, SSM_TRAIN_ARCH, "train_ssm")
+
+
+def train_moe(device) -> dict:
+    """granite-moe-1b-a400m trained at full width, batch 1 x 4096."""
+    return timed_train(device, MOE_ARCH, "train_moe")
+
+
+def train_encdec(device) -> dict:
+    """whisper-medium trained at full width, batch 16 x (1500 frames, 448
+    decoder tokens), step 1 gated in float32 (``STEP1_FLOAT32_ARCHS``)."""
+    return timed_train(device, ENCDEC_ARCH, "train_encdec", ENCDEC_TRAIN_BATCH,
+                       ENCDEC_TRAIN_SEQ)
 
 
 def child_main(fn) -> int:
     """A child process's body (``--slice-serves``, ``--train-ssm``,
-    ``--model-timing``): ``fn``
-    on the card, on the kernels the parent built; its result is the last
-    line."""
+    ``--train-moe``, ``--train-encdec``, ``--model-timing``): ``fn`` on the
+    card, on the kernels the parent built; its result is the last line."""
     import torch
 
     if not torch.cuda.is_available():
@@ -3110,6 +3194,16 @@ def phase_train_ssm() -> dict:
     """:func:`train_ssm` in a child process (``--train-ssm``): its profiled
     step is a large window, so it runs after this process's last one."""
     return run_child("--train-ssm", "the SSM training")
+
+
+def phase_train_moe() -> dict:
+    """:func:`train_moe` in a child process (``--train-moe``)."""
+    return run_child("--train-moe", "the MoE training")
+
+
+def phase_train_encdec() -> dict:
+    """:func:`train_encdec` in a child process (``--train-encdec``)."""
+    return run_child("--train-encdec", "the encoder-decoder training")
 
 
 def sdpa_backend(q, k, v, mask, is_causal: bool = False) -> str:
@@ -3242,6 +3336,10 @@ def phase_model_timing(device):
     s_dec_bound = ssd_bound(dec[0], dec[3], dec[5], dec[6], chunk=ssd.CHUNK)
     out = {
         "flash_attention_bwd": flash_bwd_timing(device, seed=13),
+        "flash_attention_bwd_" + MOE_ARCH: flash_bwd_timing(device, seed=19,
+                                                            shape=FLASH_BWD_GRANITE),
+        "flash_attention_bwd_" + ENCDEC_ARCH + " cross": flash_bwd_timing(
+            device, seed=20, shape=FLASH_BWD_WHISPER["cross"]),
         "rglru_scan_bwd": rglru_bwd_timing(device, seed=14),
         "ssd_chunked_bwd": ssd_bwd_timing(device, seed=17),
         "flash_attention_qwen2.5-14b": flash_timing(FLASH_QWEN, device, seed=11),
@@ -3288,7 +3386,8 @@ def phase_model_timing(device):
              "torch.profiler, mean of 50; ssd device_ms: the tensor-core kernel's mean "
              "device time over 20 launches, training_shape the same at (1, 4096) with no h0; "
              "flash_attention_bwd, rglru_scan_bwd and ssd_chunked_bwd at the "
-             "training shape: ms the median of 10 (20, 10) event-timed wrapper calls, device_ms "
+             "training shape (K2 bwd also at granite-moe-1b-a400m's and at "
+             "whisper-medium's cross-attention training shapes): ms the median of 10 (20, 10) event-timed wrapper calls, device_ms "
              "the profiler's time of the call's kernels (K2 bwd: delta, the tensor-core "
              "dk/dv pass, the group sum, the tensor-core dq pass; K3 bwd: the reverse scan "
              "in the group the wrapper picks, device_ms_by_group in each group there and "
@@ -3465,20 +3564,21 @@ def ssd_bwd_scratch_bytes(dtype, b: int, t: int, h: int, p: int, n: int) -> int:
                for shape, dt in ssd.bwd_scratch(dtype, b, t, h, p, n).values())
 
 
-def flash_bwd_timing(device, seed: int) -> dict:
-    """K2's backward in bf16 at the training shape: kernel (events, and the
-    profiler's device time of the ``FLASH_BWD_KERNELS`` kernels one call
-    launches, together and each on its own), its achieved rate on the
-    design's operations, plain version, bound, and the backward of PyTorch's
-    scaled_dot_product_attention through autograd at the same shape (kv heads
-    expanded, the causal band as a mask, the forward run once outside the
+def flash_bwd_timing(device, seed: int, shape=FLASH_TRAIN) -> dict:
+    """K2's backward in bf16 at a training shape (recurrentgemma-2b's by
+    default): kernel (events, and the profiler's device time of the
+    ``FLASH_BWD_KERNELS`` kernels one call launches, together and each on its
+    own), its achieved rate on the design's operations, plain version, bound,
+    and the backward of PyTorch's scaled_dot_product_attention through
+    autograd at the same shape (kv heads expanded, the mask as
+    ``sdpa_args`` gives it, built and the forward run once outside the
     timing)."""
     import torch
     import torch.nn.functional as F
 
     from repro_torch.kernels import flash_attention as fa
 
-    q, k, v, kw = flash_operands(FLASH_TRAIN, torch.bfloat16, device, seed=seed)
+    q, k, v, kw = flash_operands(shape, torch.bfloat16, device, seed=seed)
     out, lse = fa.flash_attention(q, k, v, return_lse=True, **kw)
     do = randn(torch.Generator(device=device).manual_seed(seed + 1), q.shape, device,
                torch.bfloat16)
@@ -3496,14 +3596,14 @@ def flash_bwd_timing(device, seed: int) -> dict:
     qt = q.transpose(1, 2).detach().requires_grad_()
     kt = k.transpose(1, 2).repeat_interleave(g, dim=1).contiguous().requires_grad_()
     vt = v.transpose(1, 2).repeat_interleave(g, dim=1).contiguous().requires_grad_()
-    pos = torch.arange(q.shape[1], device=device)
-    band = (pos[None, :] <= pos[:, None]) & (pos[None, :] > pos[:, None] - kw["window"])
-    lib_out = F.scaled_dot_product_attention(qt, kt, vt, attn_mask=band)
+    sdpa = sdpa_args(q, k, **kw)
+    lib_out = F.scaled_dot_product_attention(qt, kt, vt, **sdpa)
     dot = do.transpose(1, 2)
     lib_ms = cuda_median_ms(
         lambda: torch.autograd.grad(lib_out, (qt, kt, vt), dot, retain_graph=True),
         reps=10, warmup=2)
-    backend = sdpa_backend(qt, kt, vt, band)
+    backend = sdpa_backend(qt, kt, vt, sdpa.get("attn_mask"), sdpa.get("is_causal", False))
+    how = "mask" if "attn_mask" in sdpa else f"is_causal={sdpa['is_causal']}"
     del qt, kt, vt, lib_out, dot
     bound = flash_bwd_bound(q, k, v, **kw)
     return {"ms": ms, "device_ms": dev_ms, "plain_ms": plain_ms, **bound,
@@ -3511,8 +3611,8 @@ def flash_bwd_timing(device, seed: int) -> dict:
             "kernels": list(FLASH_BWD_KERNELS), "device_ms_by_kernel": by_kernel,
             "library_ms": lib_ms,
             "library": f"scaled_dot_product_attention backward through autograd ({backend}, "
-                       "band mask), kv heads expanded, forward outside the timing",
-            "shape": list(FLASH_TRAIN), "dtype": "bfloat16"}
+                       f"{how}), kv heads expanded, forward outside the timing",
+            "shape": list(shape), "dtype": "bfloat16"}
 
 
 def rglru_bwd_timing(device, seed: int) -> dict:
@@ -3644,44 +3744,68 @@ def train_wrappers() -> dict:
 
 def expected_train_launches(cfg, scan_group, policy) -> dict:
     """Kernel launches of one training step: K2, K3 and K4 forward once per
-    layer plus once per replay the plan implies (none for a held class), and
-    their backwards once per layer."""
-    from repro_torch.models.decoder import kernel_forwards
+    call of the first forward plus once per replay the plan implies (none
+    for a held class; ``models.decoder.kernel_forwards``), and their
+    backwards once per call of the first forward (``kernel_calls``)."""
+    from repro_torch.models.decoder import kernel_calls, kernel_forwards
 
-    fwd = kernel_forwards(cfg, scan_group, policy)
-    return {"flash_attention": fwd["attn_out"],
-            "flash_attention_bwd": cfg.kinds.count("attn_local") + cfg.kinds.count("attn"),
-            "rglru_scan": fwd["rec_out"], "rglru_scan_bwd": cfg.kinds.count("rec"),
-            "ssd_chunked": fwd["ssm_out"], "ssd_chunked_bwd": cfg.kinds.count("ssm")}
+    fwd, calls = kernel_forwards(cfg, scan_group, policy), kernel_calls(cfg)
+    return {"flash_attention": fwd["attn_out"], "flash_attention_bwd": calls["attn_out"],
+            "rglru_scan": fwd["rec_out"], "rglru_scan_bwd": calls["rec_out"],
+            "ssd_chunked": fwd["ssm_out"], "ssd_chunked_bwd": calls["ssm_out"]}
 
 
-def train_memory_reckoning(cfg, plan) -> dict:
+def train_memory_reckoning(cfg, plan, batch: int = TRAIN_BATCH, seq: int = TRAIN_SEQ,
+                           n_params: int | None = None) -> dict:
     """What a training step must hold at least, from the shapes: fp32
-    parameters, gradients and AdamW moments (16 B a parameter), the bf16
-    casts of the weights autograd keeps (2 B), the planner's named activation
-    classes, and the logits with their gradient (bf16) and one fp32 block of
-    the loss; for SSM layers also K4's backward scratch (chunk states and
-    state gradients as hi + lo bf16, per-chunk da / dD), which one layer's
-    backward holds at a time.  Unnamed intermediates (norm and gate values) are not in
-    it."""
+    parameters, gradients and AdamW moments (16 B a parameter; ``n_params``,
+    the model's own count, else ``cfg.param_count()``), the bf16 casts of
+    the weights autograd keeps (2 B), the logits with their gradient (bf16)
+    and one fp32 block of the loss, and the activations: the planner's named
+    classes for a decoder, where a MoE holds its dense dispatch instead of
+    the planner's top-k ``moe_hidden`` (per layer g, u and the hidden
+    (B, S, E, F) and the experts' outputs (B, S, E, D), bf16; the planner's
+    figure is printed beside it); for an encoder-decoder, whose layers all
+    run in recompute regions, each layer's input and the largest layer's
+    working set (the encoder's: q, k, v, the output and the norms' outputs
+    (B, F, D), the MLP's pre-activation and hidden (B, F, d_ff), bf16, and the
+    LSE (B, F, H) fp32).  For SSM layers also K4's backward scratch (chunk
+    states and state gradients as hi + lo bf16, per-chunk da / dD), which one
+    layer's backward holds at a time.  Unnamed intermediates (norm and gate
+    values) are not in it."""
     from repro_torch.configs.base import ShapeCell
     from repro_torch.plan import H100, layer_costs
 
-    n = cfg.param_count()
-    tokens = TRAIN_BATCH * TRAIN_SEQ
-    acts = sum(sum(lc.act_bytes.values()) for lc in layer_costs(
-        cfg, ShapeCell("train_cfg", TRAIN_SEQ, TRAIN_BATCH, "train"), n_data_shards=1,
-        n_model_shards=1, hw=H100))
+    n = cfg.param_count() if n_params is None else n_params
+    tokens = batch * seq
     logits = 2 * 2 * tokens * cfg.padded_vocab + 2 * 4 * 1024 * cfg.padded_vocab
-    out = {"state_bytes": 16 * n, "weight_casts_bytes": 2 * n, "named_activations_bytes": acts,
-           "logits_bytes": logits}
+    out = {"state_bytes": 16 * n, "weight_casts_bytes": 2 * n}
+    if cfg.encoder_layers:
+        frames = batch * cfg.n_frames
+        d = cfg.d_model
+        out["region_inputs_bytes"] = 2 * d * (cfg.encoder_layers * frames
+                                              + cfg.n_layers * tokens + frames)
+        out["layer_working_set_bytes"] = 2 * frames * (6 * d + 2 * cfg.d_ff) \
+            + 4 * frames * cfg.n_heads
+    else:
+        costs = layer_costs(cfg, ShapeCell("train_cfg", seq, batch, "train"),
+                            n_data_shards=1, n_model_shards=1, hw=H100)
+        acts = sum(sum(lc.act_bytes.values()) for lc in costs)
+        planner_moe = sum(lc.act_bytes.get("moe_hidden", 0) for lc in costs)
+        if cfg.n_experts:
+            out["moe_dense_dispatch_bytes"] = \
+                cfg.n_layers * 2 * tokens * cfg.n_experts * (3 * cfg.d_ff + cfg.d_model)
+            acts -= planner_moe
+        out["named_activations_bytes"] = acts
+    out["logits_bytes"] = logits
     if "ssm" in cfg.kinds:
         import torch
 
         out["ssd_bwd_scratch_bytes"] = ssd_bwd_scratch_bytes(
-            torch.bfloat16, TRAIN_BATCH, TRAIN_SEQ, cfg.n_ssm_heads, cfg.ssm_head_dim,
-            cfg.ssm_state)
+            torch.bfloat16, batch, seq, cfg.n_ssm_heads, cfg.ssm_head_dim, cfg.ssm_state)
     out["total_bytes"] = sum(out.values())
+    if cfg.n_experts:
+        out["planner_moe_hidden_bytes"] = planner_moe
     return out
 
 
@@ -3703,19 +3827,51 @@ def grads_of(tr, batch):
     return float(loss.detach()), {k: p.grad for k, p in tr.model.named_parameters()}
 
 
-def grad_errors(got: dict, want_host: dict) -> dict:
-    """Per parameter, max |diff| / max |want| (want on the host)."""
+def grad_errors(cfg, got: dict, want_host: dict) -> dict:
+    """Per parameter, max |diff| / max |want| (want on the host); without
+    RoPE a key bias (``.bk``) against the max |want| of its block's ``wk``:
+    its exact gradient is zero (a bias on every key moves a row's scores by
+    one constant), so its own max is rounding."""
     out = {}
     for k, g in got.items():
         w = want_host[k].to(g.device, non_blocking=True)
-        out[k] = float((g - w).abs().max() / w.abs().max().clamp_min(1e-30))
+        scale = want_host[k[:-2] + "wk"] if k.endswith(".bk") and not cfg.rope_theta else w
+        out[k] = float((g - w).abs().max() / scale.abs().max().clamp_min(1e-30))
     return out
 
 
-def train_step1_gate(tr, device) -> dict:
+def float32_trainer(tr, device):
+    """``tr``'s arch in float32 at full width: fp32 masters from ``tr``'s
+    seed (the values ``tr`` starts from), its plan and its batches; what
+    ``train_step1_gate`` and ``grads_of`` read."""
+    import dataclasses
+    import types
+
+    import torch
+
+    from repro_torch.models import arch_init_params
+
+    cfg = dataclasses.replace(tr.cfg, dtype="float32")
+    gen = torch.Generator(device=device).manual_seed(tr.data.state.seed)
+    return types.SimpleNamespace(cfg=cfg, model=arch_init_params(cfg, gen, device=device,
+                                                                 master=True),
+                                 scan_group=tr.scan_group, policy=tr.policy,
+                                 batch_at=tr.batch_at)
+
+
+def train_step1_gate(tr, device, loss_limit: float = TRAIN_LOSS_LIMIT,
+                     grad_limit: float = TRAIN_GRAD_LIMIT, gated: bool = True) -> dict:
     """Step 1's loss and gradients on the kernels against the same step on
     the plain versions, and the plain versions against themselves in another
-    summation order (the yardstick)."""
+    summation order (the yardstick); each reading held to its fixed limit
+    (``loss_limit``, ``grad_limit``) or twice the yardstick's, whichever is
+    larger.  ``gated`` False: the readings are printed and hold nothing
+    (``STEP1_FLOAT32_ARCHS``).  A MoE runs every step on the plain
+    run's expert choice (``pinned_routing``): one unit of rounding can swap a
+    token's k-th and (k+1)-th expert, and the random model's loss and
+    gradients then move by more than rounding; ``routing`` gives the swaps
+    each run would have made on its own upstream and, on its own expert
+    choice (unpinned, not gated), the kernels' step's readings."""
     import torch
 
     from repro_torch.runtime.train import batch_to
@@ -3723,53 +3879,73 @@ def train_step1_gate(tr, device) -> dict:
     batch = batch_to(tr.batch_at(0), device)
     wrappers = train_wrappers()
     before = {k: w.launches for k, w in wrappers.items() if k != "schedule_dp"}
+    moe = bool(tr.cfg.n_experts)
+    routes: list = []
+
+    def routing(mode):
+        return pinned_routing(routes, mode) if moe else contextlib.nullcontext([])
+
     t0 = time.perf_counter()
-    with plain_training():
+    with plain_training(), routing("record"):
         plain_loss, g = grads_of(tr, batch)
         plain = {k: v.to("cpu") for k, v in g.items()}
     plain_s = time.perf_counter() - t0
-    with plain_training(yardstick=True):
+    with plain_training(yardstick=True), routing("pin") as yard_swaps:
         yard_loss, g = grads_of(tr, batch)
-        yard = grad_errors(g, plain)
+        yard = grad_errors(tr.cfg, g, plain)
     if {k: w.launches for k, w in wrappers.items() if k != "schedule_dp"} != before:
         raise AssertionError("the plain-version training step launched a kernel")
     t0 = time.perf_counter()
-    kern_loss, g = grads_of(tr, batch)
+    with routing("pin") as kern_swaps:
+        kern_loss, g = grads_of(tr, batch)
     kern_s = time.perf_counter() - t0
     finite = all(bool(torch.isfinite(v).all()) for v in g.values())
-    kern = grad_errors(g, plain)
+    kern = grad_errors(tr.cfg, g, plain)
+    route_out = None
+    if moe:
+        with routing("free") as free_swaps:
+            free_loss, g = grads_of(tr, batch)
+            free = grad_errors(tr.cfg, g, plain)
+        route_out = {"pinned": True, "router_calls": len(routes),
+                     "routings": sum(r[..., 0].numel() for r in routes),
+                     "pinned_kernels_swaps": sum(kern_swaps),
+                     "pinned_yardstick_swaps": sum(yard_swaps),
+                     "unpinned_kernels_swaps": sum(free_swaps),
+                     "unpinned_loss_rel_err": abs(free_loss - plain_loss) / abs(plain_loss),
+                     "unpinned_grad_rel_err_max": max(free.values())}
     for p in tr.model.parameters():
         p.grad = None
     del g, plain
     loss_err = abs(kern_loss - plain_loss) / abs(plain_loss)
     yard_loss_err = abs(yard_loss - plain_loss) / abs(plain_loss)
     grad_err, yard_grad_err = max(kern.values()), max(yard.values())
-    fixed = loss_err <= TRAIN_LOSS_LIMIT and grad_err <= TRAIN_GRAD_LIMIT
+    fixed = loss_err <= loss_limit and grad_err <= grad_limit
     by_yardstick = loss_err <= YARDSTICK_FACTOR * max(yard_loss_err, 1e-7) and \
         grad_err <= YARDSTICK_FACTOR * yard_grad_err
     # each reading against its own limit: the fixed one, or twice the
     # yardstick's reading of the same quantity where that is larger
-    loss_limit = max(TRAIN_LOSS_LIMIT, YARDSTICK_FACTOR * yard_loss_err)
-    grad_limit = max(TRAIN_GRAD_LIMIT, YARDSTICK_FACTOR * yard_grad_err)
+    held_loss = max(loss_limit, YARDSTICK_FACTOR * yard_loss_err)
+    held_grad = max(grad_limit, YARDSTICK_FACTOR * yard_grad_err)
     worst = sorted(kern.items(), key=lambda kv: -kv[1])[:5]
     yard_worst = sorted(yard.items(), key=lambda kv: -kv[1])[:5]
-    if not (finite and math.isfinite(kern_loss) and loss_err <= loss_limit
-            and grad_err <= grad_limit):
+    if gated and not (finite and math.isfinite(kern_loss) and loss_err <= held_loss
+                      and grad_err <= held_grad):
         raise AssertionError(
-            f"train step 1 differs from the plain versions: loss {loss_err:.3g} (limit "
-            f"{TRAIN_LOSS_LIMIT}, yardstick {yard_loss_err:.3g}), gradients {grad_err:.3g} "
-            f"(limit {TRAIN_GRAD_LIMIT}, yardstick {yard_grad_err:.3g}), finite={finite}; "
-            f"worst {worst}, yardstick's worst {yard_worst}")
-    return {"loss_kernels": kern_loss, "loss_plain": plain_loss, "loss_yardstick": yard_loss,
+            f"{tr.cfg.arch_id} ({tr.cfg.dtype}) step 1 differs from the plain versions: loss "
+            f"{loss_err:.3g} (limit {loss_limit}, yardstick {yard_loss_err:.3g}), gradients "
+            f"{grad_err:.3g} (limit {grad_limit}, yardstick {yard_grad_err:.3g}), "
+            f"finite={finite}; worst {worst}, yardstick's worst {yard_worst}")
+    return {"gated": gated, "dtype": tr.cfg.dtype,
+            "loss_kernels": kern_loss, "loss_plain": plain_loss, "loss_yardstick": yard_loss,
             "loss_rel_err": loss_err, "grad_rel_err_max": grad_err,
             "yardstick_loss_rel_err": yard_loss_err, "yardstick_grad_rel_err_max": yard_grad_err,
             "within_fixed_limits": fixed, "within_yardstick": by_yardstick,
-            "limits": {"loss": TRAIN_LOSS_LIMIT, "grad": TRAIN_GRAD_LIMIT,
+            "limits": {"loss": loss_limit, "grad": grad_limit,
                        "yardstick_factor": YARDSTICK_FACTOR},
-            "loss_limit": loss_limit, "grad_limit": grad_limit,
+            "loss_limit": held_loss, "grad_limit": held_grad,
             "worst_grads": worst, "yardstick_worst_grads": yard_worst,
             "plain_step_s": plain_s, "kernel_step_s": kern_s,
-            "grad_tensors": len(kern)}
+            "grad_tensors": len(kern), "routing": route_out}
 
 
 def recovery_drill(device, arch: str = TRAIN_ARCH) -> dict:
@@ -3811,33 +3987,106 @@ def recovery_drill(device, arch: str = TRAIN_ARCH) -> dict:
             "losses_bit_identical": True, "params_bit_identical": True}
 
 
-def train_model_flops(cfg) -> int:
-    """Model FLOPs of one training step: 6 N per token, plus the mixing the
-    parameter count leaves out, x3 for the backward: attention's scores (4 D
-    per visible pair) and the SSD's chunked form (``ssd_operations`` at the
-    kernel's chunk, C B^T once per group)."""
+def _numel(defs: dict) -> int:
+    return sum(math.prod(d.shape) for d in defs.values())
+
+
+def encdec_param_split(cfg) -> dict:
+    """An encoder-decoder's parameters by the rows they multiply, from the
+    port's definitions: ``frames`` (the encoder's layers and final norm, and
+    each decoder layer's cross-attention keys and values, which project the
+    encoder states) and ``tokens`` (the rest: the decoder's layers and final
+    norm, the tied embedding and the learned positions)."""
+    from repro_torch.models import blocks
+    from repro_torch.models.attention import attn_defs
+    from repro_torch.models.decoder import norm_defs
+    from repro_torch.models.encdec import MAX_DEC_POSITIONS
+
+    attn, mlp, norm = _numel(attn_defs(cfg)), _numel(blocks.mlp_defs(cfg)), \
+        _numel(norm_defs(cfg, "ln"))
+    kv = _numel({k: d for k, d in attn_defs(cfg).items() if k in ("wk", "wv", "bk", "bv")})
+    frames = cfg.encoder_layers * (attn + mlp + 2 * norm) + norm + cfg.n_layers * kv
+    tokens = cfg.n_layers * (2 * attn - kv + mlp + 3 * norm) + norm \
+        + (cfg.padded_vocab + MAX_DEC_POSITIONS) * cfg.d_model
+    return {"frames": frames, "tokens": tokens}
+
+
+def train_model_flops(cfg, batch: int = TRAIN_BATCH, seq: int = TRAIN_SEQ) -> int:
+    """Model FLOPs of one training step of ``batch`` x ``seq`` tokens: 6 per
+    parameter per row that multiplies it (the embedding tables counted, as
+    6 N counts them), plus the mixing the parameters leave out, x3 for the
+    backward: attention's scores (4 D per visible pair, every attention
+    layer, global or sliding-window) and the SSD's chunked form
+    (``ssd_operations`` at the kernel's chunk, C B^T once per group).  A MoE
+    counts its active parameters (``cfg.active_param_count()``: the
+    non-expert ones and ``top_k / n_experts`` of the experts'); its dense
+    dispatch runs every expert on every token, ``n_experts / top_k`` times
+    the expert FLOPs credited here (4x for granite-moe-1b-a400m).  An
+    encoder-decoder counts its encoder (and the cross-attention keys and
+    values) over the ``n_frames`` frames of each row and the rest over the
+    decoder tokens (``encdec_param_split``), and the scores of the encoder
+    (frames x frames), the decoder (causal) and the cross-attention (tokens x
+    frames)."""
     from repro_torch.kernels.ssd import CHUNK
 
-    tokens = TRAIN_BATCH * TRAIN_SEQ
-    attn_pairs = flash_pairs(TRAIN_SEQ, TRAIN_SEQ, True, cfg.attn_window, 0) * TRAIN_BATCH
-    attn = 4 * cfg.resolved_head_dim * attn_pairs * cfg.n_heads * cfg.kinds.count("attn_local") \
-        if "attn_local" in cfg.kinds else 0
+    tokens = batch * seq
+    per_pair = 4 * cfg.resolved_head_dim * cfg.n_heads * batch
+    if cfg.encoder_layers:
+        f = cfg.n_frames
+        split = encdec_param_split(cfg)
+        params = split["frames"] * batch * f + split["tokens"] * tokens
+        attn = per_pair * (cfg.encoder_layers * flash_pairs(f, f, False, None, 0)
+                           + cfg.n_layers * (flash_pairs(seq, seq, True, None, 0)
+                                             + flash_pairs(seq, f, False, None, 0)))
+        return 6 * params + 3 * attn
+    attn = per_pair * sum(flash_pairs(seq, seq, True, cfg.attn_window if kind == "attn_local"
+                                      else None, 0)
+                          for kind in cfg.kinds if kind in ("attn", "attn_local"))
     ssd_ops = 0
     if "ssm" in cfg.kinds:
-        cb, rest = ssd_operations(TRAIN_SEQ, cfg.ssm_head_dim, cfg.ssm_state, CHUNK)
-        ssd_ops = TRAIN_BATCH * (cfg.ssm_groups * cb + cfg.n_ssm_heads * rest) \
+        cb, rest = ssd_operations(seq, cfg.ssm_head_dim, cfg.ssm_state, CHUNK)
+        ssd_ops = batch * (cfg.ssm_groups * cb + cfg.n_ssm_heads * rest) \
             * cfg.kinds.count("ssm")
-    return 6 * cfg.param_count() * tokens + 3 * (attn + ssd_ops)
+    return 6 * cfg.active_param_count() * tokens + 3 * (attn + ssd_ops)
 
 
-def phase_train(device, arch: str = TRAIN_ARCH, phase: str = "train") -> dict:
+def moe_block_ms(cfg, model, device, batch: int, seq: int) -> float:
+    """One MoE block's forward and backward (router, dense dispatch, the
+    weights' casts) at the training shape on the first layer's weights,
+    median of 5 event-timed calls; the gradients it leaves are dropped."""
+    import torch
+
+    from repro_torch.models import blocks
+    from repro_torch.models.decoder import working_dtype
+
+    mlp = model.layers[0].mlp
+    gen = torch.Generator(device=device).manual_seed(21)
+    dt = working_dtype(cfg)
+    x = randn(gen, (batch, seq, cfg.d_model), device, dt).requires_grad_()
+    dy = randn(gen, (batch, seq, cfg.d_model), device, dt)
+
+    def step():
+        blocks.moe(cfg, mlp, x).backward(dy)
+
+    ms = cuda_median_ms(step, reps=5, warmup=1)
+    for p in model.parameters():
+        p.grad = None
+    return ms
+
+
+def phase_train(device, arch: str = TRAIN_ARCH, phase: str = "train",
+                batch: int = TRAIN_BATCH, seq: int = TRAIN_SEQ) -> dict:
     """``arch`` trained at its published width and depth through
-    ``launch/train.py``'s path under the planner's residency plan: the
-    step-1 gate against the plain versions, TRAIN_STEPS steps with every
-    training kernel's count set to 0 just before and read just after, one
-    profiled step, and the recovery drill at the smoke size; printed as
-    ``phase``.  In the main process (``train``) it is the last profiled
-    phase, and probes what later windows keep."""
+    ``launch/train.py``'s path under the planner's residency plan, at
+    ``batch`` x ``seq`` tokens (the decoder's, for an encoder-decoder, whose
+    batches also carry their frames): the step-1 gate against the plain
+    versions, TRAIN_STEPS steps with every training kernel's count set to 0
+    just before and read just after, one profiled step (for a MoE also its
+    block's share of the step), and the recovery drill at the smoke size;
+    printed as ``phase``.  An arch of ``STEP1_FLOAT32_ARCHS`` has its step 1
+    gated in float32, and its bf16 reading printed ungated.  In the main
+    process (``train``) it is the last profiled phase, and probes what later
+    windows keep."""
     import gc
 
     import torch
@@ -3845,14 +4094,21 @@ def phase_train(device, arch: str = TRAIN_ARCH, phase: str = "train") -> dict:
     from repro_torch.launch.train import build_trainer, parse_args, train_main
 
     argv = ["--arch", arch, "--device", device.type, "--steps", str(TRAIN_STEPS),
-            "--batch", str(TRAIN_BATCH), "--seq", str(TRAIN_SEQ), "--log-every", "1",
+            "--batch", str(batch), "--seq", str(seq), "--log-every", "1",
             "--ckpt-every", "1000000", "--ckpt-dir", str(ROOT / "build" / f"train_ckpt_{arch}")]
     t0 = time.perf_counter()
     tr = build_trainer(parse_args(argv))
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
     cfg, plan = tr.cfg, tr.plan
-    gate = train_step1_gate(tr, device)
+    gate = train_step1_gate(tr, device, gated=arch not in STEP1_FLOAT32_ARCHS)
+    gate32 = None
+    if arch in STEP1_FLOAT32_ARCHS:
+        tr32 = float32_trainer(tr, device)
+        gate32 = train_step1_gate(tr32, device, FLOAT32_TRAIN_LOSS_LIMIT,
+                                  FLOAT32_TRAIN_GRAD_LIMIT)
+        del tr32
+        torch.cuda.empty_cache()
 
     wrappers = train_wrappers()
     for w in wrappers.values():
@@ -3885,41 +4141,67 @@ def phase_train(device, arch: str = TRAIN_ARCH, phase: str = "train") -> dict:
                 lambda: sdp.seq_cumsum(probe), "seq_cumsum", reps=20, acc_events=acc)}
             for acc in (True, False, True)]}
         del probe
-    tokens = TRAIN_BATCH * TRAIN_SEQ
+    tokens = batch * seq
     steady = statistics.median(step_s[1:]) if len(step_s) > 1 else step_s[0]
-    model_flops = train_model_flops(cfg)
+    model_flops = train_model_flops(cfg, batch, seq)
     offloaded = tr.policy.offloaded_bytes if tr.policy is not None else 0
-    reckoned = train_memory_reckoning(cfg, plan)
+    n_params = sum(p.numel() for p in tr.model.parameters())
+    reckoned = train_memory_reckoning(cfg, plan, batch, seq, n_params)
+    extra = {}
+    if cfg.n_experts:
+        block_ms = moe_block_ms(cfg, tr.model, device, batch, seq)
+        extra["moe"] = {
+            "block_fwd_bwd_ms": block_ms, "layers": cfg.n_layers,
+            "share_of_step": cfg.n_layers * block_ms / (steady * 1e3),
+            "share_of_profiled_busy": cfg.n_layers * block_ms / profile["device_busy_ms"]
+            if profile.get("device_busy_ms") else None,
+            "dense_over_active_expert_flops": cfg.n_experts / cfg.top_k}
+    if cfg.encoder_layers:
+        extra["frames_per_s"] = batch * cfg.n_frames / steady
+        extra["frames"] = cfg.n_frames
+        extra["encoder_layers"] = cfg.encoder_layers
     del tr, state
     gc.collect()
     torch.cuda.empty_cache()
     drill = recovery_drill(device, arch)
     out = {"arch": arch, "layers": cfg.n_layers, "d_model": cfg.d_model,
-           "vocab": cfg.vocab_size, "params": cfg.param_count(), "dtype": cfg.dtype,
-           "masters": "float32", "batch": TRAIN_BATCH, "seq": TRAIN_SEQ, "steps": TRAIN_STEPS,
-           "optimizer": "adamw", "init_s": init_s,
+           "vocab": cfg.vocab_size, "params": cfg.param_count(), "model_params": n_params,
+           "dtype": cfg.dtype, "masters": "float32", "batch": batch, "seq": seq,
+           "steps": TRAIN_STEPS, "optimizer": "adamw", "init_s": init_s,
            "plan": {"planner": plan.planner, "scan_group": plan.scan_group,
                     "save": list(plan.save_names), "offload": list(plan.offload_names),
                     "remat": sorted(set(_act_classes(cfg)) - set(plan.save_names)
                                     - set(plan.offload_names)),
+                    # the reference hands an encoder-decoder no plan: every
+                    # layer runs in a recompute region whatever it says
+                    "applied": not cfg.encoder_layers,
                     "est_step_time_ms": plan.est_step_time * 1e3,
                     "hbm_budget_bytes": plan.hbm_budget, "hardware": "h100-sxm"},
            "step_s": step_s, "step_ms_steady": steady * 1e3,
-           "tokens_per_s": tokens / steady, "losses": losses,
+           "tokens_per_s": tokens / steady, **extra, "losses": losses,
            "model_flops_per_step": model_flops,
            "mfu_vs_989_tflops": model_flops / steady / PEAK_FLOPS["bfloat16"],
            "max_memory_allocated_bytes": peak, "memory_reckoned": reckoned,
            "offloaded_bytes": offloaded, "launches": launches,
            "launches_per_step": per_step, "expected_launches_per_step": want,
-           "step1_gate": gate, "step1_loss_reproduced_in_training": gate["loss_kernels"] ==
+           "step1_gate": gate, "step1_float32_gate": gate32,
+           "step1_loss_reproduced_in_training": gate["loss_kernels"] ==
            losses[0], "device_profile_one_step": profile,
            "profiler_records_after_profile": records_after,
            "recovery": drill}
     say(phase, **out,
         note="step_s: wall per step, synchronised by the loss read (the first includes "
-             "set-up); step_ms_steady: median of the later steps; model_flops: 6 N tokens "
-             "plus the attention scores (4 D per visible pair) or the SSD's chunked form, "
-             "x3 for the backward; "
+             "set-up); step_ms_steady: median of the later steps; tokens_per_s: the "
+             "decoder's tokens (an encoder-decoder also frames_per_s); model_flops "
+             "(train_model_flops): 6 per parameter per row that multiplies it (a MoE's "
+             "active parameters; an encoder-decoder's encoder over its frames) plus the "
+             "attention scores (4 D per visible pair) or the SSD's chunked form, x3 for "
+             "the backward; memory_reckoned: train_memory_reckoning (a MoE's dense "
+             "dispatch in place of the planner's top-k moe_hidden); moe: one MoE block's "
+             "forward and backward at the training shape, event-timed, x layers against "
+             "the steady step and the profiled step's busy time; step1_gate: "
+             "train_step1_gate (gated false where step1_float32_gate, the same step "
+             "in float32, is the gate: STEP1_FLOAT32_ARCHS); "
              "device_profile_one_step: torch.profiler (acc_events) over one more step; "
              "profiler_records_after_profile (train only): seq_cumsum records a profiled "
              "window of 20 launches kept in each of three windows right after it (with "
@@ -4053,6 +4335,10 @@ def main() -> int:
     # profiled window
     ssm = timed("train_ssm child", phase_train_ssm)
     phase_s.update(ssm.pop("phase_seconds"))
+    moe_train = timed("train_moe child", phase_train_moe)
+    phase_s.update(moe_train.pop("phase_seconds"))
+    encdec_train = timed("train_encdec child", phase_train_encdec)
+    phase_s.update(encdec_train.pop("phase_seconds"))
     slice_out = timed("slice_serves", phase_slice_serves)
     phase_s.update(slice_out["phase_seconds"])
     slice_launches, slice_times = slice_out["launches"], slice_out["timings"]
@@ -4063,8 +4349,12 @@ def main() -> int:
                                 "crash_resume": crash_launches,
                                 "solve_service": service_launches,
                                 "train": {"schedule_dp": train["launches"]["schedule_dp"]},
-                                "train_ssm": {"schedule_dp": ssm["launches"]["schedule_dp"]}})
+                                "train_ssm": {"schedule_dp": ssm["launches"]["schedule_dp"]},
+                                "train_moe": {"schedule_dp": moe_train["launches"]["schedule_dp"]},
+                                "train_encdec": {
+                                    "schedule_dp": encdec_train["launches"]["schedule_dp"]}})
     tl, sl = train["launches"], ssm["launches"]
+    ml, el = moe_train["launches"], encdec_train["launches"]
     fb, rb, sb = mtime["flash_attention_bwd"], mtime["rglru_scan_bwd"], mtime["ssd_chunked_bwd"]
     fl, rg, sd = mtime["flash_attention"], mtime["rglru_scan"], mtime["ssd_chunked"]
     fq, fc = mtime["flash_attention_qwen2.5-14b"], mtime["flash_attention_codeqwen1.5-7b"]
@@ -4098,7 +4388,9 @@ def main() -> int:
                                     "model_serve " + ARCH: model_launches["flash_attention"],
                                     **{"model_serve " + arch: got["flash_attention"]
                                        for arch, got in slice_launches.items()},
-                                    "train": tl["flash_attention"]},
+                                    "train": tl["flash_attention"],
+                                    "train_moe": ml["flash_attention"],
+                                    "train_encdec": el["flash_attention"]},
                                 "library": fq["library"], "shape": fq["shape"],
                                 "dtype": "bfloat16", "device_ms": fq["device_ms"],
                                 "shape_" + ARCH: {k: fl[k] for k in (
@@ -4112,13 +4404,19 @@ def main() -> int:
             "flash_attention_bwd": {
                 "path": "train", "launches_per_step": train["launches_per_step"][
                     "flash_attention_bwd"],
-                "launches_by_path": {"train": tl["flash_attention_bwd"]},
+                "launches_by_path": {"train": tl["flash_attention_bwd"],
+                                     "train_moe": ml["flash_attention_bwd"],
+                                     "train_encdec": el["flash_attention_bwd"]},
                 "max_abs_err_f32": model_err["flash_attention_bwd_f32"],
                 "device_ms": fb["device_ms"], "library": fb["library"], "shape": fb["shape"],
                 "dtype": fb["dtype"], "operations": fb["operations"],
                 "kernel_operations": fb["kernel_operations"],
                 "achieved_tflops": fb["achieved_tflops"], "kernels": fb["kernels"],
-                "device_ms_by_kernel": fb["device_ms_by_kernel"]},
+                "device_ms_by_kernel": fb["device_ms_by_kernel"],
+                **{"shape_" + name: {k: mtime["flash_attention_bwd_" + name][k] for k in (
+                    "shape", "ms", "device_ms", "plain_ms", "bound_ms", "bound_by",
+                    "library_ms", "library", "achieved_tflops")}
+                   for name in (MOE_ARCH, ENCDEC_ARCH + " cross")}},
             "rglru_scan_bwd": {
                 "path": "train", "launches_per_step": train["launches_per_step"][
                     "rglru_scan_bwd"],
@@ -4187,6 +4485,7 @@ def main() -> int:
 
 
 CHILDREN = {"--slice-serves": slice_serves, "--train-ssm": train_ssm,
+            "--train-moe": train_moe, "--train-encdec": train_encdec,
             "--model-timing": phase_model_timing}
 
 

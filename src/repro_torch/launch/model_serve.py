@@ -34,7 +34,7 @@ from ..configs.registry import ARCH_IDS, get_config, get_smoke_config
 from ..models import arch_init_params
 from ..runtime import make_prefill_step, make_serve_step, next_token
 
-__all__ = ["ServeResult", "make_batch", "serve", "serve_main"]
+__all__ = ["ServeResult", "make_batch", "serve", "serve_main", "stub_frontends"]
 
 
 @dataclasses.dataclass
@@ -63,6 +63,17 @@ def make_batch(cfg: ModelConfig, batch: int, prompt_len: int, generator: torch.G
     dev = resolve_device(device)
     out = {"tokens": torch.randint(1, cfg.vocab_size, (batch, prompt_len), generator=generator,
                                    device=dev)}
+    return {**out, **stub_frontends(cfg, batch, generator, dev)}
+
+
+def stub_frontends(cfg: ModelConfig, batch: int, generator: torch.Generator,
+                   device: str | torch.device = "cuda") -> dict:
+    """The stub frontends' outputs, unit normals from ``generator`` (on
+    ``device``): ``frames (B, n_frames, E)`` for an encoder-decoder,
+    ``vis_embeds (B, n_vis_tokens, E)`` for a vision-language model, else
+    nothing."""
+    dev = resolve_device(device)
+    out = {}
     if cfg.encoder_layers:
         out["frames"] = torch.randn((batch, cfg.n_frames, cfg.d_model), generator=generator,
                                     device=dev)

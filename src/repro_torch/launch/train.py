@@ -16,6 +16,12 @@ anything.  The plan is made for one device (one data and one model shard)
 with the H100's constants (``plan.H100``); the tabu planner's exact
 evaluations run on ``--device`` (the schedule-DP kernel on the card), the
 greedy planner (the default) on the host.
+
+An encoder-decoder's or a vision-language model's batch also carries its
+stub frontend's output (``frames`` or ``vis_embeds``), unit normals drawn on
+``--device`` from (seed, step), so a replayed step sees the same inputs.
+The reference's launcher gives whisper no ``frames``; its tokens and labels
+are the reference's ``SyntheticLM`` batch, array for array.
 """
 from __future__ import annotations
 
@@ -23,6 +29,7 @@ import argparse
 import dataclasses
 import time
 
+import numpy as np
 import torch
 
 from .._device import resolve_device
@@ -32,6 +39,7 @@ from ..models import arch_init_params, init_params_
 from ..plan import H100, ResidencyPlan, plan_residency
 from ..runtime import SyntheticLM, TrainState, adafactor, adamw, make_train_step
 from ..runtime.elastic import FailureInjector, run_with_recovery
+from .model_serve import stub_frontends
 
 __all__ = ["Trainer", "build_trainer", "parse_args", "train_main", "training_bytes"]
 
@@ -77,7 +85,15 @@ class Trainer:
     reinit: object                  # () -> TrainState, the initial state again
 
     def batch_at(self, step: int) -> dict:
-        return self.data.batch_at(step)
+        """Step ``step``'s batch: the ``SyntheticLM`` tokens and labels, and
+        the stub frontends' inputs drawn from (seed, step) on the device."""
+        batch = self.data.batch_at(step)
+        if self.cfg.encoder_layers or self.cfg.n_vis_tokens:
+            seed = int(np.random.SeedSequence([self.data.state.seed, step, 0xF4])
+                       .generate_state(1)[0])
+            gen = torch.Generator(device=self.device).manual_seed(seed)
+            batch.update(stub_frontends(self.cfg, self.data.batch, gen, self.device))
+        return batch
 
 
 def build_trainer(args: argparse.Namespace) -> Trainer:

@@ -21,10 +21,10 @@ Training (:func:`forward` with gradients on a model of fp32 masters,
 (:mod:`.remat`): recompute regions per layer nested in regions per pattern
 period or scan group, as the reference's nested ``jax.checkpoint``, unless
 the plan keeps every class.  :func:`cross_entropy_loss` is the reference's
-(padded vocabulary masked, ``z_loss``).  Training runs every kind (rec,
-attn_local, ssm, attn) with RMSNorm and, where the layer has one, an
-unbiased GLU MLP; MoE, vision tokens, LayerNorm, biased or non-GLU MLPs (and
-the encoder-decoder) wait for their training slice.
+(padded vocabulary masked, ``z_loss``).  Training runs everything serving
+runs: every kind, RMSNorm or LayerNorm, the dense MLP in each form, the MoE
+(autograd through the reference's dense dispatch; the router's gradient
+reaches it through the top-k logits and their softmax) and vision tokens.
 """
 from __future__ import annotations
 
@@ -52,6 +52,7 @@ __all__ = [
     "init_cache",
     "cross_entropy_loss",
     "default_scan_group",
+    "kernel_calls",
     "kernel_forwards",
     "layer_replays",
 ]
@@ -71,10 +72,10 @@ def has_mlp(cfg: ModelConfig, kind: str) -> bool:
     return cfg.d_ff > 0 and kind != "ssm"
 
 
-def check_supported(cfg: ModelConfig, *, training: bool = False) -> None:
-    """Raise for what the port's models do not run yet (``training``: for
-    training, which also refuses what only serving runs: MoE, the
-    encoder-decoder, vision tokens, LayerNorm, biased or non-GLU MLPs)."""
+def check_supported(cfg: ModelConfig) -> None:
+    """Raise for what the port's models do not run, served or trained (which
+    arch fits one card for training is the launcher's question,
+    ``launch.train.training_bytes``)."""
     missing = [k for k in sorted(set(cfg.kinds)) if k not in KINDS]
     if missing:
         raise NotImplementedError(f"{cfg.arch_id}: layer kinds {missing} are not ported "
@@ -85,19 +86,6 @@ def check_supported(cfg: ModelConfig, *, training: bool = False) -> None:
         raise NotImplementedError(f"{cfg.arch_id}: not ported: norm {cfg.norm!r}")
     if cfg.dtype not in _DTYPES:
         raise NotImplementedError(f"{cfg.arch_id}: working type {cfg.dtype!r} not ported")
-    if not training:
-        return
-    serve_only = {
-        "encoder_layers": cfg.encoder_layers, "n_experts": cfg.n_experts,
-        "n_vis_tokens": cfg.n_vis_tokens, "mlp_bias": cfg.mlp_bias,
-        "non-GLU MLP": not cfg.glu, "layernorm": cfg.norm != "rmsnorm",
-    }
-    bad = [k for k, v in serve_only.items() if v]
-    if bad:
-        raise NotImplementedError(
-            f"{cfg.arch_id}: training is not ported for {', '.join(bad)} (served only; "
-            "training the MoE, encoder-decoder and vision archs is a later slice, "
-            "ROADMAP A9)")
 
 
 def norm_defs(cfg: ModelConfig, name: str) -> dict[str, ParamDef]:
@@ -152,7 +140,7 @@ class Decoder(DefModule):
 
     def __init__(self, cfg: ModelConfig, device: str | torch.device = "cuda",
                  master: bool = False):
-        check_supported(cfg, training=master)
+        check_supported(cfg)
         if cfg.encoder_layers:
             raise ValueError(f"{cfg.arch_id} is an encoder-decoder: build it with "
                              "models.encdec.EncDec (or models.arch_init_params)")
@@ -286,14 +274,30 @@ def layer_replays(cfg: ModelConfig, scan_group: int | None = None,
     return out
 
 
+def kernel_calls(cfg: ModelConfig) -> dict:
+    """Kernel calls of one forward, by output class: one per layer of the
+    kind, and for the encoder-decoder K2 in each encoder layer and twice in
+    each decoder layer (self- and cross-attention).  A training step's
+    backward runs each kernel's backward this often."""
+    if cfg.encoder_layers:
+        return {"attn_out": cfg.encoder_layers + 2 * cfg.n_layers, "rec_out": 0, "ssm_out": 0}
+    return {"attn_out": sum(k in _ATTN for k in cfg.kinds), "rec_out": cfg.kinds.count("rec"),
+            "ssm_out": cfg.kinds.count("ssm")}
+
+
 def kernel_forwards(cfg: ModelConfig, scan_group: int | None = None,
                     remat_policy=None) -> dict:
-    """Kernel outputs computed in one training step, by class: a layer's
-    kernel runs once, plus once per replay unless the plan holds its output
-    class (kept or offloaded)."""
+    """Kernel outputs computed in one training step, by class: each of
+    :func:`kernel_calls` once, plus once per replay unless the plan holds
+    its output class (kept or offloaded).  The encoder-decoder takes no plan
+    (the reference passes it none): each call runs once more in its layer's
+    replay unless ``cfg.remat`` is "none"."""
+    if cfg.encoder_layers:
+        calls = kernel_calls(cfg)
+        return {k: n * (1 if cfg.remat == "none" else 2) for k, n in calls.items()}
+    out = {"attn_out": 0, "rec_out": 0, "ssm_out": 0}
     plan = remat_policy if remat_policy is not None else remat.Residency()
     held = set(plan.save_names) | set(plan.offload_names)
-    out = {"attn_out": 0, "rec_out": 0, "ssm_out": 0}
     for kind, n in zip(cfg.kinds, layer_replays(cfg, scan_group, remat_policy)):
         name = {"attn": "attn_out", "attn_local": "attn_out", "rec": "rec_out",
                 "ssm": "ssm_out"}[kind]

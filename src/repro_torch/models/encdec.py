@@ -18,12 +18,19 @@ The decode cache is a list with one dict per decoder layer: {"k", "v"}
 (B, max_len, KVH, HD) and {"cross_k", "cross_v"} (B, n_frames, KVH, HD).
 The layers are two ``nn.ModuleList``s (``enc_layers``, ``dec_layers``);
 ``repro_torch.convert`` maps them to and from the reference's stacked trees.
-Training the encoder-decoder is a later slice: :class:`EncDec` refuses
-``master=True``.
+
+Training (``EncDec(cfg, master=True)``: fp32 masters cast at use) runs each
+encoder and decoder layer in a non-reentrant recompute region unless
+``cfg.remat`` is "none", as the reference wraps its layer body in
+``jax.checkpoint``.  The reference hands the encoder-decoder no residency
+plan, so a region holds only its inputs and K2 runs again in its replay.
 """
 from __future__ import annotations
 
+import functools
+
 import torch
+import torch.utils.checkpoint as torch_checkpoint
 from torch import nn
 
 from .._device import resolve_device
@@ -52,33 +59,35 @@ MAX_DEC_POSITIONS = 32_768
 class EncLayer(DefModule):
     """ln1 -> bidirectional self-attention -> residual, ln2 -> mlp -> residual."""
 
-    def __init__(self, cfg: ModelConfig, dtype, device):
-        super().__init__({**norm_defs(cfg, "ln1"), **norm_defs(cfg, "ln2")}, dtype, device)
-        self.attn = DefModule(attn_defs(cfg), dtype, device)
-        self.mlp = DefModule(blocks.mlp_defs(cfg), dtype, device)
+    def __init__(self, cfg: ModelConfig, dtype, device, master: bool = False):
+        super().__init__({**norm_defs(cfg, "ln1"), **norm_defs(cfg, "ln2")}, dtype, device,
+                         master)
+        self.attn = DefModule(attn_defs(cfg), dtype, device, master)
+        self.mlp = DefModule(blocks.mlp_defs(cfg), dtype, device, master)
 
 
 class DecLayer(DefModule):
     """ln1 -> causal self-attention, ln_x -> cross-attention over the encoder
     states, ln2 -> mlp; each with its residual."""
 
-    def __init__(self, cfg: ModelConfig, dtype, device):
+    def __init__(self, cfg: ModelConfig, dtype, device, master: bool = False):
         super().__init__({**norm_defs(cfg, "ln1"), **norm_defs(cfg, "ln_x"),
-                          **norm_defs(cfg, "ln2")}, dtype, device)
-        self.self_attn = DefModule(attn_defs(cfg), dtype, device)
-        self.cross_attn = DefModule(attn_defs(cfg), dtype, device)
-        self.mlp = DefModule(blocks.mlp_defs(cfg), dtype, device)
+                          **norm_defs(cfg, "ln2")}, dtype, device, master)
+        self.self_attn = DefModule(attn_defs(cfg), dtype, device, master)
+        self.cross_attn = DefModule(attn_defs(cfg), dtype, device, master)
+        self.mlp = DefModule(blocks.mlp_defs(cfg), dtype, device, master)
 
 
 class EncDec(DefModule):
     """Token embedding (tied output projection), learned decoder positions
     (``MAX_DEC_POSITIONS`` rows), the encoder and decoder stacks, and each
-    stack's final LayerNorm.  Serving only: parameters in the working type,
-    norms fp32."""
+    stack's final LayerNorm.  Serving: parameters in the working type, norms
+    fp32; ``master=True``: fp32 masters that require gradients, cast to the
+    working type at use (training)."""
 
     def __init__(self, cfg: ModelConfig, device: str | torch.device = "cuda",
                  master: bool = False):
-        check_supported(cfg, training=master)
+        check_supported(cfg)
         if not cfg.encoder_layers:
             raise ValueError(f"{cfg.arch_id} has no encoder: build it with "
                              "models.decoder.Decoder")
@@ -88,36 +97,78 @@ class EncDec(DefModule):
         super().__init__({"tok_emb": ParamDef((cfg.padded_vocab, d), scale=1.0),
                           "pos_emb": ParamDef((MAX_DEC_POSITIONS, d), scale=0.02),
                           **norm_defs(cfg, "ln_enc_f"), **norm_defs(cfg, "ln_dec_f")},
-                         dtype, device)
+                         dtype, device, master)
         self.cfg = cfg
-        self.enc_layers = nn.ModuleList(EncLayer(cfg, dtype, device)
+        self.enc_layers = nn.ModuleList(EncLayer(cfg, dtype, device, master)
                                         for _ in range(cfg.encoder_layers))
-        self.dec_layers = nn.ModuleList(DecLayer(cfg, dtype, device)
+        self.dec_layers = nn.ModuleList(DecLayer(cfg, dtype, device, master)
                                         for _ in range(cfg.n_layers))
 
     def forward(self, tokens: torch.Tensor, frames: torch.Tensor) -> torch.Tensor:
         return encdec_forward(self.cfg, self, tokens, frames)
 
 
+def _regions(cfg: ModelConfig, model: EncDec) -> bool:
+    """Whether the layers run in recompute regions: a training forward
+    (gradients on, fp32 masters) unless ``cfg.remat`` is "none"."""
+    return (cfg.remat != "none" and torch.is_grad_enabled()
+            and model.master("tok_emb").requires_grad)
+
+
+def _run(regions: bool, fn, *args) -> torch.Tensor:
+    """``fn(*args)``, in a non-reentrant recompute region if ``regions``."""
+    if not regions:
+        return fn(*args)
+    return torch_checkpoint.checkpoint(fn, *args, use_reentrant=False,
+                                       preserve_rng_state=False)
+
+
+def _enc_layer(cfg: ModelConfig, layer: EncLayer, positions, x: torch.Tensor) -> torch.Tensor:
+    h = apply_norm(cfg, layer, "ln1", x)
+    x = x + attention(cfg, layer.attn, h, positions=positions, causal=False, rope=False)
+    return tag(x + blocks.mlp(cfg, layer.mlp, apply_norm(cfg, layer, "ln2", x)), "enc_resid")
+
+
 def encdec_encode(cfg: ModelConfig, model: EncDec, frames: torch.Tensor) -> torch.Tensor:
     """frames (B, F, E), the stub frontend's output -> encoder states (B, F, E)."""
     x = frames.to(working_dtype(cfg))
     positions = torch.arange(x.shape[1], device=x.device)
+    regions = _regions(cfg, model)
     for layer in model.enc_layers:
-        h = apply_norm(cfg, layer, "ln1", x)
-        x = x + attention(cfg, layer.attn, h, positions=positions, causal=False, rope=False)
-        x = tag(x + blocks.mlp(cfg, layer.mlp, apply_norm(cfg, layer, "ln2", x)), "enc_resid")
+        x = _run(regions, functools.partial(_enc_layer, cfg, layer, positions), x)
     return apply_norm(cfg, model, "ln_enc_f", x)
 
 
 def _embed(cfg: ModelConfig, model: EncDec, tokens: torch.Tensor, pos0: int) -> torch.Tensor:
     """Token embeddings plus the learned positions ``pos0 ..``."""
     s = tokens.shape[1]
-    if pos0 + s > model.pos_emb.shape[0]:
+    n_pos = model.master("pos_emb").shape[0]
+    if pos0 + s > n_pos:
         raise ValueError(f"positions up to {pos0 + s} are past the decoder's "
-                         f"{model.pos_emb.shape[0]} learned positions")
-    x = model.tok_emb[tokens].to(working_dtype(cfg))
-    return x + model.pos_emb[pos0:pos0 + s].to(x.dtype)[None]
+                         f"{n_pos} learned positions")
+    # gathered from the stored tables, then cast (a training model scatters
+    # the gradient into its fp32 masters), as decoder._embed
+    x = model.master("tok_emb")[tokens].to(working_dtype(cfg))
+    return x + model.master("pos_emb")[pos0:pos0 + s].to(x.dtype)[None]
+
+
+def _dec_layer(cfg: ModelConfig, layer: DecLayer, positions, enc_positions,
+               x: torch.Tensor, enc: torch.Tensor, entries: list | None = None,
+               max_len: int | None = None) -> torch.Tensor:
+    """One decoder layer; with ``max_len`` it appends its cache entry to
+    ``entries``."""
+    out, (k, v) = attention(cfg, layer.self_attn, apply_norm(cfg, layer, "ln1", x),
+                            positions=positions, causal=True, rope=False, return_kv=True)
+    x = x + out
+    out, (ck, cv) = attention(cfg, layer.cross_attn, apply_norm(cfg, layer, "ln_x", x),
+                              positions=enc_positions, causal=False, rope=False,
+                              kv_x=enc, return_kv=True)
+    x = x + out
+    x = tag(x + blocks.mlp(cfg, layer.mlp, apply_norm(cfg, layer, "ln2", x)), "dec_resid")
+    if max_len is not None:
+        entries.append({"k": _pad_cache(k, max_len), "v": _pad_cache(v, max_len),
+                        "cross_k": ck, "cross_v": cv})
+    return x
 
 
 def _decoder(cfg: ModelConfig, model: EncDec, x: torch.Tensor, enc: torch.Tensor,
@@ -128,18 +179,10 @@ def _decoder(cfg: ModelConfig, model: EncDec, x: torch.Tensor, enc: torch.Tensor
     positions = torch.arange(x.shape[1], device=x.device)
     enc_positions = torch.arange(enc.shape[1], device=x.device)
     entries = []
+    regions = max_len is None and _regions(cfg, model)
     for layer in model.dec_layers:
-        out, (k, v) = attention(cfg, layer.self_attn, apply_norm(cfg, layer, "ln1", x),
-                                positions=positions, causal=True, rope=False, return_kv=True)
-        x = x + out
-        out, (ck, cv) = attention(cfg, layer.cross_attn, apply_norm(cfg, layer, "ln_x", x),
-                                  positions=enc_positions, causal=False, rope=False,
-                                  kv_x=enc, return_kv=True)
-        x = x + out
-        x = tag(x + blocks.mlp(cfg, layer.mlp, apply_norm(cfg, layer, "ln2", x)), "dec_resid")
-        if max_len is not None:
-            entries.append({"k": _pad_cache(k, max_len), "v": _pad_cache(v, max_len),
-                            "cross_k": ck, "cross_v": cv})
+        x = _run(regions, functools.partial(_dec_layer, cfg, layer, positions, enc_positions,
+                                            entries=entries, max_len=max_len), x, enc)
     return x, entries
 
 

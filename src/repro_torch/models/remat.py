@@ -47,7 +47,11 @@ HELD_CLASSES = ("attn_out", "rec_out", "ssm_out")
 
 
 def classes_of(cfg) -> set:
-    """The activation classes a decoder of ``cfg`` produces."""
+    """The activation classes a model of ``cfg`` produces: a decoder's, or an
+    encoder-decoder's (its layers' carries ``enc_resid`` / ``dec_resid``,
+    attention's and the dense MLP's)."""
+    if cfg.encoder_layers:
+        return {"enc_resid", "dec_resid", "attn_q", "attn_kv", "attn_out", "mlp_hidden"}
     out = {"resid_mid", "resid_out"}
     for kind in set(cfg.kinds):
         if kind in ("attn", "attn_local"):

@@ -28,9 +28,15 @@ class TrainState:
 
 
 def batch_to(batch: dict, device) -> dict:
-    """A batch of arrays (NumPy or torch) as int64 tensors on ``device``."""
-    return {k: torch.as_tensor(np.asarray(v) if not torch.is_tensor(v) else v,
-                               device=device).long() for k, v in batch.items()}
+    """A batch of arrays (NumPy or torch) as tensors on ``device``: integer
+    entries (``tokens``, ``labels``) as int64, floating ones (the stub
+    frontends' ``frames`` / ``vis_embeds``) in their own type, which the
+    model casts to its working type."""
+    out = {}
+    for k, v in batch.items():
+        t = torch.as_tensor(np.asarray(v) if not torch.is_tensor(v) else v, device=device)
+        out[k] = t if t.is_floating_point() else t.long()
+    return out
 
 
 def make_train_step(

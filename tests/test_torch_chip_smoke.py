@@ -1439,3 +1439,256 @@ def test_hold_pinned_is_yardstick_factor_times_the_tpu_order_reading(smoke, kern
     else:
         with pytest.raises(AssertionError, match="routing pinned"):
             smoke.hold_pinned("granite", "bf16", readings)
+
+
+@pytest.mark.parametrize("flag, what, phase", [
+    ("--train-moe", "MoE training", "phase_train_moe"),
+    ("--train-encdec", "encoder-decoder training", "phase_train_encdec")])
+def test_the_training_children_fail_without_a_gpu_and_the_phase_raises(smoke, flag, what,
+                                                                       phase):
+    """granite-moe-1b-a400m's and whisper-medium's training run in child
+    processes of their own (``CHILDREN``); without a card each refuses, prints
+    no result, and the parent's phase raises on its exit code."""
+    assert smoke.CHILDREN[flag] is getattr(smoke, flag[2:].replace("-", "_"))
+    out = subprocess.run([sys.executable, str(ROOT / "chip_smoke.py"), flag],
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode != 0 and out.stdout == "" and "GPU" in out.stderr
+    with pytest.raises(AssertionError, match=f"the {what} failed"):
+        getattr(smoke, phase)()
+
+
+def test_flash_bwd_shapes_take_granite_and_whisper_training(smoke):
+    """K2 bwd is held at granite's causal GQA 16:8 at 4096 and at whisper's
+    three d-64 shapes at batch 16 (encoder 1500 x 1500 and cross-attention
+    448 x 1500 non-causal, decoder 448 causal), each in both input types."""
+    shapes = set(smoke.FLASH_BWD_SHAPES)
+    assert {(1, 4096, 4096, 16, 8, 64, True, None, 0),
+            (16, 448, 1500, 16, 16, 64, False, None, 0),
+            (16, 1500, 1500, 16, 16, 64, False, None, 0),
+            (16, 448, 448, 16, 16, 64, True, None, 0)} <= shapes
+    assert smoke.FLASH_TRAIN in shapes and len(shapes) == len(smoke.FLASH_BWD_SHAPES)
+
+
+def test_model_flops_of_granite_count_its_active_parameters_and_global_scores(smoke):
+    """granite-moe-1b-a400m: 1.385 B parameters of which 0.48 B are active
+    (the non-expert 0.177 B and 8 of 32 experts' 1.208 B); its 24 global
+    causal layers' scores, 4 D a visible pair a head, count too."""
+    from repro_torch.configs import get_config
+
+    cfg = get_config("granite-moe-1b-a400m")
+    experts = 24 * 32 * 3 * 1024 * 512
+    active = cfg.param_count() - experts + experts // 4
+    assert active == cfg.active_param_count() and 0.479e9 < active < 0.480e9
+    pairs = 4096 * 4097 // 2
+    scores = 4 * 64 * 16 * pairs * 24
+    assert smoke.train_model_flops(cfg) == 6 * active * 4096 + 3 * scores
+    # the dense dispatch runs 4x the expert FLOPs credited
+    assert cfg.n_experts // cfg.top_k == 4
+
+
+def test_model_flops_of_whisper_take_its_encoder_over_frames(smoke):
+    """whisper-medium at 16 x 448: the encoder's 24 layers (4 d^2 + 4 d
+    attention, 2 d d_ff + d_ff + d MLP, two LayerNorms: 12.6 M each) and each
+    decoder layer's cross-attention keys and values (2 d^2 + 2 d) over 16 x
+    1500 frames; the rest (decoder layers, final norms, the tied embedding
+    and the 32,768 learned positions) over 16 x 448 tokens; scores of the
+    encoder (1500^2), the causal decoder and the cross-attention (448 x
+    1500)."""
+    import math
+
+    from repro_torch.configs import get_config
+
+    cfg = get_config("whisper-medium")
+    d, f = 1024, 4096
+    attn, mlp, norm = 4 * d * d + 4 * d, 2 * d * f + f + d, 2 * d
+    kv = 2 * d * d + 2 * d
+    frames_p = 24 * (attn + mlp + 2 * norm) + norm + 24 * kv
+    tokens_p = 24 * (2 * attn - kv + mlp + 3 * norm) + norm + (51968 + 32768) * d
+    assert smoke.encdec_param_split(cfg) == {"frames": frames_p, "tokens": tokens_p}
+    assert 0.792e9 < frames_p + tokens_p < 0.793e9
+    per_pair = 4 * 64 * 16 * 16
+    scores = per_pair * (24 * 1500 * 1500 + 24 * (448 * 449 // 2 + 448 * 1500))
+    want = 6 * (frames_p * 16 * 1500 + tokens_p * 16 * 448) + 3 * scores
+    assert smoke.train_model_flops(cfg, 16, 448) == want
+    assert math.isclose(want, 8.395e13, rel_tol=1e-3)                 # 84 TFLOP a step
+
+
+def test_encdec_param_split_is_the_models_own_count(smoke):
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models import EncDec
+
+    cfg = get_smoke_config("whisper-medium")
+    split = smoke.encdec_param_split(cfg)
+    model = EncDec(cfg, device="cpu")
+    assert split["frames"] + split["tokens"] == sum(p.numel() for p in model.parameters())
+    enc = sum(p.numel() for p in model.enc_layers.parameters()) + 2 * cfg.d_model
+    cross_kv = sum(p.numel() for layer in model.dec_layers
+                   for n, p in layer.cross_attn.named_parameters() if n in ("wk", "wv", "bk",
+                                                                           "bv"))
+    assert split["frames"] == enc + cross_kv
+
+
+def test_expected_train_launches_of_whisper(smoke):
+    """whisper-medium: every one of its 24 encoder and 24 decoder layers in a
+    recompute region whatever the plan (the reference hands the
+    encoder-decoder none): K2 144 a step (72 calls, each again in its
+    layer's replay), K2 bwd 72."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.remat import Residency, classes_of
+
+    cfg = get_config("whisper-medium")
+    want = {"flash_attention": 144, "flash_attention_bwd": 72, "rglru_scan": 0,
+            "rglru_scan_bwd": 0, "ssd_chunked": 0, "ssd_chunked_bwd": 0}
+    assert smoke.expected_train_launches(cfg, 2, Residency(tuple(classes_of(cfg)))) == want
+    assert smoke.expected_train_launches(cfg, 2, None) == want
+
+
+def test_expected_train_launches_of_granite(smoke):
+    """granite-moe-1b-a400m: the H100 plan keeps every class (no region), so
+    K2 and K2 bwd run 24 times a step; recomputing, each layer replays
+    once (scan group 1) unless attn_out is held."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.remat import Residency, classes_of
+
+    cfg = get_config("granite-moe-1b-a400m")
+    got = smoke.expected_train_launches(cfg, 1, Residency(tuple(classes_of(cfg))))
+    assert got["flash_attention"] == 24 and got["flash_attention_bwd"] == 24
+    assert smoke.expected_train_launches(cfg, 1, None)["flash_attention"] == 48
+    assert smoke.expected_train_launches(cfg, 1, Residency(("attn_out",)))[
+        "flash_attention"] == 24
+
+
+def test_train_memory_reckoning_of_granite_holds_the_dense_dispatch(smoke):
+    """Per layer g, u and the hidden (1, 4096, 32, 512) bf16 at 134 MB each
+    and the experts' outputs (1, 4096, 32, 1024) at 268 MB: 0.67 GB a layer,
+    16.1 GB over 24, where the planner's top-k moe_hidden is 0.8 GB."""
+    from repro_torch.configs import get_config
+
+    cfg = get_config("granite-moe-1b-a400m")
+    r = smoke.train_memory_reckoning(cfg, None)
+    per_layer = 3 * 4096 * 32 * 512 * 2 + 4096 * 32 * 1024 * 2
+    assert per_layer == 671_088_640 and r["moe_dense_dispatch_bytes"] == 24 * per_layer
+    assert r["planner_moe_hidden_bytes"] == 24 * 4096 * 512 * 8 * 2
+    assert r["state_bytes"] == 16 * cfg.param_count()
+    assert r["total_bytes"] == sum(v for k, v in r.items()
+                                   if k not in ("total_bytes", "planner_moe_hidden_bytes"))
+    assert 40e9 < r["total_bytes"] < 45e9
+
+
+def test_train_memory_reckoning_of_whisper(smoke):
+    """The model's own 0.79 B parameters' state, each layer's input held by
+    its region, and the encoder layer's working set at 16 x 1500 frames."""
+    from repro_torch.configs import get_config
+
+    cfg = get_config("whisper-medium")
+    n = 789_000_000
+    r = smoke.train_memory_reckoning(cfg, None, 16, 448, n)
+    assert r["state_bytes"] == 16 * n and "named_activations_bytes" not in r
+    assert r["region_inputs_bytes"] == 2 * 1024 * (24 * 16 * 1500 + 24 * 16 * 448 + 16 * 1500)
+    assert r["layer_working_set_bytes"] == 2 * 24000 * (6 * 1024 + 2 * 4096) + 4 * 24000 * 16
+    assert r["logits_bytes"] == 4 * 16 * 448 * 51968 + 8 * 1024 * 51968
+
+
+def _rehearse(smoke, monkeypatch, arch, batch, seq):
+    """``phase_train`` of ``arch`` rehearsed on the CPU at the smoke size (the
+    plain versions on both sides of the gate, so it reads 0; no launch is
+    counted off the card, and no profiler)."""
+    from repro_torch.launch import train as launch_train
+    from repro_torch.configs import get_smoke_config
+
+    monkeypatch.setattr(launch_train, "get_config", get_smoke_config)
+    monkeypatch.setattr(smoke, "TRAIN_STEPS", 2)
+    monkeypatch.setattr(smoke, "RECOVERY_STEPS", 4)
+    monkeypatch.setattr(smoke, "RECOVERY_FAIL_AT", (3,))
+    monkeypatch.setattr(smoke, "expected_train_launches",
+                        lambda cfg, g, policy: dict.fromkeys(
+                            ("flash_attention", "flash_attention_bwd", "rglru_scan",
+                             "rglru_scan_bwd", "ssd_chunked", "ssd_chunked_bwd"), 0))
+    monkeypatch.setattr(smoke, "device_breakdown",
+                        lambda fn, top=0: fn() and {} or {"device_busy_ms": 10.0})
+    monkeypatch.setattr(smoke, "cuda_median_ms", lambda fn, reps, warmup: fn() or 1.0)
+    for name in ("synchronize", "reset_peak_memory_stats", "empty_cache"):
+        monkeypatch.setattr(torch.cuda, name, lambda *a, **k: None)
+    monkeypatch.setattr(torch.cuda, "max_memory_allocated", lambda *a, **k: 0)
+    return smoke.timed_train(torch.device("cpu"), arch, "rehearsal", batch, seq)
+
+
+def test_moe_train_phase_on_the_cpu(smoke, monkeypatch, capsys):
+    """granite's phase at the smoke size: the gate on the plain run's expert
+    choice (no swap on the CPU, where both sides are the plain versions),
+    the unpinned run counted, the MoE block timed, the drill."""
+    import json
+
+    out = _rehearse(smoke, monkeypatch, "granite-moe-1b-a400m", 1, 96)
+    line = json.loads([ln for ln in capsys.readouterr().out.splitlines()
+                       if '"phase": "rehearsal"' in ln][-1])
+    routing = line["step1_gate"]["routing"]
+    assert routing["pinned"] and routing["router_calls"] == 4
+    assert routing["routings"] == 4 * 96
+    assert routing["pinned_kernels_swaps"] == routing["unpinned_kernels_swaps"] == 0
+    assert routing["unpinned_loss_rel_err"] == 0.0
+    assert line["step1_gate"]["loss_rel_err"] == 0.0 and line["step1_gate"]["gated"]
+    assert line["step1_float32_gate"] is None
+    assert line["moe"]["block_fwd_bwd_ms"] == 1.0 and line["moe"]["layers"] == 4
+    assert line["moe"]["dense_over_active_expert_flops"] == 2
+    assert "moe_dense_dispatch_bytes" in line["memory_reckoned"]
+    assert len(line["losses"]) == 2 and line["recovery"]["losses_bit_identical"]
+    assert out["phase_seconds"]["rehearsal"] > 0
+
+
+def test_encdec_train_phase_on_the_cpu(smoke, monkeypatch, capsys):
+    """whisper's phase at the smoke size: frames in every batch, frames/s,
+    the plan printed as not applied, the bf16 gate printed ungated and the
+    float32 gate (the same gate on a float32 copy), the drill."""
+    import json
+
+    _rehearse(smoke, monkeypatch, "whisper-medium", 2, 40)
+    line = json.loads([ln for ln in capsys.readouterr().out.splitlines()
+                       if '"phase": "rehearsal"' in ln][-1])
+    assert line["batch"] == 2 and line["seq"] == 40 and line["frames"] == 32
+    assert line["frames_per_s"] == pytest.approx(line["tokens_per_s"] * 32 / 40, rel=1e-12)
+    assert line["plan"]["applied"] is False and line["step1_gate"]["routing"] is None
+    assert line["step1_gate"]["loss_rel_err"] == 0.0 and len(line["losses"]) == 2
+    assert line["step1_gate"]["gated"] is False        # (the smoke config is float32 too)
+    assert line["model_params"] > line["params"]          # the learned positions and more
+    gate32 = line["step1_float32_gate"]
+    assert gate32["gated"] and gate32["dtype"] == "float32"
+    assert gate32["loss_rel_err"] == 0.0 and gate32["grad_rel_err_max"] == 0.0
+    assert gate32["within_fixed_limits"] and gate32["yardstick_loss_rel_err"] < 1e-5
+    assert gate32["limits"]["loss"] == smoke.FLOAT32_TRAIN_LOSS_LIMIT
+    assert line["recovery"]["params_bit_identical"]
+
+
+@pytest.mark.parametrize("rope", [None, 10000.0])
+def test_grad_errors_hold_a_key_bias_to_its_blocks_wk_without_rope(smoke, rope):
+    """Without RoPE a key bias's exact gradient is zero, so its reading is
+    its error over its block's max |wk grad|; with RoPE, over its own."""
+    import types
+
+    cfg = types.SimpleNamespace(rope_theta=rope)
+    want = {"a.wk": torch.tensor([4.0, -8.0]), "a.bk": torch.tensor([1e-6, -2e-6]),
+            "a.wq": torch.tensor([2.0, 1.0])}
+    got = {"a.wk": torch.tensor([4.0, -7.0]), "a.bk": torch.tensor([3e-6, -2e-6]),
+           "a.wq": torch.tensor([2.0, 1.5])}
+    errs = smoke.grad_errors(cfg, got, want)
+    assert errs["a.wk"] == pytest.approx(1 / 8) and errs["a.wq"] == pytest.approx(0.5 / 2)
+    assert errs["a.bk"] == pytest.approx(2e-6 / 8 if rope is None else 2e-6 / 2e-6)
+
+
+def test_step1_gate_prints_an_ungated_reading_and_raises_a_gated_one(smoke, monkeypatch):
+    """The same readings pass ungated and raise gated: a loss 10x its limit
+    with a yardstick of 0."""
+    import types
+
+    cfg = types.SimpleNamespace(n_experts=0, arch_id="x", dtype="float32", rope_theta=None)
+    losses = iter([1.0, 1.0, 1.1] * 2)
+    monkeypatch.setattr(smoke, "grads_of", lambda tr, batch: (next(losses),
+                                                              {"w": torch.ones(2)}))
+    monkeypatch.setattr(smoke, "train_wrappers", lambda: {})
+    tr = types.SimpleNamespace(cfg=cfg, model=torch.nn.Linear(1, 1),
+                               batch_at=lambda step: {"tokens": torch.zeros(1, 2)})
+    out = smoke.train_step1_gate(tr, torch.device("cpu"), 1e-2, 1e-3, gated=False)
+    assert out["gated"] is False and out["loss_rel_err"] == pytest.approx(0.1)
+    assert not out["within_fixed_limits"]
+    with pytest.raises(AssertionError, match=r"x \(float32\) step 1 differs"):
+        smoke.train_step1_gate(tr, torch.device("cpu"), 1e-2, 1e-3)

@@ -23,6 +23,7 @@ from repro.runtime import make_prefill_step as ref_make_prefill_step
 from repro_torch import convert
 from repro_torch.configs import get_config, get_smoke_config
 from repro_torch.launch.model_serve import serve, serve_main
+from repro_torch.launch.train import training_bytes
 from repro_torch.models.decoder import check_supported
 from repro_torch.models import (Decoder, arch_cache_defs, arch_decode_step, arch_forward,
                                 arch_init_cache, arch_init_params)
@@ -76,21 +77,21 @@ def test_config_matches_reference_field_by_field():
                                   "internvl2-26b", "llama3-405b", "no-such-arch"])
 def test_other_archs_raise_a_clear_key_error(arch):
     """An unknown arch raises a ``KeyError``.  Every other config is the
-    reference's; the MoE, encoder-decoder and vision archs are served (their
-    config passes ``check_supported``) and their training is refused by
-    name, as a later slice (llama3-405b's kinds train; its size is what
-    keeps it off one card)."""
+    reference's and both serves and trains (its config and its smoke config
+    pass ``check_supported``, which holds both); the size of the fp32
+    training state, ``training_bytes``, is what keeps all but
+    granite-moe-1b-a400m and whisper-medium off one 80 GB card."""
     if arch == "no-such-arch":
         with pytest.raises(KeyError, match="unknown arch"):
             get_config(arch)
         return
-    assert dataclasses.asdict(get_config(arch)) == dataclasses.asdict(ref_get_config(arch))
-    check_supported(get_config(arch))
-    if arch == "llama3-405b":
-        check_supported(get_smoke_config(arch), training=True)
-        return
-    with pytest.raises(NotImplementedError, match="training is not ported.*later slice"):
-        check_supported(get_config(arch), training=True)
+    cfg = get_config(arch)
+    assert dataclasses.asdict(cfg) == dataclasses.asdict(ref_get_config(arch))
+    check_supported(cfg)
+    check_supported(get_smoke_config(arch))
+    assert training_bytes(cfg, "adamw") == 16 * cfg.param_count()
+    fits = arch in ("granite-moe-1b-a400m", "whisper-medium")
+    assert (training_bytes(cfg, "adamw") < 80e9) == fits
 
 
 def test_params_round_trip_through_the_reference_layout(pair):

@@ -208,7 +208,7 @@ def test_serving_takes_the_no_grad_path_and_counts_nothing():
 def test_mamba2_train_step_matches_the_reference_in_float32(seq, dt_bias):
     ref_cfg, cfg = ref_get_smoke_config(ARCH), get_smoke_config(ARCH)
     assert cfg.dtype == "float32" and dataclasses.asdict(cfg) == dataclasses.asdict(ref_cfg)
-    check_supported(cfg, training=True)
+    check_supported(cfg)
     params = ref_arch_init_params(ref_cfg, jax.random.PRNGKey(0))
     if dt_bias is not None:
         params["layers"]["ssm"]["dt_bias"] = jnp.full_like(params["layers"]["ssm"]["dt_bias"],

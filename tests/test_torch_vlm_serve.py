@@ -34,6 +34,7 @@ from repro.runtime import make_prefill_step as ref_make_prefill_step
 from repro_torch import convert
 from repro_torch.configs import PORTED_ARCH_IDS, get_config, get_smoke_config
 from repro_torch.launch.model_serve import make_batch, serve, serve_main
+from repro_torch.launch.train import training_bytes
 from repro_torch.models import Decoder, arch_decode_step, arch_forward, arch_init_params
 from repro_torch.models.common import layer_norm
 from repro_torch.models.decoder import Layer, check_supported
@@ -91,13 +92,16 @@ def test_config_matches_reference_and_serves_but_does_not_train():
     assert dataclasses.asdict(get_config(VLM)) == dataclasses.asdict(ref_get_config(VLM))
     assert dataclasses.asdict(get_smoke_config(VLM)) == dataclasses.asdict(
         ref_get_smoke_config(VLM))
+    # (the name is older than vision-token training: one check_supported
+    # holds serving and training, and the arch and the LayerNorm / biased /
+    # non-GLU variant now train, tests/test_torch_moe_train.py;
+    # internvl2-26b's fp32 state does not fit one 80 GB card, which the
+    # launcher says from training_bytes)
     check_supported(get_config(VLM))
-    with pytest.raises(NotImplementedError, match="n_vis_tokens.*later slice"):
-        check_supported(get_config(VLM), training=True)
+    cfg = get_config(VLM)
+    assert training_bytes(cfg, "adamw") == 16 * cfg.param_count() > 300e9
     variant = _variant(get_smoke_config("qwen2.5-14b"))
     check_supported(variant)
-    with pytest.raises(NotImplementedError, match="mlp_bias, non-GLU MLP, layernorm"):
-        check_supported(variant, training=True)
 
 
 def test_decoder_holds_the_reference_tree_at_full_width():

@@ -178,3 +178,48 @@ def init_readings(ref_cfg, cfg, params, batch: dict, seed: int = 2) -> tuple[flo
     moved = port(one_unit_apart(tree, seed))
     return (float(np.abs(got - want).max() / np.abs(want).max()),
             float(np.abs(moved - got).max() / np.abs(got).max()))
+
+
+def ref_loss_and_grads(ref_cfg, params, batch: dict):
+    """``jax.value_and_grad`` of the reference's ``arch_forward`` +
+    ``cross_entropy_loss`` at ``params`` on a NumPy ``batch``."""
+    import jax
+
+    from repro.models import arch_forward as ref_forward
+    from repro.models import cross_entropy_loss as ref_loss
+
+    def loss_fn(p):
+        return ref_loss(ref_cfg, ref_forward(ref_cfg, p, jb), jb["labels"])
+
+    jb = {k: jnp.asarray(v) for k, v in batch.items()}
+    return jax.value_and_grad(loss_fn)(params)
+
+
+def port_loss_and_grads(cfg, model, batch: dict):
+    """The port's loss (a float) and gradients (the reference's tree layout,
+    NumPy) of ``model`` on a NumPy ``batch``, through ``runtime.batch_to``."""
+    from repro_torch.models import arch_forward, cross_entropy_loss
+    from repro_torch.runtime.train import batch_to
+
+    tb = batch_to(batch, "cpu")
+    for p in model.parameters():
+        p.grad = None
+    loss = cross_entropy_loss(cfg, arch_forward(cfg, model, tb), tb["labels"])
+    loss.backward()
+    grads = convert.model_params_to_arrays(cfg, {k: p.grad for k, p in model.named_parameters()})
+    return float(loss.detach()), grads
+
+
+def grad_leaf_errors(got_tree, want_tree) -> dict:
+    """Per leaf of the reference's tree, max |got - want| / max |want|."""
+    import jax
+
+    got = dict(jax.tree_util.tree_leaves_with_path(got_tree))
+    want = jax.tree_util.tree_leaves_with_path(want_tree)
+    assert len(got) == len(want)
+    out = {}
+    for path, w in want:
+        w = np.asarray(w, np.float64)
+        out[jax.tree_util.keystr(path)] = float(
+            np.max(np.abs(got[path] - w)) / (np.max(np.abs(w)) + 1e-30))
+    return out
