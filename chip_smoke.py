@@ -11,6 +11,9 @@ every kernel against its plain PyTorch version on the card:
   through the schedule-DP kernel (K1), and ``solve(inst, "tabu_device")``,
   the device-resident search, whose round is captured as a CUDA graph that
   launches K1 and the sequential prefix-sum kernel (``seq_cumsum``);
+* the analysis CLI (``python -m repro_torch.analysis``): ``selftest``,
+  ``lint`` over the port, and ``certify`` of the smoke suite through the
+  torch backend (K1) and the device backend (K1, ``seq_cumsum``) on the card;
 * the scheduling-solve service: ``repro_torch.serve.SolveService`` at the
   reference's full serving profile (36 requests of three families, 70-80
   tasks, 4 walks, 20 iterations, Poisson arrivals at 4/s), its batches
@@ -80,8 +83,9 @@ Phases, one JSON line each:
                  and 32, N 32 and 64, G = H, 1 < G < H, T = 1), with h0,
                  d_skip and a nonzero dh_last and without, two bf16 calls at
                  the training shape bit-identical
-  main_path      the solve on the card, against the port's NumPy backend,
-                 certified, with the host time of each phase of the search round
+  main_path      the solve on the card (15 iterations), against the port's
+                 NumPy backend, certified, with the host time of each phase of
+                 the search round
   device_path    ``tabu_device`` at the same configuration: without Algorithm 3
                  (cold, then three warm runs paired in alternating order with
                  NumPy runs) bit-identical to the NumPy ``tabu_multiwalk``
@@ -91,6 +95,13 @@ Phases, one JSON line each:
                  the profiler sees in replays held to the captured round's
                  nodes; then seq_cumsum against its plain version (bit for
                  bit), timed beside its bound and its chain of dependent adds
+  analysis_cli   python -m repro_torch.analysis in this process: selftest
+                 catches its RPR101 / RPR102 and schedule injections, lint
+                 finds nothing in the port, certify --suite smoke
+                 --max-iters 4 passes all 7 instances on numpy, on torch and
+                 on device (cuda), the torch rows' makespans, histories and
+                 exact evaluations equal to numpy's, K1 (and on device
+                 seq_cumsum, captured and replayed) launches counted
   crash_resume   the device path's solve (Algorithm 3 at syncs, a sync every 8
                  rounds): uncrashed with a checkpoint at each sync, lost at a
                  middle sync by a seeded device_lost, saved, loaded, resumed;
@@ -479,6 +490,11 @@ class HostTimers:
         return out
 
 
+# the main path's iterations: 15 (30 before the analysis_cli phase was
+# added; each of its two solves took ~62 s of the script's limit at 30)
+MAIN_PATH_ITERS = 15
+
+
 def phase_main_path():
     """The solve through the default backend, against the NumPy backend."""
     from repro_torch import solve
@@ -486,7 +502,7 @@ def phase_main_path():
     from repro_torch.core import TSParams, random_instance
     from repro_torch.kernels import schedule_dp as sdp
 
-    n_tasks, n_data, walks, iters = 250, 600, 8, 30
+    n_tasks, n_data, walks, iters = 250, 600, 8, MAIN_PATH_ITERS
     inst = random_instance(0, n_tasks=n_tasks, n_data=n_data)
     params = TSParams(top_k=10, max_unimproved=10**9, time_limit=10**9, max_iters=iters)
     kw = dict(walks=walks, params=params, seed=0)
@@ -989,6 +1005,116 @@ def phase_seq_cumsum(device, rows: int) -> dict:
              "torch_cumsum_on_card_max_abs_err: how far the card's torch.cumsum lands "
              "from the sequential sums")
     return out
+
+
+# --------------------------------------------------------------------------- #
+# the analysis CLI                                                            #
+# --------------------------------------------------------------------------- #
+# ``certify``'s budget: the reference's CLI test (``--max-iters 4``)
+ANALYSIS_ITERS = 4
+
+
+def run_analysis_cli(argv: list) -> tuple[int, dict]:
+    """``python -m repro_torch.analysis <argv> --json`` in this process:
+    its exit code and its JSON report."""
+    import io
+
+    from repro_torch.analysis import cli
+
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        rc = cli.main([*argv, "--json"])
+    return rc, json.loads(out.getvalue())
+
+
+def check_certified(got: dict, want_rows: int, backend: str) -> None:
+    if got["n_failed"] or len(got["rows"]) != want_rows or \
+            not all(r["certificate"]["ok"] for r in got["rows"]):
+        raise AssertionError(f"certify --backend {backend}: {got['n_failed']} of "
+                             f"{len(got['rows'])} certificates failed")
+
+
+def check_cli_launches(launches: dict) -> None:
+    """certify's torch backend launched K1, and its device backend captured
+    K1 and ``seq_cumsum`` into its round and replayed them."""
+    d = launches["device"]
+    if launches["torch"]["schedule_dp"] <= 0 or min(
+            d["schedule_dp"], d["schedule_dp_captured"], d["seq_cumsum"],
+            d["seq_cumsum_captured"]) <= 0:
+        raise AssertionError(f"certify did not run through K1 / seq_cumsum: {launches}")
+
+
+def phase_analysis_cli(torch_device: str = "cuda") -> dict:
+    """The analysis CLI as a user runs it: ``selftest`` catches both
+    injections, ``lint`` finds nothing in the port, and ``certify`` passes
+    every instance of the smoke suite through the torch backend (K1) and
+    the device backend (the captured round: K1 and ``seq_cumsum``) on the
+    card; the torch rows' trajectories are the NumPy backend's, bit for
+    bit.  The counts are set to 0 just before each certify run and read
+    just after."""
+    import torch
+
+    from repro_torch.instances.suites import get_suite
+    from repro_torch.kernels import schedule_dp as sdp
+
+    t0 = time.perf_counter()
+    rc, st = run_analysis_cli(["selftest"])
+    if rc or not st["certify_detected"] or not {"RPR101", "RPR102"} <= set(st["lint_rules"]):
+        raise AssertionError(f"selftest missed an injection: {st}")
+    seconds = {"selftest": time.perf_counter() - t0}
+    t0 = time.perf_counter()
+    rc, lint = run_analysis_cli(["lint"])
+    if rc or lint["findings"]:
+        raise AssertionError(f"lint found {len(lint['findings'])} finding(s) in the port")
+    seconds["lint"] = time.perf_counter() - t0
+    n_inst = len(get_suite("smoke").items)
+    certify = ["certify", "--suite", "smoke", "--max-iters", str(ANALYSIS_ITERS)]
+    t0 = time.perf_counter()
+    rc, ref = run_analysis_cli([*certify, "--backend", "numpy"])
+    check_certified(ref, n_inst, "numpy")
+    seconds["certify numpy"] = time.perf_counter() - t0
+    launches, rows = {}, {}
+    for backend in ("torch", "device"):
+        sdp.sweep.launches = sdp.sweep.captured = 0
+        sdp.seq_cumsum.launches = sdp.seq_cumsum.captured = 0
+        t0 = time.perf_counter()
+        rc, got = run_analysis_cli([*certify, "--backend", backend,
+                                    "--torch-device", torch_device])
+        if torch_device != "cpu":
+            torch.cuda.synchronize()
+        seconds["certify " + backend] = time.perf_counter() - t0
+        launches[backend] = {"schedule_dp": sdp.sweep.launches,
+                             "schedule_dp_captured": sdp.sweep.captured,
+                             "seq_cumsum": sdp.seq_cumsum.launches,
+                             "seq_cumsum_captured": sdp.seq_cumsum.captured}
+        check_certified(got, n_inst, backend)
+        rows[backend] = got["rows"]
+    check_cli_launches(launches)
+
+    def trajectory(r):
+        return r["makespan"], r["history"], r["n_exact_evals"]
+
+    if [trajectory(r) for r in rows["torch"]] != [trajectory(r) for r in ref["rows"]]:
+        raise AssertionError("certify --backend torch and --backend numpy trajectories differ")
+    say("analysis_cli", torch_device=torch_device, selftest=st,
+        lint={"n_files": lint["n_files"], "findings": 0, "suppressed": len(lint["suppressed"]),
+              "suppressed_by_rule": dict(collections.Counter(
+                  f["rule"] for f in lint["suppressed"]))},
+        certify={"suite": "smoke", "max_iters": ANALYSIS_ITERS, "instances": n_inst,
+                 "certified": {"numpy": n_inst, "torch": n_inst, "device": n_inst},
+                 "torch_matches_numpy": True,
+                 "makespans": {b: [r["makespan"] for r in rs]
+                               for b, rs in (("numpy", ref["rows"]), *rows.items())}},
+        launches=launches, seconds=seconds,
+        note="python -m repro_torch.analysis {selftest, lint, certify} run in this process "
+             "(cli.main); certify: the smoke suite, tabu_multiwalk with 2 walks on "
+             "--backend numpy and torch, tabu_device on --backend device; launches: "
+             "sdp.sweep / sdp.seq_cumsum counts set to 0 before each certify run and read "
+             "after it (launches include the replays, captured the graphs' nodes); "
+             "torch_matches_numpy: makespan, history and exact evaluations per instance")
+    d = launches["device"]
+    return {"torch": {"schedule_dp": launches["torch"]["schedule_dp"]},
+            "device": {"schedule_dp": d["schedule_dp"], "seq_cumsum": d["seq_cumsum"]}}
 
 
 # --------------------------------------------------------------------------- #
@@ -4316,6 +4442,7 @@ def main() -> int:
     device_launches, device_ctx = timed("device_path", phase_device_path, device, main_wall)
     crash_launches = timed("crash_resume", phase_crash_resume, device, device_ctx)
     cum = timed("seq_cumsum", phase_seq_cumsum, device, 80)
+    cli_launches = timed("analysis_cli", phase_analysis_cli)
     model_launches = timed("model_serve " + ARCH, phase_model_serve, device, ARCH,
                            check_fixed_limit)
     mamba_launches = timed("model_serve " + MAMBA_ARCH, phase_model_serve, device, MAMBA_ARCH,
@@ -4348,6 +4475,8 @@ def main() -> int:
                                 "device_path": device_launches,
                                 "crash_resume": crash_launches,
                                 "solve_service": service_launches,
+                                "analysis_cli torch": cli_launches["torch"],
+                                "analysis_cli device": cli_launches["device"],
                                 "train": {"schedule_dp": train["launches"]["schedule_dp"]},
                                 "train_ssm": {"schedule_dp": ssm["launches"]["schedule_dp"]},
                                 "train_moe": {"schedule_dp": moe_train["launches"]["schedule_dp"]},

@@ -295,7 +295,10 @@ def _true_first(mask):
     of ``~mask`` gives, from integer prefix counts (exact in any order) and
     one scatter to distinct positions."""
     m = mask.long()
+    # lint: allow[RPR103] DESIGN §9: a prefix count of 0/1 integers is exact
+    # in any summation order; only float sums need the sequential scan
     pos_t = torch.cumsum(m, dim=1) - 1
+    # lint: allow[RPR103] DESIGN §9: the same exact integer prefix count
     pos_f = m.sum(dim=1, keepdim=True) + torch.cumsum(1 - m, dim=1) - 1
     dest = torch.where(mask, pos_t, pos_f)
     src = torch.arange(mask.shape[1], device=mask.device).expand_as(dest)
@@ -843,8 +846,8 @@ class _Launch:
             done = done | (found & (examined >= K)) | (pos >= n_adm)
             avail = torch.clamp(max_evals - n_exact, min=0)
             want = torch.where(participates & ~done, torch.clamp(n_adm - pos, max=K), 0)
-            # an exclusive prefix over small nonnegative integers is exact in
-            # any order
+            # lint: allow[RPR103] DESIGN §9: an exclusive prefix over small
+            # nonnegative integers is exact in any order
             before = torch.cumsum(want, dim=0) - want
             size = torch.minimum(torch.clamp(torch.minimum(want, avail - before), min=0), want)
             return done | (want > 0) & (size <= 0), size
@@ -1026,6 +1029,8 @@ def _get_launch(batch: InstanceBatch, w_count: int, params: TSParams, crit_cap: 
     cap = _csr_cap(batch)
     key = _launch_key(batch, w_count, params, crit_cap, chunk_cap, cfg, dev, cap)
     with _LAUNCH_LOCK:
+        # lint: allow[RPR104] DESIGN §11: `owner` decides which run holds a
+        # launch, not what the launch computes; every owner's is alike
         launch, fresh = _LAUNCHES.get(key), False
         if launch is None:
             launch, fresh = _Launch(batch, w_count, params, crit_cap, chunk_cap, cfg, dev,

@@ -525,6 +525,8 @@ def seq_cumsum_torch(v):
     prefix sums.  On the CPU ``torch.cumsum`` adds left to right in the
     working type, as ``np.cumsum`` does (the tests hold them bit for bit)."""
     zero = torch.zeros((v.shape[0], 1), dtype=v.dtype, device=v.device)
+    # lint: allow[RPR103] DESIGN §9: the plain version, taken for a CPU tensor
+    # only (it adds left to right there); a CUDA tensor takes the kernel
     return torch.cat([zero, torch.cumsum(v, dim=1)], dim=1)
 
 

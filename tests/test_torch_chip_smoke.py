@@ -1022,6 +1022,45 @@ def test_launches_by_path_adds_the_service(smoke):
                   "seq_cumsum": {"device_path": 236, "solve_service": 1280}}
 
 
+def test_analysis_cli_launch_gate(smoke):
+    """The phase fails unless certify's torch backend launched K1 and its
+    device backend captured and replayed K1 and seq_cumsum."""
+    good = {"torch": {"schedule_dp": 40},
+            "device": {"schedule_dp": 90, "schedule_dp_captured": 9, "seq_cumsum": 120,
+                       "seq_cumsum_captured": 12}}
+    smoke.check_cli_launches(good)
+    for path, key in (("torch", "schedule_dp"), ("device", "schedule_dp"),
+                      ("device", "schedule_dp_captured"), ("device", "seq_cumsum"),
+                      ("device", "seq_cumsum_captured")):
+        bad = {k: dict(v) for k, v in good.items()}
+        bad[path][key] = 0
+        with pytest.raises(AssertionError, match="did not run through"):
+            smoke.check_cli_launches(bad)
+
+
+def test_analysis_cli_phase_on_the_cpu(smoke, monkeypatch, capsys):
+    """The phase's plumbing on the CPU (the kernels' plain versions count no
+    launch there, so the launch gate is recorded, not applied): selftest,
+    lint, and the smoke suite certified on numpy, torch and device, the
+    torch rows equal to the numpy rows."""
+    import json
+
+    gated = []
+    monkeypatch.setattr(smoke, "check_cli_launches", gated.append)
+    got = smoke.phase_analysis_cli("cpu")
+    line = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert line["phase"] == "analysis_cli" and line["torch_device"] == "cpu"
+    assert line["lint"]["findings"] == 0 and line["lint"]["suppressed"] >= 5
+    assert {"RPR101", "RPR102"} <= set(line["selftest"]["lint_rules"])
+    assert line["certify"]["certified"] == {"numpy": 7, "torch": 7, "device": 7}
+    assert line["certify"]["makespans"]["torch"] == line["certify"]["makespans"]["numpy"]
+    assert set(line["seconds"]) == {"selftest", "lint", "certify numpy", "certify torch",
+                                    "certify device"}
+    assert gated == [line["launches"]]
+    assert got == {"torch": {"schedule_dp": 0},
+                   "device": {"schedule_dp": 0, "seq_cumsum": 0}}
+
+
 TINY = dict(families=(("random_layered", {"n_tasks": 24, "n_data": 60}),
                       ("out_tree", {"n_tasks": 20}), ("fft", {"width": 4, "stages": 2})),
             walks=2, max_iters=4, rate=50.0, batch_sizes=(1, 2), sync_every=2, crit_cap=32)

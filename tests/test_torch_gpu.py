@@ -17,7 +17,8 @@ device-resident search (its round captured as a CUDA graph) against the same
 search on the CPU, bit for bit, crashed and resumed from a checkpoint on the
 card, with its sequential prefix-sum kernel against
 ``np.cumsum``; the solve service served on the card against solo solves on
-the card, and two threads running one launch shape at once.  They import
+the card, two threads running one launch shape at once, and the analysis
+CLI's ``certify`` through the torch and device backends on the card.  They import
 the port only
 (no JAX, no reference package), skip with a reason where there is no GPU,
 and run on the card with::
@@ -1441,3 +1442,29 @@ def test_mamba2_smoke_training_step_on_the_card_matches_the_cpu(cuda_device):
     assert abs(lg - lc) / abs(lc) < 1e-4
     for k in gc:
         assert float((gg[k] - gc[k]).abs().max() / gc[k].abs().max().clamp_min(1e-30)) < 1e-3, k
+
+
+def test_cli_certify_on_the_card(cuda_device, tmp_path):
+    """``python -m repro_torch.analysis certify`` on the card: the torch
+    backend (K1) and the device backend (the captured round) certify the
+    smoke suite, the torch rows equal to the same run on the CPU, bit for
+    bit, and the kernels counted."""
+    import json
+
+    from repro_torch.analysis.cli import main
+
+    base = ["certify", "--suite", "smoke", "--max-iters", "4"]
+    rows = {}
+    for backend, dev in (("torch", "cpu"), ("torch", "cuda"), ("device", "cuda")):
+        sdp.sweep.launches = sdp.seq_cumsum.launches = 0
+        report = tmp_path / f"{backend}-{dev}.json"
+        assert main([*base, "--backend", backend, "--torch-device", dev,
+                     "--report", str(report)]) == 0
+        got = json.loads(report.read_text())
+        assert got["n_failed"] == 0 and len(got["rows"]) == 7
+        rows[backend, dev] = [(r["makespan"], r["history"]) for r in got["rows"]]
+        if dev == "cuda":
+            assert sdp.sweep.launches > 0
+        if backend == "device":
+            assert sdp.seq_cumsum.launches > 0
+    assert rows["torch", "cuda"] == rows["torch", "cpu"]

@@ -212,6 +212,35 @@ def test_the_encdec_moe_and_vision_archs_leave_jax_and_repro_unloaded():
     assert "LEAKED=\n" in out.stdout + "\n", out.stdout
 
 
+_PROBE_ANALYSIS = """
+import sys
+import repro_torch.analysis.cli
+import repro_torch.analysis.lint
+import repro_torch.analysis.rules
+from repro_torch.analysis.cli import main
+assert main(["selftest"]) == 0
+assert main(["lint"]) == 0
+assert main(["certify", "--suite", "smoke", "--max-iters", "2", "--backend", "torch",
+             "--torch-device", "cpu"]) == 0
+bad = sorted(m for m in sys.modules
+             if m == "jax" or m.startswith("jax.") or m == "jaxlib"
+             or m == "repro" or m.startswith("repro."))
+print("LEAKED=" + ",".join(bad))
+"""
+
+
+def test_the_analysis_cli_leaves_jax_and_repro_unloaded():
+    """This slice's modules (the linter, its rules and the CLI), imported
+    and run: ``selftest``, ``lint`` over the port and ``certify`` through
+    the torch backend on the CPU."""
+    out = subprocess.run(
+        [sys.executable, "-c", _PROBE_ANALYSIS], capture_output=True, text=True,
+        env={"PYTHONPATH": str(ROOT / "src"), "PATH": "/usr/bin:/bin"},
+        timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert "LEAKED=\n" in out.stdout + "\n", out.stdout
+
+
 _FORBIDDEN = re.compile(
     r"^\s*(import\s+jax\b|from\s+jax\b|import\s+repro\b(?!_)|from\s+repro\b(?!_)"
     r"|from\s+repro\.)"
