@@ -53,7 +53,13 @@ every kernel against its plain PyTorch version on the card:
   hand-written backwards (K2 bwd, K3 bwd) in every step;
 * training: mamba2-780m at its published width and depth (48 SSD layers,
   780 M fp32 masters, bf16 compute) the same way, through K4 forward and its
-  hand-written backward (K4 bwd) in every layer of every step.
+  hand-written backward (K4 bwd) in every layer of every step;
+* the multi-device layer: granite-moe-1b-a400m trained with DTensor
+  parameters on a one-rank NCCL mesh through ``make_train_step(rules=)``,
+  K2 and K2 bwd run on each rank's shard through ``local_map``; the dry run
+  (``launch/dryrun.py``) of each trained configuration held against its
+  measured step, and of llama3-405b's ``train_4k`` on the 2 x 16 x 16
+  production mesh.
 
 Phases, one JSON line each:
 
@@ -184,6 +190,23 @@ Phases, one JSON line each:
                  K2 bwd 72 a step), tokens/s and frames/s, and step 1 also
                  held in float32 (its bf16 gate reads rounding noise: the
                  random tied embedding's logits reach +-140)
+  distributed    (a child process, ``--distributed``, after the training)
+                 the multi-device layer: (a) granite-moe-1b-a400m at 1 x
+                 4096 with its parameters DTensors on a one-rank NCCL mesh
+                 ("data", "model") of shape (1, 1) under arch_rules, step 1
+                 held to the unsharded step of the same seed on the recorded
+                 expert choice (loss 1e-3, gradients 2e-2; bit-equality the
+                 reading), then 2 steps through make_train_step(rules=) with
+                 K2 / K2 bwd 24 / 24 a step through local_map; (b) the dry
+                 run (launch/dryrun.py: a fake process group, fake tensors)
+                 of each trained configuration at its training shape on a
+                 (1, 1) mesh, its peak bytes and flops beside the measured
+                 step's; (c) llama3-405b train_4k on the 2 x 16 x 16
+                 production mesh, status ok, per-device bytes, flops and
+                 wire bytes.  The dry runs need no card: each runs in a
+                 process of its own (``--dry-run SPEC``), (b)'s beside the
+                 build and the kernels' gates (nothing timed), (c)'s beside
+                 the training children
 
 then a ``{"kernels": [...]}`` line, the card's ``nvidia-smi`` line, and last
 ``{"ok": true, "device": {...}}``.  Any failure raises: the exit code is
@@ -2283,13 +2306,11 @@ def _within(got, want, tol: float) -> tuple[bool, float]:
 
 
 def flash_pairs(sq: int, skv: int, causal: bool, window, q_offset: int) -> int:
-    """Unmasked (q, k) pairs of one (batch, head): the work this data needs."""
-    import numpy as np
+    """Unmasked (q, k) pairs of one (batch, head): the work this data needs
+    (``kernels.fake.flash_pairs``, which the dry run's flop formula counts)."""
+    from repro_torch.kernels import fake
 
-    pos = q_offset + np.arange(sq, dtype=np.int64)
-    hi = np.minimum(pos, skv - 1) if causal else np.full(sq, skv - 1)
-    lo = np.maximum(pos - window + 1, 0) if window is not None else np.zeros(sq, np.int64)
-    return int(np.maximum(hi - lo + 1, 0).sum())
+    return fake.flash_pairs(sq, skv, causal, window, q_offset)
 
 
 def flash_bound(q, k, v, causal, window, q_offset, with_lse=False) -> dict:
@@ -2324,13 +2345,11 @@ def rglru_bound(a, h0) -> dict:
 def ssd_operations(t: int, p: int, n: int, chunk: int) -> tuple[int, int]:
     """Operations of the chunked form over ``t`` steps of one (batch, head),
     split as (C B^T, the rest): per chunk of q steps 2 q^2 N for C B^T, 2 q^2 P
-    for M X, 2 q N P for (C exp L) h^T and 2 q N P for the state update."""
-    cb = rest = 0
-    for c0 in range(0, t, chunk):
-        q = min(chunk, t - c0)
-        cb += 2 * q * q * n
-        rest += 2 * q * q * p + 4 * q * n * p
-    return cb, rest
+    for M X, 2 q N P for (C exp L) h^T and 2 q N P for the state update
+    (``kernels.fake.ssd_operations``)."""
+    from repro_torch.kernels import fake
+
+    return fake.ssd_operations(t, p, n, chunk)
 
 
 def ssd_bound(x, b_mat, d_skip, h0, chunk: int) -> dict:
@@ -2883,14 +2902,22 @@ def pinned_routing(routes: list, mode: str):
 
     def route(cfg, p, x):
         logits, top_i = orig(cfg, p, x)
+        # a sharded run's ids are a DTensor: compared whole, pinned as one
+        own = top_i.full_tensor() if hasattr(top_i, "full_tensor") else top_i
         if recorded is None:
-            routes.append(top_i)
+            routes.append(own)
             return logits, top_i
         want = next(recorded, None)
         if want is None:
             raise AssertionError(f"more router calls than the {len(routes)} recorded")
-        swaps.append(int((top_i.sort(-1).values != want.sort(-1).values).any(-1).sum()))
-        return logits, want if mode == "pin" else top_i
+        swaps.append(int((own.sort(-1).values != want.sort(-1).values).any(-1).sum()))
+        if mode != "pin":
+            return logits, top_i
+        if hasattr(top_i, "full_tensor"):
+            from torch.distributed.tensor import distribute_tensor
+
+            want = distribute_tensor(want, top_i.device_mesh, top_i.placements)
+        return logits, want
 
     blocks.moe_route = route
     try:
@@ -2904,24 +2931,21 @@ def pinned_routing(routes: list, mode: str):
 def routing_readings(cfg, model, batch, ids, device) -> dict:
     """``model`` teacher-forced with the served ids through the kernels, and
     through the plain versions with attention in the TPU kernel's order, each
-    against the plain versions (max |diff| / max |logit| per step): on each
-    run's own expert choice ("free"), and on the plain run's ("pinned").
-    ``swaps`` counts the (layer, token) routings whose top-k set differs from
-    the plain run's, out of ``routings``: in a free run a swap changes the
-    input of every later layer, in a pinned one each layer sees the plain
-    run's routing upstream."""
+    on the plain run's expert choice ("pinned") and against the plain
+    versions (max |diff| / max |logit| per step).  ``swaps`` counts the
+    (layer, token) routings whose own top-k set differs from the plain run's,
+    out of ``routings``; each layer sees the plain run's routing upstream."""
     routes: list = []
     with plain_kernels(), pinned_routing(routes, "record"):
         plain = teacher_forced_logits(cfg, model, batch, ids, device)
     out = {"routings": sum(r[..., 0].numel() for r in routes)}
-    for mode, key in (("free", "free"), ("pin", "pinned")):
-        for name, ctx in (("kernels", contextlib.nullcontext),
-                          ("tpu_order", lambda: plain_kernels(flash=tpu_order_attention))):
-            with ctx(), pinned_routing(routes, mode) as swaps:
-                got = teacher_forced_logits(cfg, model, batch, ids, device)
-            out[f"{key}_{name}_rel_err"] = [rel_err(a, b) for a, b in zip(got, plain)]
-            out[f"{key}_{name}_swaps"] = sum(swaps)
-            del got
+    for name, ctx in (("kernels", contextlib.nullcontext),
+                      ("tpu_order", lambda: plain_kernels(flash=tpu_order_attention))):
+        with ctx(), pinned_routing(routes, "pin") as swaps:
+            got = teacher_forced_logits(cfg, model, batch, ids, device)
+        out[f"pinned_{name}_rel_err"] = [rel_err(a, b) for a, b in zip(got, plain)]
+        out[f"pinned_{name}_swaps"] = sum(swaps)
+        del got
     return out
 
 
@@ -3571,13 +3595,10 @@ def ssd_bwd_operations(t: int, p: int, n: int, chunk: int) -> tuple[int, int]:
     per group); per head 2 q^2 P each for dy x^T and M^T dy, 2 q^2 N each for
     the intra-chunk dB and dC, and 2 q N P each for the chunk's incoming state
     (recomputed: the forward keeps none), dH' B^T, C H^T, the inter-chunk dB
-    and dC, and the state gradient passed back."""
-    cb = rest = 0
-    for c0 in range(0, t, chunk):
-        q = min(chunk, t - c0)
-        cb += 2 * q * q * n
-        rest += 4 * q * q * p + 4 * q * q * n + 12 * q * n * p
-    return cb, rest
+    and dC, and the state gradient passed back (``kernels.fake``)."""
+    from repro_torch.kernels import fake
+
+    return fake.ssd_bwd_operations(t, p, n, chunk)
 
 
 def ssd_bwd_bound(x, b_mat, d_skip, h0, dh_last, chunk: int) -> dict:
@@ -3949,7 +3970,8 @@ def grads_of(tr, batch):
     loss.backward()
     if tr.policy is not None:
         tr.policy.clear()
-    torch.cuda.synchronize()
+    if loss.is_cuda:
+        torch.cuda.synchronize()
     return float(loss.detach()), {k: p.grad for k, p in tr.model.named_parameters()}
 
 
@@ -4388,6 +4410,331 @@ def kernel_entries(launches: dict, errs: dict, times: dict, extras: dict) -> lis
             for name, source, replaces in KERNELS]
 
 
+# ---- the multi-device layer: sharding, specs, the dry run -------------------
+# (a) granite trained with DTensor parameters on a one-rank mesh; (b) the dry
+# run of each trained configuration on a (1, 1) mesh beside its measured
+# step; (c) one production-mesh cell.  The dry runs need no card: each runs
+# in a process of its own; (b)'s beside the build and the kernels' gates,
+# where nothing is timed, read before the first timed phase; (c)'s (~2 min of
+# one CPU core) beside the training children, read in the phase.
+DIST_ARCH = MOE_ARCH
+DIST_STEPS = 2
+DIST_K2_PER_STEP = 24          # granite: K2 and K2 bwd once per layer a step
+CALIBRATION = (("train", TRAIN_ARCH, TRAIN_BATCH, TRAIN_SEQ),
+               ("train_ssm", SSM_TRAIN_ARCH, TRAIN_BATCH, TRAIN_SEQ),
+               ("train_moe", MOE_ARCH, TRAIN_BATCH, TRAIN_SEQ),
+               ("train_encdec", ENCDEC_ARCH, ENCDEC_TRAIN_BATCH, ENCDEC_TRAIN_SEQ))
+PRODUCTION_DRY_RUN = {"arch": "llama3-405b", "cell": "train_4k", "multi_pod": True}
+DRY_RUN_TIMEOUT = 600
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        return sock.getsockname()[1]
+
+
+def calibration_specs() -> dict:
+    """(b)'s dry runs by name: each trained configuration at its training
+    shape on a (1, 1) mesh under the planner's plan for one H100."""
+    return {phase: {"arch": arch, "cell": f"train_{batch}x{seq}", "batch": batch, "seq": seq,
+                    "multi_pod": False, "mesh_shape": [1, 1], "plan": True}
+            for phase, arch, batch, seq in CALIBRATION}
+
+
+def dry_run_main(spec: str) -> int:
+    """``--dry-run SPEC``: one ``launch.dryrun`` cell in this process (no card:
+    a fake process group of the mesh's size and fake tensors).  ``SPEC`` is a
+    JSON object: arch, cell (with batch and seq, a train cell of that shape),
+    multi_pod, mesh_shape, plan (the planner's residency plan for one H100,
+    as the trainer takes it), smoke (the smoke config).  The record's keys
+    are the last line; the exit code is 0 when its status is ok."""
+    from repro_torch.configs import get_config, get_smoke_config
+    from repro_torch.configs.base import ShapeCell
+    from repro_torch.launch import dryrun as dr
+
+    s = json.loads(spec)
+    cfg = get_smoke_config(s["arch"]) if s.get("smoke") else get_config(s["arch"])
+    kw = {"cfg_override": cfg}
+    if s.get("batch"):
+        cell = ShapeCell(s["cell"], s["seq"], s["batch"], "train")
+        dr.CELLS[s["cell"]] = cell
+        if s.get("plan"):
+            from repro_torch.plan import H100, plan_residency
+
+            plan = plan_residency(get_config(s["arch"]), cell, n_devices=1, n_data_shards=1,
+                                  n_model_shards=1, optimizer="adamw", use_tabu=False, hw=H100,
+                                  torch_device="cpu")
+            kw["remat_policy"] = plan.policy()
+            if cfg.n_layers % plan.scan_group == 0:
+                kw["scan_group"] = plan.scan_group
+    if s.get("mesh_shape"):
+        kw["mesh_shape"] = tuple(s["mesh_shape"])
+    rec = dr.run_cell(s["arch"], s["cell"], multi_pod=s["multi_pod"], force=True,
+                      out_dir=str(ROOT / "build" / "dryrun_torch"), **kw)
+    print(json.dumps({k: rec.get(k) for k in (
+        "arch", "cell", "mesh", "status", "error", "memory_analysis", "cost_analysis",
+        "collectives", "n_devices", "time_lower_s", "time_step_s", "scan_group",
+        "remat_policy")}), flush=True)
+    return 0 if rec["status"] == "ok" else 1
+
+
+def start_dry_runs(specs: dict) -> dict:
+    """Each spec's ``--dry-run`` in a process of its own, all started now."""
+    return {name: subprocess.Popen([sys.executable, str(Path(__file__).resolve()), "--dry-run",
+                                    json.dumps(spec)], cwd=ROOT, text=True,
+                                   stdout=subprocess.PIPE, stderr=subprocess.PIPE)
+            for name, spec in specs.items()}
+
+
+def collect_dry_runs(procs: dict) -> dict:
+    """Each dry run's record (its last line) once its process has ended;
+    raises if one failed or its status is not ok."""
+    out = {}
+    try:
+        for name, proc in procs.items():
+            stdout, stderr = proc.communicate(timeout=DRY_RUN_TIMEOUT)
+            lines = stdout.strip().splitlines()
+            rec = json.loads(lines[-1]) if lines else {}
+            if proc.returncode != 0 or rec.get("status") != "ok":
+                raise AssertionError(f"dry run {name} failed (exit {proc.returncode}): "
+                                     f"{rec.get('error')} {stderr[-2000:]}")
+            out[name] = rec
+    finally:
+        stop(procs)
+    return out
+
+
+def stop(procs: dict) -> None:
+    """End every process of ``procs`` that is still running."""
+    for proc in procs.values():
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+
+
+def sharded_grads_of(tr, batch, rules):
+    """Loss and gradients (each rank's shards, by parameter name) of one step
+    of ``tr``'s model, whose parameters are DTensors, on ``batch`` placed by
+    ``rules``."""
+    import torch
+
+    from repro_torch.models import arch_forward, cross_entropy_loss
+    from repro_torch.runtime.train import shard_batch
+    from repro_torch.sharding import get_mesh
+    from repro_torch.sharding.partitioning import active
+
+    for p in tr.model.parameters():
+        p.grad = None
+    with active(rules):
+        placed = shard_batch(batch, get_mesh(), rules)
+        loss = cross_entropy_loss(tr.cfg, arch_forward(tr.cfg, tr.model, placed, rules=rules,
+                                                       scan_group=tr.scan_group,
+                                                       remat_policy=tr.policy),
+                                  placed["labels"])
+        loss.backward()
+    if tr.policy is not None:
+        tr.policy.clear()
+    if loss.to_local().is_cuda:
+        torch.cuda.synchronize()
+    return float(loss.detach().full_tensor()), {k: p.grad.to_local() for k, p in
+                                                tr.model.named_parameters()}
+
+
+def sharded_train(device, arch: str = DIST_ARCH, batch: int = TRAIN_BATCH,
+                  seq: int = TRAIN_SEQ, steps: int = DIST_STEPS, smoke: bool = False) -> dict:
+    """(a): ``arch``'s trainer, step 1 unsharded (the expert choice recorded
+    for a MoE), then its parameters made DTensors on a one-rank (1, 1)
+    ("data", "model") mesh (NCCL on the card, gloo on the host) under
+    ``arch_rules``: step 1 again on the recorded expert choice, held to the
+    unsharded one at ``train_moe``'s limits (bit-equality is the reading),
+    then ``steps`` sharded steps through ``make_train_step(rules=)`` with
+    every training kernel's count set to 0 just before and read just after,
+    held on the card to what the plan implies."""
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.configs.base import ShapeCell
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.launch.specs import arch_rules
+    from repro_torch.launch.train import build_trainer, parse_args
+    from repro_torch.models import distribute_params
+    from repro_torch.runtime import TrainState, adamw, make_train_step
+    from repro_torch.runtime.train import batch_to
+    from repro_torch.sharding import set_mesh
+    from repro_torch.sharding.partitioning import is_dtensor
+
+    backend = "nccl" if device.type == "cuda" else "gloo"
+    dist.init_process_group(backend, init_method=f"tcp://localhost:{free_port()}", rank=0,
+                            world_size=1)
+    try:
+        t0 = time.perf_counter()
+        tr = build_trainer(parse_args(["--arch", arch, "--device", device.type, "--batch",
+                                       str(batch), "--seq", str(seq),
+                                       *(["--smoke"] if smoke else [])]))
+        data = batch_to(tr.batch_at(0), device)
+        routes: list = []
+
+        def routing(mode):
+            return pinned_routing(routes, mode) if tr.cfg.n_experts else \
+                contextlib.nullcontext([])
+
+        with routing("record"):
+            loss0, g = grads_of(tr, data)
+            want = {k: v.to("cpu") for k, v in g.items()}
+        del g
+        for p in tr.model.parameters():
+            p.grad = None
+        mesh = make_mesh((1, 1), ("data", "model"), device_type=device.type)
+        rules = arch_rules(tr.cfg, ShapeCell("train_cfg", seq, batch, "train"), mesh)
+        set_mesh(mesh)
+        # the trainer's unsharded state (the parameters and AdamW moments it
+        # holds) goes: the sharded steps hold their own
+        tr.state = tr.step_fn = tr.reinit = None
+        distribute_params(tr.model, mesh, rules)
+        if device.type == "cuda":
+            torch.cuda.empty_cache()
+        wrappers = train_wrappers()
+        before = {k: w.launches for k, w in wrappers.items()}
+        with routing("pin") as swaps:
+            loss1, g = sharded_grads_of(tr, data, rules)
+        step1_launches = {k: w.launches - before[k] for k, w in wrappers.items()}
+        finite = all(bool(torch.isfinite(v).all()) for v in g.values())
+        errs = grad_errors(tr.cfg, g, want)
+        del g, want
+        for p in tr.model.parameters():
+            p.grad = None
+        loss_err = abs(loss1 - loss0) / abs(loss0)
+        grad_err = max(errs.values())
+        if not (finite and loss_err <= TRAIN_LOSS_LIMIT and grad_err <= TRAIN_GRAD_LIMIT):
+            raise AssertionError(f"{arch}: the sharded step 1 differs from the unsharded one: "
+                                 f"loss {loss_err:.3g}, gradients {grad_err:.3g}, "
+                                 f"finite={finite}")
+        params = dict(tr.model.named_parameters())
+        opt = adamw()
+        step = make_train_step(tr.cfg, opt, tr.model, rules=rules, scan_group=tr.scan_group,
+                               remat_policy=tr.policy)
+        state = TrainState(params=params, opt_state=opt.init(params), step=0)
+        if device.type == "cuda":
+            torch.cuda.reset_peak_memory_stats(device)
+        for w in wrappers.values():
+            w.launches = 0
+        step_s, losses = [], []
+        for i in range(steps):
+            t1 = time.perf_counter()
+            state, m = step(state, tr.batch_at(i))
+            losses.append(float(m["loss"]))
+            step_s.append(time.perf_counter() - t1)
+        launches = {k: w.launches for k, w in wrappers.items()}
+        expected = expected_train_launches(tr.cfg, tr.scan_group, tr.policy)
+        per_step = {k: launches[k] / steps for k in expected}
+        if device.type == "cuda" and (
+                per_step != {k: float(v) for k, v in expected.items()}
+                or per_step["flash_attention"] != DIST_K2_PER_STEP
+                or per_step["flash_attention_bwd"] != DIST_K2_PER_STEP):
+            raise AssertionError(f"sharded train launches per step {per_step}, "
+                                 f"expected {expected}")
+        if not all(math.isfinite(x) for x in losses):
+            raise AssertionError(f"sharded train losses {losses}")
+        sample = params["layers.0.attn.wq"]
+        return {"arch": arch, "batch": batch, "seq": seq, "steps": steps, "backend": backend,
+                "mesh": {"data": 1, "model": 1}, "rules": {"params": rules.params,
+                                                         "acts": rules.acts},
+                "all_params_dtensors": all(is_dtensor(p) for p in params.values()),
+                "sample_placements": str(sample.placements),
+                "step1_loss_unsharded": loss0, "step1_loss_sharded": loss1,
+                "step1_loss_rel_err": loss_err, "step1_grad_rel_err_max": grad_err,
+                "step1_bit_equal": loss1 == loss0 and grad_err == 0.0,
+                "step1_limits": {"loss": TRAIN_LOSS_LIMIT, "grad": TRAIN_GRAD_LIMIT},
+                "step1_routing_swaps": sum(swaps), "step1_launches": step1_launches,
+                "launches": launches, "launches_per_step": per_step,
+                "expected_launches_per_step": expected, "losses": losses, "step_s": step_s,
+                "max_memory_allocated_bytes": torch.cuda.max_memory_allocated(device)
+                if device.type == "cuda" else None,
+                "seconds": time.perf_counter() - t0}
+    finally:
+        set_mesh(None)
+        dist.destroy_process_group()
+
+
+def distributed(device) -> dict:
+    """The ``--distributed`` child: (a) on the card."""
+    t0 = time.perf_counter()
+    trained = sharded_train(device)
+    return {"sharded_train": trained,
+            "phase_seconds": {"distributed": time.perf_counter() - t0}}
+
+
+def calibration(dry: dict, trains: dict) -> dict:
+    """(b): each trained configuration's dry run on the (1, 1) mesh against
+    its measured step: reckoned peak bytes over the measured
+    ``max_memory_allocated``, and the dry run's flops (the ops the step runs,
+    recomputation and the dense dispatch included) over ``train_model_flops``
+    and over the step's model flops (``model_flops_per_step``)."""
+    from repro_torch.configs import get_config
+
+    out = {}
+    for phase, arch, batch, seq in CALIBRATION:
+        rec, got = dry[phase], trains[phase]
+        peak = rec["memory_analysis"]["peak_bytes"]
+        flops = rec["cost_analysis"]["flops"]
+        model = train_model_flops(get_config(arch), batch, seq)
+        out[phase] = {"arch": arch, "batch": batch, "seq": seq,
+                      "reckoned_peak_bytes": peak,
+                      "measured_max_memory_allocated_bytes": got["max_memory_allocated_bytes"],
+                      "peak_ratio": peak / got["max_memory_allocated_bytes"],
+                      "reckoned_argument_bytes": rec["memory_analysis"]["argument_size_in_bytes"],
+                      "dry_run_flops": flops, "train_model_flops": model,
+                      "flops_ratio": flops / model,
+                      "reckoned_bytes_accessed": rec["cost_analysis"]["bytes accessed"],
+                      "measured_step_ms": got["step_ms_steady"],
+                      "dry_run_step_s": rec["time_step_s"]}
+    return out
+
+
+def phase_distributed(trains: dict, calibration_runs: dict, production: dict) -> dict:
+    """The multi-device layer (``--distributed`` in a child process, after the
+    training phases): (a) the sharded train step, (b) the dry runs of the
+    trained configurations (``calibration_runs``, their records) held against
+    their measured steps, (c) the production-mesh cell, whose process
+    (``production``, from ``start_dry_runs``) is read here; printed as
+    ``distributed``."""
+    out = run_child("--distributed", "the multi-device phase")
+    t0 = time.perf_counter()
+    dry = {**calibration_runs, **collect_dry_runs(production)}
+    out["phase_seconds"]["production_wait"] = time.perf_counter() - t0
+    prod = dry["production"]
+    coll = prod["collectives"]
+    line = {"sharded_train": out["sharded_train"], "calibration": calibration(dry, trains),
+            "production": {
+                "arch": prod["arch"], "cell": prod["cell"], "mesh": prod["mesh"],
+                "n_devices": prod["n_devices"], "status": prod["status"],
+                "argument_bytes_per_device": prod["memory_analysis"]["argument_size_in_bytes"],
+                "peak_bytes_per_device": prod["memory_analysis"]["peak_bytes"],
+                "flops_per_device": prod["cost_analysis"]["flops"],
+                "bytes_accessed_per_device": prod["cost_analysis"]["bytes accessed"],
+                "wire_bytes_per_device": coll["total_wire_bytes"],
+                "collective_counts": coll["counts"], "wire_bytes_by_kind": coll["wire_bytes"],
+                "dry_run_seconds": prod["time_step_s"]},
+            "dry_runs": dry}
+    if prod["status"] != "ok":
+        raise AssertionError(f"the production dry run: {prod.get('error')}")
+    say("distributed", **line,
+        note="sharded_train: granite at 1 x 4096 with DTensor parameters on a one-rank NCCL "
+             "(1, 1) mesh under arch_rules, step 1 against the unsharded step on the "
+             "recorded expert choice, then DIST_STEPS steps through make_train_step(rules=) "
+             "with K2 / K2 bwd launched through local_map; calibration: launch/dryrun.py on "
+             "a fake (1, 1) mesh at each trained configuration's shape under the planner's "
+             "plan, against the measured step (peak: MemTracker; flops: FlopCounterMode's "
+             "formulas over the ops run, recomputation included; train_model_flops: 6 N "
+             "per row plus the mixing); production: llama3-405b train_4k on a fake 2 x 16 x "
+             "16 mesh, per device (rank 0); bytes accessed are unfused")
+    return {**out, "line": line}
+
+
+
 def launches_by_path(paths: dict) -> dict:
     """K1's and ``seq_cumsum``'s launches on each path that runs them (the
     counts set to 0 just before the path, read just after)."""
@@ -4420,14 +4767,6 @@ def main() -> int:
     # float32 products of the plain versions stay float32 (no TF32)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    t0 = time.perf_counter()
-    _build.build()                      # one nvcc per source, all at once
-    for name in _build.KERNEL_SOURCES:
-        _build.load(name)
-    say("build", kernels=sorted(_build.KERNEL_SOURCES), flags=list(_build.NVCC_FLAGS),
-        seconds=time.perf_counter() - t0, build_dir=str(_build.build_dir()))
-    phase_ptxas(sorted(_build.KERNEL_SOURCES))
-
     phase_s = {}
 
     def timed(name, fn, *a):
@@ -4436,8 +4775,24 @@ def main() -> int:
         phase_s[name] = time.perf_counter() - t
         return out
 
-    worst = timed("kernels", phase_kernels, device)
-    model_err = timed("model_kernels", phase_model_kernels, device)
+    # the distributed phase's (b): dry runs that need no card, beside the
+    # build and the kernels' gates (nothing there is timed), read before the
+    # first timed phase
+    calibration_procs = start_dry_runs(calibration_specs())
+    try:
+        t0 = time.perf_counter()
+        _build.build()                      # one nvcc per source, all at once
+        for name in _build.KERNEL_SOURCES:
+            _build.load(name)
+        say("build", kernels=sorted(_build.KERNEL_SOURCES), flags=list(_build.NVCC_FLAGS),
+            seconds=time.perf_counter() - t0, build_dir=str(_build.build_dir()))
+        phase_ptxas(sorted(_build.KERNEL_SOURCES))
+        worst = timed("kernels", phase_kernels, device)
+        model_err = timed("model_kernels", phase_model_kernels, device)
+        calibration_runs = timed("calibration_dry_runs_wait", collect_dry_runs,
+                                 calibration_procs)
+    finally:
+        stop(calibration_procs)
     launches, max_rows, main_wall = timed("main_path", phase_main_path)
     device_launches, device_ctx = timed("device_path", phase_device_path, device, main_wall)
     crash_launches = timed("crash_resume", phase_crash_resume, device, device_ctx)
@@ -4457,167 +4812,187 @@ def main() -> int:
     # launches), which the earlier phases' profiled gates and timings must
     # not meet
     train = timed("train", phase_train, device)
-    # then mamba2-780m's training and the MoE, encoder-decoder and vision
-    # serves, each in a process of its own, once this one has taken its last
-    # profiled window
-    ssm = timed("train_ssm child", phase_train_ssm)
-    phase_s.update(ssm.pop("phase_seconds"))
-    moe_train = timed("train_moe child", phase_train_moe)
-    phase_s.update(moe_train.pop("phase_seconds"))
-    encdec_train = timed("train_encdec child", phase_train_encdec)
-    phase_s.update(encdec_train.pop("phase_seconds"))
-    slice_out = timed("slice_serves", phase_slice_serves)
-    phase_s.update(slice_out["phase_seconds"])
-    slice_launches, slice_times = slice_out["launches"], slice_out["timings"]
+    # (c)'s dry run needs no card and ~2.5 min of one CPU core: it runs beside
+    # the training children and is read in the distributed phase
+    production = start_dry_runs({"production": PRODUCTION_DRY_RUN})
+    try:
+        # then mamba2-780m's training and the MoE, encoder-decoder and vision
+        # serves, each in a process of its own, once this one has taken its last
+        # profiled window
+        ssm = timed("train_ssm child", phase_train_ssm)
+        phase_s.update(ssm.pop("phase_seconds"))
+        moe_train = timed("train_moe child", phase_train_moe)
+        phase_s.update(moe_train.pop("phase_seconds"))
+        encdec_train = timed("train_encdec child", phase_train_encdec)
+        phase_s.update(encdec_train.pop("phase_seconds"))
+        # the multi-device layer, after the steps its dry runs are held against
+        dist_out = timed("distributed child", phase_distributed,
+                         {"train": train, "train_ssm": ssm, "train_moe": moe_train,
+                          "train_encdec": encdec_train}, calibration_runs, production)
+        phase_s.update(dist_out["phase_seconds"])
+        dl = dist_out["sharded_train"]["launches"]
+        slice_out = timed("slice_serves", phase_slice_serves)
+        phase_s.update(slice_out["phase_seconds"])
+        slice_launches, slice_times = slice_out["launches"], slice_out["timings"]
 
-    fwd, tails = timing["forward"], timing["tails"]
-    by_path = launches_by_path({"main_path": {"schedule_dp": launches},
-                                "device_path": device_launches,
-                                "crash_resume": crash_launches,
-                                "solve_service": service_launches,
-                                "analysis_cli torch": cli_launches["torch"],
-                                "analysis_cli device": cli_launches["device"],
-                                "train": {"schedule_dp": train["launches"]["schedule_dp"]},
-                                "train_ssm": {"schedule_dp": ssm["launches"]["schedule_dp"]},
-                                "train_moe": {"schedule_dp": moe_train["launches"]["schedule_dp"]},
-                                "train_encdec": {
-                                    "schedule_dp": encdec_train["launches"]["schedule_dp"]}})
-    tl, sl = train["launches"], ssm["launches"]
-    ml, el = moe_train["launches"], encdec_train["launches"]
-    fb, rb, sb = mtime["flash_attention_bwd"], mtime["rglru_scan_bwd"], mtime["ssd_chunked_bwd"]
-    fl, rg, sd = mtime["flash_attention"], mtime["rglru_scan"], mtime["ssd_chunked"]
-    fq, fc = mtime["flash_attention_qwen2.5-14b"], mtime["flash_attention_codeqwen1.5-7b"]
-    entries = kernel_entries(
-        launches={"schedule_dp": launches, "flash_attention": qwen_launches["flash_attention"],
-                  "rglru_scan": model_launches["rglru_scan"],
-                  "ssd_chunked": mamba_launches["ssd_chunked"],
-                  "seq_cumsum": device_launches["seq_cumsum"],
-                  "flash_attention_bwd": tl["flash_attention_bwd"],
-                  "rglru_scan_bwd": tl["rglru_scan_bwd"],
-                  "ssd_chunked_bwd": sl["ssd_chunked_bwd"]},
-        errs={"schedule_dp": worst, **model_err, "seq_cumsum": cum["max_abs_err"]},
-        times={"schedule_dp": fwd, **mtime, "flash_attention": fq, "seq_cumsum": cum},
-        extras={
-            "schedule_dp": {"launches_by_path": by_path["schedule_dp"],
-                            "chain_ms": fwd["chain_ms"], "shape": [max_rows, sdp.bucket(250)],
-                            "dtype": "float64", "call": "forward only",
-                            "depth_levels": fwd["depth_levels"],
-                            "ms_per_level": fwd["ms_per_level"],
-                            "chain_probe_ms_per_level": timing["chain_probe_ms_per_level"],
-                            "device_ms": fwd["device_ms"],
-                            "device_ms_per_level": fwd["device_ms_per_level"],
-                            "tails_ms": tails["ms"], "tails_device_ms": tails["device_ms"],
-                            "tails_plain_ms": tails["plain_ms"],
-                            "tails_bound_ms": tails["bound_ms"],
-                            "tails_chain_ms": tails["chain_ms"]},
-            "flash_attention": {"max_abs_err_f32": model_err["flash_f32"],
-                                "path": "model_serve " + QWEN_ARCH,
-                                "launches_by_path": {
-                                    "model_serve " + QWEN_ARCH: qwen_launches["flash_attention"],
-                                    "model_serve " + ARCH: model_launches["flash_attention"],
-                                    **{"model_serve " + arch: got["flash_attention"]
-                                       for arch, got in slice_launches.items()},
-                                    "train": tl["flash_attention"],
-                                    "train_moe": ml["flash_attention"],
-                                    "train_encdec": el["flash_attention"]},
-                                "library": fq["library"], "shape": fq["shape"],
-                                "dtype": "bfloat16", "device_ms": fq["device_ms"],
-                                "shape_" + ARCH: {k: fl[k] for k in (
-                                    "shape", "ms", "device_ms", "plain_ms", "bound_ms",
-                                    "bound_by", "library_ms", "library")},
-                                **{"shape_" + name: {k: t[k] for k in (
-                                    "shape", "ms", "device_ms", "plain_ms", "bound_ms",
-                                    "bound_by", "library_ms", "library")}
-                                   for name, t in (("codeqwen1.5-7b", fc),
-                                                   *slice_times.items())}},
-            "flash_attention_bwd": {
-                "path": "train", "launches_per_step": train["launches_per_step"][
-                    "flash_attention_bwd"],
-                "launches_by_path": {"train": tl["flash_attention_bwd"],
-                                     "train_moe": ml["flash_attention_bwd"],
-                                     "train_encdec": el["flash_attention_bwd"]},
-                "max_abs_err_f32": model_err["flash_attention_bwd_f32"],
-                "device_ms": fb["device_ms"], "library": fb["library"], "shape": fb["shape"],
-                "dtype": fb["dtype"], "operations": fb["operations"],
-                "kernel_operations": fb["kernel_operations"],
-                "achieved_tflops": fb["achieved_tflops"], "kernels": fb["kernels"],
-                "device_ms_by_kernel": fb["device_ms_by_kernel"],
-                **{"shape_" + name: {k: mtime["flash_attention_bwd_" + name][k] for k in (
-                    "shape", "ms", "device_ms", "plain_ms", "bound_ms", "bound_by",
-                    "library_ms", "library", "achieved_tflops")}
-                   for name in (MOE_ARCH, ENCDEC_ARCH + " cross")}},
-            "rglru_scan_bwd": {
-                "path": "train", "launches_per_step": train["launches_per_step"][
-                    "rglru_scan_bwd"],
-                "launches_by_path": {"train": tl["rglru_scan_bwd"]},
-                "device_ms": rb["device_ms"], "shape": rb["shape"], "dtype": rb["dtype"],
-                "group": rb["group"], "warps": rb["warps"],
-                "device_ms_by_group": rb["device_ms_by_group"], "chain_ms": rb["chain_ms"],
-                "event_minus_device_ms": rb["event_minus_device_ms"],
-                "wrapper_host_ms": rb["wrapper_host_ms"]},
-            "rglru_scan": {"shape": rg["shape"], "dtype": "float32 scan (bfloat16 model)",
-                           "launches_by_path": {"model_serve " + ARCH:
-                                                model_launches["rglru_scan"],
-                                                "train": tl["rglru_scan"]},
-                           "device_ms": rg["device_ms"],
-                           "decode_step_ms": rg["decode_step_ms"],
-                           "decode_step_device_ms": rg["decode_step_device_ms"],
-                           "decode_step_bound_ms": rg["decode_step_bound_ms"],
-                           "decode_step_bound_by": rg["decode_step_bound_by"],
-                           "training_shape": rg["training_shape"]},
-            "ssd_chunked_bwd": {
-                "path": "train_ssm", "launches_per_step": ssm["launches_per_step"][
-                    "ssd_chunked_bwd"],
-                "launches_by_path": {"train_ssm": sl["ssd_chunked_bwd"]},
-                "max_abs_err_f32": model_err["ssd_chunked_bwd_f32"],
-                "max_rel_err": model_err["ssd_chunked_bwd_rel"],
-                "device_ms": sb["device_ms"], "shape": sb["shape"], "dtype": sb["dtype"],
-                "operations": sb["operations"], "achieved_tflops": sb["achieved_tflops"],
-                "kernels": sb["kernels"], "device_ms_by_kernel": sb["device_ms_by_kernel"],
-                "grids": sb["grids"], "blocks": sb["blocks"],
-                "resources": sb["resources"], "entry_points": sb["entry_points"],
-                "event_minus_device_ms": sb["event_minus_device_ms"],
-                "scratch_bytes": sb["scratch_bytes"]},
-            "ssd_chunked": {"shape": sd["shape"], "dtype": sd["dtype"],
-                            "launches_by_path": {"model_serve " + MAMBA_ARCH:
-                                                 mamba_launches["ssd_chunked"],
-                                                 "train_ssm": sl["ssd_chunked"]},
-                            "device_ms": sd["device_ms"], "training_shape": sd["training_shape"],
-                            "precision": sd["precision"],
-                            "fp32_rate_bound_ms": sd["fp32_rate_bound_ms"],
-                            "fp32_rate_bound_by": sd["fp32_rate_bound_by"],
-                            "operations": sd["operations"],
-                            "kernel_operations": sd["kernel_operations"],
-                            "tpu_operations": sd["tpu_operations"],
-                            "achieved_tflops": sd["achieved_tflops"],
-                            "decode_step_ms": sd["decode_step_ms"],
-                            "decode_step_device_ms": sd["decode_step_device_ms"],
-                            "decode_step_bound_ms": sd["decode_step_bound_ms"]},
-            "seq_cumsum": {"shape": cum["shape"], "dtype": "float64",
-                           "path": "device_path", "launches_by_path": by_path["seq_cumsum"],
-                           "device_ms": cum["device_ms"],
-                           "chain_ms": cum["chain_ms"], "chain_share": cum["chain_share"],
-                           "add_chain_ms_per_add": cum["add_chain_ms_per_add"],
-                           "library_device_ms": cum["library_device_ms"],
-                           "library_device_ms_by_kernel": cum["library_device_ms_by_kernel"],
-                           "decision": cum["decision"],
-                           "torch_cumsum_on_card_max_abs_err":
-                               cum["torch_cumsum_on_card_max_abs_err"]},
-        })
-    print(json.dumps({"kernels": entries, "seconds": time.perf_counter() - t_start,
-                      "phase_seconds": phase_s}), flush=True)
-    print(smi, flush=True)
-    print(json.dumps({"ok": True, "device": {
-        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
-        "count": torch.cuda.device_count()}}), flush=True)
-    return 0
+        fwd, tails = timing["forward"], timing["tails"]
+        by_path = launches_by_path({"main_path": {"schedule_dp": launches},
+                                    "device_path": device_launches,
+                                    "crash_resume": crash_launches,
+                                    "solve_service": service_launches,
+                                    "analysis_cli torch": cli_launches["torch"],
+                                    "analysis_cli device": cli_launches["device"],
+                                    "train": {"schedule_dp": train["launches"]["schedule_dp"]},
+                                    "train_ssm": {"schedule_dp": ssm["launches"]["schedule_dp"]},
+                                    "train_moe": {
+                                        "schedule_dp": moe_train["launches"]["schedule_dp"]},
+                                    "train_encdec": {
+                                        "schedule_dp": encdec_train["launches"]["schedule_dp"]}})
+        tl, sl = train["launches"], ssm["launches"]
+        ml, el = moe_train["launches"], encdec_train["launches"]
+        fb, rb = mtime["flash_attention_bwd"], mtime["rglru_scan_bwd"]
+        sb = mtime["ssd_chunked_bwd"]
+        fl, rg, sd = mtime["flash_attention"], mtime["rglru_scan"], mtime["ssd_chunked"]
+        fq, fc = mtime["flash_attention_qwen2.5-14b"], mtime["flash_attention_codeqwen1.5-7b"]
+        entries = kernel_entries(
+            launches={"schedule_dp": launches, "flash_attention": qwen_launches["flash_attention"],
+                      "rglru_scan": model_launches["rglru_scan"],
+                      "ssd_chunked": mamba_launches["ssd_chunked"],
+                      "seq_cumsum": device_launches["seq_cumsum"],
+                      "flash_attention_bwd": tl["flash_attention_bwd"],
+                      "rglru_scan_bwd": tl["rglru_scan_bwd"],
+                      "ssd_chunked_bwd": sl["ssd_chunked_bwd"]},
+            errs={"schedule_dp": worst, **model_err, "seq_cumsum": cum["max_abs_err"]},
+            times={"schedule_dp": fwd, **mtime, "flash_attention": fq, "seq_cumsum": cum},
+            extras={
+                "schedule_dp": {"launches_by_path": by_path["schedule_dp"],
+                                "chain_ms": fwd["chain_ms"], "shape": [max_rows, sdp.bucket(250)],
+                                "dtype": "float64", "call": "forward only",
+                                "depth_levels": fwd["depth_levels"],
+                                "ms_per_level": fwd["ms_per_level"],
+                                "chain_probe_ms_per_level": timing["chain_probe_ms_per_level"],
+                                "device_ms": fwd["device_ms"],
+                                "device_ms_per_level": fwd["device_ms_per_level"],
+                                "tails_ms": tails["ms"], "tails_device_ms": tails["device_ms"],
+                                "tails_plain_ms": tails["plain_ms"],
+                                "tails_bound_ms": tails["bound_ms"],
+                                "tails_chain_ms": tails["chain_ms"]},
+                "flash_attention": {"max_abs_err_f32": model_err["flash_f32"],
+                                    "path": "model_serve " + QWEN_ARCH,
+                                    "launches_by_path": {
+                                        "model_serve " + QWEN_ARCH:
+                                            qwen_launches["flash_attention"],
+                                        "model_serve " + ARCH: model_launches["flash_attention"],
+                                        **{"model_serve " + arch: got["flash_attention"]
+                                           for arch, got in slice_launches.items()},
+                                        "train": tl["flash_attention"],
+                                        "train_moe": ml["flash_attention"],
+                                        "train_encdec": el["flash_attention"],
+                                        "distributed": dl["flash_attention"]},
+                                    "library": fq["library"], "shape": fq["shape"],
+                                    "dtype": "bfloat16", "device_ms": fq["device_ms"],
+                                    "shape_" + ARCH: {k: fl[k] for k in (
+                                        "shape", "ms", "device_ms", "plain_ms", "bound_ms",
+                                        "bound_by", "library_ms", "library")},
+                                    **{"shape_" + name: {k: t[k] for k in (
+                                        "shape", "ms", "device_ms", "plain_ms", "bound_ms",
+                                        "bound_by", "library_ms", "library")}
+                                       for name, t in (("codeqwen1.5-7b", fc),
+                                                       *slice_times.items())}},
+                "flash_attention_bwd": {
+                    "path": "train", "launches_per_step": train["launches_per_step"][
+                        "flash_attention_bwd"],
+                    "launches_by_path": {"train": tl["flash_attention_bwd"],
+                                         "train_moe": ml["flash_attention_bwd"],
+                                         "train_encdec": el["flash_attention_bwd"],
+                                         "distributed": dl["flash_attention_bwd"]},
+                    "max_abs_err_f32": model_err["flash_attention_bwd_f32"],
+                    "device_ms": fb["device_ms"], "library": fb["library"], "shape": fb["shape"],
+                    "dtype": fb["dtype"], "operations": fb["operations"],
+                    "kernel_operations": fb["kernel_operations"],
+                    "achieved_tflops": fb["achieved_tflops"], "kernels": fb["kernels"],
+                    "device_ms_by_kernel": fb["device_ms_by_kernel"],
+                    **{"shape_" + name: {k: mtime["flash_attention_bwd_" + name][k] for k in (
+                        "shape", "ms", "device_ms", "plain_ms", "bound_ms", "bound_by",
+                        "library_ms", "library", "achieved_tflops")}
+                       for name in (MOE_ARCH, ENCDEC_ARCH + " cross")}},
+                "rglru_scan_bwd": {
+                    "path": "train", "launches_per_step": train["launches_per_step"][
+                        "rglru_scan_bwd"],
+                    "launches_by_path": {"train": tl["rglru_scan_bwd"]},
+                    "device_ms": rb["device_ms"], "shape": rb["shape"], "dtype": rb["dtype"],
+                    "group": rb["group"], "warps": rb["warps"],
+                    "device_ms_by_group": rb["device_ms_by_group"], "chain_ms": rb["chain_ms"],
+                    "event_minus_device_ms": rb["event_minus_device_ms"],
+                    "wrapper_host_ms": rb["wrapper_host_ms"]},
+                "rglru_scan": {"shape": rg["shape"], "dtype": "float32 scan (bfloat16 model)",
+                               "launches_by_path": {"model_serve " + ARCH:
+                                                    model_launches["rglru_scan"],
+                                                    "train": tl["rglru_scan"]},
+                               "device_ms": rg["device_ms"],
+                               "decode_step_ms": rg["decode_step_ms"],
+                               "decode_step_device_ms": rg["decode_step_device_ms"],
+                               "decode_step_bound_ms": rg["decode_step_bound_ms"],
+                               "decode_step_bound_by": rg["decode_step_bound_by"],
+                               "training_shape": rg["training_shape"]},
+                "ssd_chunked_bwd": {
+                    "path": "train_ssm", "launches_per_step": ssm["launches_per_step"][
+                        "ssd_chunked_bwd"],
+                    "launches_by_path": {"train_ssm": sl["ssd_chunked_bwd"]},
+                    "max_abs_err_f32": model_err["ssd_chunked_bwd_f32"],
+                    "max_rel_err": model_err["ssd_chunked_bwd_rel"],
+                    "device_ms": sb["device_ms"], "shape": sb["shape"], "dtype": sb["dtype"],
+                    "operations": sb["operations"], "achieved_tflops": sb["achieved_tflops"],
+                    "kernels": sb["kernels"], "device_ms_by_kernel": sb["device_ms_by_kernel"],
+                    "grids": sb["grids"], "blocks": sb["blocks"],
+                    "resources": sb["resources"], "entry_points": sb["entry_points"],
+                    "event_minus_device_ms": sb["event_minus_device_ms"],
+                    "scratch_bytes": sb["scratch_bytes"]},
+                "ssd_chunked": {"shape": sd["shape"], "dtype": sd["dtype"],
+                                "launches_by_path": {"model_serve " + MAMBA_ARCH:
+                                                     mamba_launches["ssd_chunked"],
+                                                     "train_ssm": sl["ssd_chunked"]},
+                                "device_ms": sd["device_ms"],
+                                "training_shape": sd["training_shape"],
+                                "precision": sd["precision"],
+                                "fp32_rate_bound_ms": sd["fp32_rate_bound_ms"],
+                                "fp32_rate_bound_by": sd["fp32_rate_bound_by"],
+                                "operations": sd["operations"],
+                                "kernel_operations": sd["kernel_operations"],
+                                "tpu_operations": sd["tpu_operations"],
+                                "achieved_tflops": sd["achieved_tflops"],
+                                "decode_step_ms": sd["decode_step_ms"],
+                                "decode_step_device_ms": sd["decode_step_device_ms"],
+                                "decode_step_bound_ms": sd["decode_step_bound_ms"]},
+                "seq_cumsum": {"shape": cum["shape"], "dtype": "float64",
+                               "path": "device_path", "launches_by_path": by_path["seq_cumsum"],
+                               "device_ms": cum["device_ms"],
+                               "chain_ms": cum["chain_ms"], "chain_share": cum["chain_share"],
+                               "add_chain_ms_per_add": cum["add_chain_ms_per_add"],
+                               "library_device_ms": cum["library_device_ms"],
+                               "library_device_ms_by_kernel": cum["library_device_ms_by_kernel"],
+                               "decision": cum["decision"],
+                               "torch_cumsum_on_card_max_abs_err":
+                                   cum["torch_cumsum_on_card_max_abs_err"]},
+            })
+        print(json.dumps({"kernels": entries, "seconds": time.perf_counter() - t_start,
+                          "phase_seconds": phase_s}), flush=True)
+        print(smi, flush=True)
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count()}}), flush=True)
+        return 0
 
+    finally:
+        stop(production)
 
 CHILDREN = {"--slice-serves": slice_serves, "--train-ssm": train_ssm,
             "--train-moe": train_moe, "--train-encdec": train_encdec,
-            "--model-timing": phase_model_timing}
+            "--model-timing": phase_model_timing, "--distributed": distributed}
 
 
 if __name__ == "__main__":
+    if len(sys.argv) == 3 and sys.argv[1] == "--dry-run":
+        sys.exit(dry_run_main(sys.argv[2]))
     child = CHILDREN.get(sys.argv[1]) if len(sys.argv) == 2 else None
     sys.exit(child_main(child) if child is not None else main())

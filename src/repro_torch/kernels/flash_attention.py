@@ -30,6 +30,8 @@
 * When an input requires a gradient, :func:`flash_attention` goes through an
   autograd function whose backward is :func:`flash_attention_bwd`; it saves
   ``(q, k, v, out, lse)``, as the reference's custom VJP does.
+* A fake tensor (a shape-only run, ``FakeTensorMode``) takes the custom ops
+  of :mod:`.fake` (shapes and a flop count, no plain version).
 
 Layout (the reference's): ``q (B, Sq, H, D)``, ``k``/``v (B, Skv, KVH, D)``;
 head ``h`` reads kv head ``h // (H / KVH)``.  Masking: causal keeps
@@ -45,6 +47,7 @@ import ctypes
 import torch
 
 from . import replay
+from .fake import is_fake
 
 __all__ = ["flash_attention", "flash_attention_torch", "flash_attention_bwd",
            "flash_attention_bwd_torch", "flash_attention_torch_grad", "MAX_HEAD_DIM"]
@@ -267,15 +270,36 @@ def flash_attention_bwd(q, k, v, out, lse, d_out, *, causal: bool = True,
     tensors (asynchronous, on the current stream), the plain version for CPU
     tensors."""
     scale = q.shape[-1] ** -0.5 if scale is None else scale
-    if q.device.type == "cpu":
-        return flash_attention_bwd_torch(q, k, v, out, lse, d_out, causal=causal,
-                                         window=window, q_offset=q_offset, scale=scale)
-    if q.device.type != "cuda":
+    if q.device.type not in ("cpu", "cuda"):
         raise ValueError(f"flash_attention_bwd runs on cuda or cpu tensors, got {q.device}")
-    return _launch_bwd_cuda(q, k, v, out, lse, d_out, causal, window, q_offset, scale)
+    return _backward(q, k, v, out, lse, d_out, causal, window, q_offset, scale,
+                     q.device.type == "cpu")
 
 
 flash_attention_bwd.launches = 0  # kernel launches made through this wrapper
+
+
+def _forward(q, k, v, causal, window, q_offset, scale, plain: bool, return_lse: bool):
+    """The forward on its one route: the custom op for a fake tensor
+    (:mod:`.fake`), the plain version if ``plain``, else the kernel."""
+    if is_fake(q):
+        out, lse = torch.ops.repro_torch.flash_fwd(q, k, v, causal, window or 0, q_offset, scale)
+        return (out, lse) if return_lse else out
+    if plain:
+        return flash_attention_torch(q, k, v, causal=causal, window=window, q_offset=q_offset,
+                                     scale=scale, return_lse=return_lse)
+    return _launch_cuda(q, k, v, causal, window, q_offset, scale, return_lse)
+
+
+def _backward(q, k, v, out, lse, d_out, causal, window, q_offset, scale, plain: bool):
+    """``(dq, dk, dv)`` on the forward's route (:func:`_forward`)."""
+    if is_fake(q):
+        return torch.ops.repro_torch.flash_bwd(q, k, v, out, lse, d_out, causal, window or 0,
+                                               q_offset, scale)
+    if plain:
+        return flash_attention_bwd_torch(q, k, v, out, lse, d_out, causal=causal,
+                                         window=window, q_offset=q_offset, scale=scale)
+    return _launch_bwd_cuda(q, k, v, out, lse, d_out, causal, window, q_offset, scale)
 
 
 class _Flash(torch.autograd.Function):
@@ -291,12 +315,7 @@ class _Flash(torch.autograd.Function):
         if held is not None:
             out, lse = held
         else:
-            if plain:
-                out, lse = flash_attention_torch(q, k, v, causal=causal, window=window,
-                                                 q_offset=q_offset, scale=scale,
-                                                 return_lse=True)
-            else:
-                out, lse = _launch_cuda(q, k, v, causal, window, q_offset, scale, True)
+            out, lse = _forward(q, k, v, causal, window, q_offset, scale, plain, True)
             if keeper is not None:
                 keeper.keep(key, (out, lse))
         ctx.mark_non_differentiable(lse)
@@ -313,13 +332,7 @@ class _Flash(torch.autograd.Function):
             ctx.keeper.release(ctx.key)
         if d_out is None:
             return (None,) * 9
-        if plain:
-            dq, dk, dv = flash_attention_bwd_torch(q, k, v, out, lse, d_out, causal=causal,
-                                                   window=window, q_offset=q_offset,
-                                                   scale=scale)
-        else:
-            dq, dk, dv = _launch_bwd_cuda(q, k, v, out, lse, d_out, causal, window,
-                                          q_offset, scale)
+        dq, dk, dv = _backward(q, k, v, out, lse, d_out, causal, window, q_offset, scale, plain)
         return dq, dk, dv, None, None, None, None, None, None
 
 
@@ -354,10 +367,8 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int | None = None,
         out, lse = _Flash.apply(q, k, v, causal, window, q_offset, scale,
                                 q.device.type == "cpu", name)
         return (out, lse) if return_lse else out
-    if q.device.type == "cpu":
-        return flash_attention_torch(q, k, v, causal=causal, window=window,
-                                     q_offset=q_offset, scale=scale, return_lse=return_lse)
-    return _launch_cuda(q, k, v, causal, window, q_offset, scale, return_lse)
+    return _forward(q, k, v, causal, window, q_offset, scale, q.device.type == "cpu",
+                    return_lse)
 
 
 flash_attention.launches = 0  # kernel launches made through this wrapper

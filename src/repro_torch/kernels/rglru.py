@@ -41,6 +41,7 @@ import torch
 import torch.nn.functional as F
 
 from . import replay
+from .fake import is_fake
 
 __all__ = ["rglru_gates", "rglru_scan", "rglru_scan_torch", "rglru_scan_torch_grad",
            "rglru_scan_bwd", "scan_torch", "scan_bwd_torch"]
@@ -208,11 +209,9 @@ def rglru_scan_bwd(a, y, h0, dy, dh_last=None):
     if a.shape != y.shape or dy.shape != a.shape:
         raise ValueError(f"a, y and dy must have one shape, got {tuple(a.shape)}, "
                          f"{tuple(y.shape)}, {tuple(dy.shape)}")
-    if a.device.type == "cpu":
-        return scan_bwd_torch(a, y, h0, dy.float(), dh_last)
-    if a.device.type != "cuda":
+    if a.device.type not in ("cpu", "cuda"):
         raise ValueError(f"rglru_scan_bwd runs on cuda or cpu tensors, got {a.device}")
-    return _launch_bwd_cuda(a, y, h0, dy, dh_last)
+    return _bwd(a, y, h0, dy, dh_last, a.device.type == "cpu")
 
 
 rglru_scan_bwd.launches = 0  # kernel launches made through this wrapper
@@ -231,7 +230,7 @@ class _Scan(torch.autograd.Function):
         if held is not None:
             (y,) = held
         else:
-            y = scan_torch(a, xb, h0) if plain else _launch_cuda(a, xb, h0)
+            y = _fwd(a, xb, h0, plain)
             if keeper is not None:
                 keeper.keep(key, (y,))
         ctx.save_for_backward(a, y, h0)
@@ -246,10 +245,7 @@ class _Scan(torch.autograd.Function):
             ctx.keeper.release(ctx.key)
         if dy is None:
             dy = torch.zeros_like(y)
-        if ctx.plain:
-            da, dx, dh0 = scan_bwd_torch(a, y, h0, dy.float(), dh_last)
-        else:
-            da, dx, dh0 = _launch_bwd_cuda(a, y, h0, dy, dh_last)
+        da, dx, dh0 = _bwd(a, y, h0, dy, dh_last, ctx.plain)
         return da, dx, (dh0 if ctx.has_h0 else None), None, None
 
 
@@ -266,8 +262,25 @@ def _scan(x, a_param, input_gate, a_gate, h0, plain, name):
         y, h_last = _Scan.apply(a, xb, None if h0 is None else h0.float(), plain, name)
         return y.to(x.dtype), h_last
     a, xb = rglru_gates(x, a_param, input_gate, a_gate)
-    y = scan_torch(a, xb, h0) if plain else _launch_cuda(a, xb, h0)
+    y = _fwd(a, xb, h0, plain)
     return y.to(x.dtype), y[:, -1].clone()
+
+
+def _fwd(a, xb, h0, plain: bool):
+    """The scan's states: the custom op for a fake tensor (:mod:`.fake`),
+    the plain loop if ``plain``, else the kernel."""
+    if is_fake(a):
+        return torch.ops.repro_torch.rglru_scan(a, xb, h0)
+    return scan_torch(a, xb, h0) if plain else _launch_cuda(a, xb, h0)
+
+
+def _bwd(a, y, h0, dy, dh_last, plain: bool):
+    """``(da, dx~, dh0)`` on the forward's route (:func:`_fwd`)."""
+    if is_fake(a):
+        return torch.ops.repro_torch.rglru_scan_bwd(a, y, h0, dy, dh_last)
+    if plain:
+        return scan_bwd_torch(a, y, h0, dy.float(), dh_last)
+    return _launch_bwd_cuda(a, y, h0, dy, dh_last)
 
 
 def rglru_scan(x, a_param, input_gate, a_gate, h0=None, *, name: str | None = None):

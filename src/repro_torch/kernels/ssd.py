@@ -57,6 +57,7 @@ import functools
 import torch
 
 from . import replay
+from .fake import is_fake, ssd_grads
 
 __all__ = ["CHUNK", "MAX_HEAD_DIM", "MAX_STATE", "TENSOR_CORE_MIN_T", "on_tensor_cores",
            "bwd_entry_points", "bwd_scratch", "ssd_chunked", "ssd_chunked_torch",
@@ -423,14 +424,34 @@ def ssd_chunked_bwd(x, dt, a_log, b_mat, c_mat, d_skip, h0, dy, dh_last=None):
     ``csrc/ssd_bwd.cu`` for CUDA tensors (asynchronous, on the current
     stream; dx, dB, dC in x's type, the rest fp32), :func:`ssd_chunked_bwd_torch`
     for CPU tensors."""
-    if x.device.type == "cpu":
-        return ssd_chunked_bwd_torch(x, dt, a_log, b_mat, c_mat, d_skip, h0, dy, dh_last)
-    if x.device.type != "cuda":
+    if x.device.type not in ("cpu", "cuda"):
         raise ValueError(f"ssd_chunked_bwd runs on cuda or cpu tensors, got {x.device}")
-    return _launch_bwd_cuda(x, dt, a_log, b_mat, c_mat, d_skip, h0, dy, dh_last)
+    return _bwd(x, dt, a_log, b_mat, c_mat, d_skip, h0, dy, dh_last, x.device.type == "cpu")
 
 
 ssd_chunked_bwd.launches = 0  # calls that launched the kernels (four kernels each)
+
+
+def _fwd(x, dt, a_log, b_mat, c_mat, d_skip, h0, plain: bool, chunk: int = CHUNK, shape=None):
+    """``(y, h_last)`` on its one route: the custom op for a fake tensor
+    (:mod:`.fake`), the plain version at ``chunk`` if ``plain``, else the
+    kernel (``shape``: ``_check``'s, computed here if None)."""
+    if is_fake(x):
+        return torch.ops.repro_torch.ssd_fwd(x, dt, a_log, b_mat, c_mat, d_skip, h0)
+    if plain:
+        return ssd_chunked_torch(x, dt, a_log, b_mat, c_mat, d_skip, h0, chunk)
+    return _launch_cuda(x, dt, a_log, b_mat, c_mat, d_skip, h0,
+                        shape or _check(x, dt, a_log, b_mat, c_mat, d_skip, h0))
+
+
+def _bwd(x, dt, a_log, b_mat, c_mat, d_skip, h0, dy, dh_last, plain: bool, chunk: int = CHUNK):
+    """The gradients on the forward's route (:func:`_fwd`)."""
+    if is_fake(x):
+        return ssd_grads(torch.ops.repro_torch.ssd_bwd(x, dt, a_log, b_mat, c_mat, d_skip, h0,
+                                                       dy, dh_last))
+    if plain:
+        return ssd_chunked_bwd_torch(x, dt, a_log, b_mat, c_mat, d_skip, h0, dy, dh_last, chunk)
+    return _launch_bwd_cuda(x, dt, a_log, b_mat, c_mat, d_skip, h0, dy, dh_last)
 
 
 class _SSD(torch.autograd.Function):
@@ -447,11 +468,7 @@ class _SSD(torch.autograd.Function):
         if held is not None:
             y, h_last = held
         else:
-            if plain:
-                y, h_last = ssd_chunked_torch(x, dt, a_log, b_mat, c_mat, d_skip, h0, chunk)
-            else:
-                y, h_last = _launch_cuda(x, dt, a_log, b_mat, c_mat, d_skip, h0,
-                                         _check(x, dt, a_log, b_mat, c_mat, d_skip, h0))
+            y, h_last = _fwd(x, dt, a_log, b_mat, c_mat, d_skip, h0, plain, chunk)
             if keeper is not None:
                 keeper.keep(key, (y, h_last))
         ctx.save_for_backward(x, dt, a_log, b_mat, c_mat, d_skip, h0)
@@ -466,12 +483,8 @@ class _SSD(torch.autograd.Function):
             ctx.keeper.release(ctx.key)
         if dy is None:
             dy = torch.zeros_like(x)
-        if ctx.plain:
-            grads = ssd_chunked_bwd_torch(x, dt, a_log, b_mat, c_mat, d_skip, h0, dy, dh_last,
-                                          ctx.chunk)
-        else:
-            grads = _launch_bwd_cuda(x, dt, a_log, b_mat, c_mat, d_skip, h0,
-                                     dy.to(x.dtype), dh_last)
+        grads = _bwd(x, dt, a_log, b_mat, c_mat, d_skip, h0,
+                     dy if ctx.plain else dy.to(x.dtype), dh_last, ctx.plain, ctx.chunk)
         return (*(g if need else None for g, need in zip(grads, ctx.needs_input_grad)),
                 None, None, None)
 
@@ -494,9 +507,7 @@ def ssd_chunked(x, dt, a_log, b_mat, c_mat, d_skip=None, h0=None, *, name: str |
     if _needs_grad(x, dt, a_log, b_mat, c_mat, d_skip, h0):
         return _SSD.apply(x, dt, a_log, b_mat, c_mat, d_skip, h0, x.device.type == "cpu",
                           CHUNK, name)
-    if x.device.type == "cpu":
-        return ssd_chunked_torch(x, dt, a_log, b_mat, c_mat, d_skip, h0)
-    return _launch_cuda(x, dt, a_log, b_mat, c_mat, d_skip, h0, shape)
+    return _fwd(x, dt, a_log, b_mat, c_mat, d_skip, h0, x.device.type == "cpu", shape=shape)
 
 
 def ssd_chunked_torch_grad(x, dt, a_log, b_mat, c_mat, d_skip=None, h0=None, *,

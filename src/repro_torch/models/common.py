@@ -2,9 +2,9 @@
 initialisation from a ``torch.Generator``, norms (RMSNorm, LayerNorm), RoPE,
 activations.
 
-A module lists its parameters as :class:`ParamDef`s (shape, initialiser,
-whether the value stays fp32) and :class:`DefModule` registers them, in one
-of two layouts:
+A module lists its parameters as :class:`ParamDef`s (shape, logical axes,
+initialiser, whether the value stays fp32) and :class:`DefModule` registers
+them, in one of two layouts:
 
 * serving (``master=False``): matmul weights, embeddings and biases are held
   in the working type, cast once when they are set (the reference keeps fp32
@@ -19,6 +19,12 @@ of two layouts:
 
 :func:`tag` names an activation class (the reference's ``checkpoint_name``)
 for a residency plan (:mod:`.remat`).
+
+The logical axes name each dimension ("embed", "heads", "ff", ...), as the
+reference's do; :func:`spec_tree` maps them to mesh-axis names through a
+rules dict (``repro_torch.sharding``), and :func:`placements` turns such a
+spec into DTensor placements on a ``DeviceMesh``.  A decode cache's entries
+are :class:`CacheDef`s: a ``(shape, fp32)`` pair that carries its axes too.
 """
 from __future__ import annotations
 
@@ -32,7 +38,12 @@ from torch import nn
 
 __all__ = [
     "ParamDef",
+    "CacheDef",
     "DefModule",
+    "param_defs",
+    "embedding",
+    "spec_tree",
+    "placements",
     "init_params_",
     "rms_norm",
     "layer_norm",
@@ -48,9 +59,77 @@ __all__ = [
 @dataclasses.dataclass(frozen=True)
 class ParamDef:
     shape: tuple[int, ...]
+    axes: tuple[str | None, ...]    # logical sharding axes per dim
     init: str = "normal"            # normal | zeros | ones | small
     scale: float | None = None      # overrides fan-in scaling
     fp32: bool = False              # kept in fp32 whatever the working type
+
+    def __post_init__(self):
+        assert len(self.shape) == len(self.axes), (self.shape, self.axes)
+
+
+class CacheDef(tuple):
+    """One decode-cache entry: the pair ``(shape, fp32)`` (fp32, else the
+    working type), with its logical ``axes`` as an attribute."""
+
+    def __new__(cls, shape: tuple[int, ...], fp32: bool, axes: tuple[str | None, ...]):
+        assert len(shape) == len(axes), (shape, axes)
+        self = super().__new__(cls, (tuple(shape), fp32))
+        self.axes = tuple(axes)
+        return self
+
+    @property
+    def shape(self) -> tuple[int, ...]:
+        return self[0]
+
+    @property
+    def fp32(self) -> bool:
+        return self[1]
+
+
+def _is_def(x) -> bool:
+    return isinstance(x, (ParamDef, CacheDef))
+
+
+def spec_tree(defs, rules: dict):
+    """Logical axes -> a spec per dimension (a mesh-axis name, a tuple of
+    them, or None) through a rules dict, over a tree (dicts, lists) of
+    :class:`ParamDef` / :class:`CacheDef` leaves; the reference's
+    ``spec_tree`` with tuples in place of ``PartitionSpec``s."""
+    if _is_def(defs):
+        return tuple(rules.get(a) if a is not None else None for a in defs.axes)
+    if isinstance(defs, dict):
+        return {k: spec_tree(v, rules) for k, v in defs.items()}
+    if isinstance(defs, (list, tuple)):
+        return type(defs)(spec_tree(v, rules) for v in defs)
+    raise TypeError(f"spec_tree: {type(defs).__name__} is not a def tree")
+
+
+def placements(spec: tuple, mesh) -> tuple:
+    """A spec (one entry per tensor dim) -> DTensor placements on ``mesh``:
+    ``Shard(d)`` on each mesh dim that tensor dim ``d`` names (a tuple entry
+    such as ("pod", "data") shards one tensor dim over several mesh dims,
+    major to minor in the mesh's order), ``Replicate()`` on the others.  A
+    mesh dim of one rank replicates (a shard of one is the whole tensor, and
+    DTensor will not reshape a dim it holds sharded)."""
+    from torch.distributed.tensor import Replicate, Shard
+
+    names = mesh.mesh_dim_names
+    out = [Replicate() for _ in names]
+    taken = set()
+    for d, entry in enumerate(spec):
+        for ax in (entry if isinstance(entry, tuple) else (entry,)):
+            if ax is None:
+                continue
+            if ax not in names:
+                raise ValueError(f"spec {spec} names mesh axis {ax!r}, not in {names}")
+            if ax in taken:
+                raise ValueError(f"spec {spec} puts mesh axis {ax!r} on two dims")
+            taken.add(ax)
+            i = names.index(ax)
+            if mesh.size(i) > 1:
+                out[i] = Shard(d)
+    return tuple(out)
 
 
 class DefModule(nn.Module):
@@ -81,6 +160,52 @@ class DefModule(nn.Module):
     def master(self, name: str) -> torch.Tensor:
         """The stored parameter ``name`` itself (no cast at use)."""
         return self._parameters[name]
+
+
+def param_defs(model: nn.Module) -> dict[str, ParamDef]:
+    """Every :class:`DefModule` parameter of ``model`` by its state-dict
+    name -> its :class:`ParamDef`."""
+    out = {}
+    for prefix, mod in model.named_modules():
+        if isinstance(mod, DefModule):
+            for name, d in mod.defs.items():
+                out[f"{prefix}.{name}" if prefix else name] = d
+    return out
+
+
+def embedding(table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
+    """Rows ``ids`` of ``table`` (V, E).  For DTensors a vocabulary-parallel
+    lookup on each rank's shard (``local_map``): a rank whose table holds
+    the vocabulary rows ``v0 ..`` looks up the ids in its range and gives
+    zeros for the rest, a partial sum over the mesh dims that shard the
+    vocabulary (the ids gathered there); the embedding dim is gathered.  A
+    table that holds the whole vocabulary takes ``table[ids]`` itself."""
+    from ..sharding.partitioning import is_dtensor
+
+    if not is_dtensor(table):
+        return table[ids]
+    from torch.distributed.tensor import Partial, Replicate, Shard
+
+    from ..sharding import shard_map
+    from ..sharding.partitioning import local_start, split_grad
+
+    mesh, v = table.device_mesh, table.shape[0]
+    vocab = [isinstance(p, Shard) and p.dim == 0 for p in table.placements]
+    t_in = tuple(p if voc else Replicate() for p, voc in zip(table.placements, vocab))
+    i_in = tuple(Replicate() if voc else p for p, voc in zip(ids.placements, vocab))
+    out = tuple(Partial() if voc else p for p, voc in zip(i_in, vocab))
+
+    def local(t, i):
+        if t.shape[0] == v:
+            return t[i]
+        rel = i - local_start(mesh, t_in, 0, v)
+        hit = (rel >= 0) & (rel < t.shape[0])
+        rows = t[rel.clamp(0, t.shape[0] - 1)]
+        return torch.where(hit[..., None], rows, torch.zeros((), dtype=rows.dtype,
+                                                               device=rows.device))
+
+    return shard_map(local, mesh=mesh, in_specs=(t_in, i_in), out_specs=out,
+                     in_grad_specs=(split_grad(t_in, i_in), i_in))(table, ids)
 
 
 def _draw(d: ParamDef, gen: torch.Generator, device) -> torch.Tensor:
@@ -139,6 +264,9 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.
     d = x.shape[-1]
     cos, sin = rope_table(positions, d, theta)
     cos, sin = cos[None, :, None, :], sin[None, :, None, :]
+    from ..sharding.partitioning import like   # a DTensor x: replicated tables
+
+    cos, sin = like(cos, x), like(sin, x)
     xf1, xf2 = x[..., : d // 2].float(), x[..., d // 2:].float()
     out = torch.cat([xf1 * cos - xf2 * sin, xf2 * cos + xf1 * sin], dim=-1)
     return out.to(x.dtype)

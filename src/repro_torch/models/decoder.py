@@ -36,9 +36,11 @@ from torch import nn
 
 from .._device import resolve_device
 from ..configs.base import ModelConfig
+from ..sharding import shard
+from ..sharding.partitioning import is_dtensor
 from . import blocks, remat
 from .attention import attention, attn_defs, decode_attention, kv_cache_defs
-from .common import DefModule, ParamDef, layer_norm, recompute, rms_norm, tag
+from .common import DefModule, ParamDef, embedding, layer_norm, recompute, rms_norm, tag
 
 __all__ = [
     "KINDS",
@@ -91,9 +93,9 @@ def check_supported(cfg: ModelConfig) -> None:
 def norm_defs(cfg: ModelConfig, name: str) -> dict[str, ParamDef]:
     """``{name}_w`` (ones), and ``{name}_b`` (zeros) for a LayerNorm; fp32, as
     the reference reads them."""
-    defs = {f"{name}_w": ParamDef((cfg.d_model,), init="ones", fp32=True)}
+    defs = {f"{name}_w": ParamDef((cfg.d_model,), ("embed",), init="ones", fp32=True)}
     if cfg.norm == "layernorm":
-        defs[f"{name}_b"] = ParamDef((cfg.d_model,), init="zeros", fp32=True)
+        defs[f"{name}_b"] = ParamDef((cfg.d_model,), ("embed",), init="zeros", fp32=True)
     return defs
 
 
@@ -104,10 +106,10 @@ def apply_norm(cfg: ModelConfig, mod, name: str, x: torch.Tensor) -> torch.Tenso
     return recompute(rms_norm, x, getattr(mod, f"{name}_w"))
 
 
-def ffn(cfg: ModelConfig, p, x: torch.Tensor) -> torch.Tensor:
+def ffn(cfg: ModelConfig, p, x: torch.Tensor, rules=None) -> torch.Tensor:
     """The layer's feed-forward block: the MoE where the config has experts,
     else the dense MLP."""
-    return blocks.moe(cfg, p, x) if cfg.n_experts else blocks.mlp(cfg, p, x)
+    return blocks.moe(cfg, p, x, rules) if cfg.n_experts else blocks.mlp(cfg, p, x, rules)
 
 
 def ffn_defs(cfg: ModelConfig) -> dict[str, ParamDef]:
@@ -146,9 +148,10 @@ class Decoder(DefModule):
                              "models.encdec.EncDec (or models.arch_init_params)")
         dtype = working_dtype(cfg)
         device = resolve_device(device)
-        defs = {"tok_emb": ParamDef((cfg.padded_vocab, cfg.d_model), scale=1.0)}
+        defs = {"tok_emb": ParamDef((cfg.padded_vocab, cfg.d_model), ("vocab", "embed"),
+                                    scale=1.0)}
         if not cfg.tie_embeddings:
-            defs["lm_head"] = ParamDef((cfg.d_model, cfg.padded_vocab))
+            defs["lm_head"] = ParamDef((cfg.d_model, cfg.padded_vocab), ("embed", "vocab"))
         super().__init__({**defs, **norm_defs(cfg, "ln_f")}, dtype, device, master)
         self.cfg = cfg
         self.layers = nn.ModuleList(Layer(cfg, kind, dtype, device, master)
@@ -163,7 +166,7 @@ def _embed(cfg: ModelConfig, model: Decoder, tokens: torch.Tensor,
            vis_embeds: torch.Tensor | None = None) -> torch.Tensor:
     # gathered from the stored table, then cast (the reference's take-then-cast:
     # a training model scatters the gradient into its fp32 master)
-    x = model.master("tok_emb")[tokens].to(working_dtype(cfg))
+    x = embedding(model.master("tok_emb"), tokens).to(working_dtype(cfg))
     if cfg.emb_scale:
         # the scale is rounded to the working type first, as the reference does
         # (50.5 in bf16 for d 2560), on the host: no copy to the card, no wait
@@ -174,11 +177,13 @@ def _embed(cfg: ModelConfig, model: Decoder, tokens: torch.Tensor,
     return x
 
 
-def _logits(cfg: ModelConfig, model: Decoder, x: torch.Tensor) -> torch.Tensor:
+def _logits(cfg: ModelConfig, model: Decoder, x: torch.Tensor, rules=None) -> torch.Tensor:
     x = apply_norm(cfg, model, "ln_f", x)
     if cfg.tie_embeddings:
-        return torch.einsum("bse,ve->bsv", x, model.tok_emb)
-    return torch.einsum("bse,ev->bsv", x, model.lm_head)
+        logits = torch.einsum("bse,ve->bsv", x, model.tok_emb)
+    else:
+        logits = torch.einsum("bse,ev->bsv", x, model.lm_head)
+    return shard(logits, ("batch", "seq", "vocab"), rules)
 
 
 def _ring_from_full(k: torch.Tensor, window: int) -> torch.Tensor:
@@ -207,14 +212,14 @@ def _window(cfg: ModelConfig, kind: str) -> int | None:
     return cfg.attn_window if kind == "attn_local" else None
 
 
-def _layer(cfg: ModelConfig, layer: Layer, x: torch.Tensor, positions, max_len):
+def _layer(cfg: ModelConfig, layer: Layer, x: torch.Tensor, positions, max_len, rules=None):
     """One layer over the whole sequence; with ``max_len`` also its cache entry."""
     h = apply_norm(cfg, layer, "ln1", x)
     entry = None
     if layer.kind in _ATTN:
         win = _window(cfg, layer.kind)
         out, (k, v) = attention(cfg, layer.attn, h, positions=positions, causal=True,
-                                window=win, return_kv=True)
+                                window=win, return_kv=True, rules=rules)
         if max_len is not None and win is not None:
             slots = min(max_len, win)
             entry = {"k": _ring_from_full(k, slots), "v": _ring_from_full(v, slots)}
@@ -225,10 +230,10 @@ def _layer(cfg: ModelConfig, layer: Layer, x: torch.Tensor, positions, max_len):
         if max_len is not None:   # prefill starts from a zero state, as a decode would
             state = _zeros(_STATE_DEFS[layer.kind](cfg, x.shape[0]), x.dtype, x.device)
         block = blocks.rec_block if layer.kind == "rec" else blocks.ssm_block
-        out, entry = block(cfg, getattr(layer, layer.kind), h, state)
+        out, entry = block(cfg, getattr(layer, layer.kind), h, rules, state)
     x = tag(x + out, "resid_mid")
     if layer.mlp is not None:
-        x = x + ffn(cfg, layer.mlp, apply_norm(cfg, layer, "ln2", x))
+        x = x + ffn(cfg, layer.mlp, apply_norm(cfg, layer, "ln2", x), rules)
     return tag(x, "resid_out"), entry
 
 
@@ -311,12 +316,14 @@ def _region(plan: remat.Residency, fn, x: torch.Tensor) -> torch.Tensor:
 
 
 def _train_layers(cfg: ModelConfig, model: Decoder, x: torch.Tensor, positions,
-                  scan_group: int | None, plan: remat.Residency) -> torch.Tensor:
-    """The layers of a training forward under ``plan`` (see :mod:`.remat`)."""
+                  scan_group: int | None, plan: remat.Residency, rules=None) -> torch.Tensor:
+    """The layers of a training forward under ``plan`` (see :mod:`.remat`);
+    a uniform stack's group carries are constrained to ``seq_carry``, as the
+    reference's."""
     def one(i):
         def run(xc):
             with plan.layer(i):
-                return _layer(cfg, model.layers[i], xc, positions, None)[0]
+                return _layer(cfg, model.layers[i], xc, positions, None, rules)[0]
         return run
 
     if plan.recomputes_nothing(cfg):
@@ -324,11 +331,13 @@ def _train_layers(cfg: ModelConfig, model: Decoder, x: torch.Tensor, positions,
             x = one(i)(x)
         return x
 
+    carry = cfg.uniform and cfg.scan_layers
+
     def group(idx):
         def run(xc):
             for i in idx:
                 xc = _region(plan, one(i), xc)
-            return xc
+            return shard(xc, ("batch", "seq_carry", "embed"), rules) if carry else xc
         return run
 
     with torch_checkpoint.set_checkpoint_early_stop(False):
@@ -339,23 +348,24 @@ def _train_layers(cfg: ModelConfig, model: Decoder, x: torch.Tensor, positions,
 
 def forward(cfg: ModelConfig, model: Decoder, tokens: torch.Tensor, *,
             vis_embeds: torch.Tensor | None = None, scan_group: int | None = None,
-            remat_policy=None) -> torch.Tensor:
+            remat_policy=None, rules=None) -> torch.Tensor:
     """Token logits (B, S, padded_vocab); ``vis_embeds (B, Nv, E)`` replace
     the first Nv positions' embeddings.  With gradients enabled and a model
     of fp32 masters (training) the layers run under the residency plan
     ``remat_policy`` (a :class:`~.remat.Residency`; None saves nothing beyond
     the period and layer carries, unless ``cfg.remat == "none"``), in regions
-    of ``scan_group`` layers for a uniform stack."""
-    x = _embed(cfg, model, tokens, vis_embeds)
+    of ``scan_group`` layers for a uniform stack.  ``rules`` constrain the
+    activations to their logical axes (DTensor parameters and inputs)."""
+    x = shard(_embed(cfg, model, tokens, vis_embeds), ("batch", "seq", "embed"), rules)
     positions = torch.arange(tokens.shape[1], device=tokens.device)
     training = torch.is_grad_enabled() and model.master("tok_emb").requires_grad
     if training and cfg.remat != "none":
         plan = remat_policy if remat_policy is not None else remat.Residency()
-        x = _train_layers(cfg, model, x, positions, scan_group, plan)
+        x = _train_layers(cfg, model, x, positions, scan_group, plan, rules)
     else:
         for layer in model.layers:
-            x, _ = _layer(cfg, layer, x, positions, None)
-    return _logits(cfg, model, x)
+            x, _ = _layer(cfg, layer, x, positions, None, rules)
+    return _logits(cfg, model, x, rules)
 
 
 class _CrossEntropy(torch.autograd.Function):
@@ -375,7 +385,8 @@ class _CrossEntropy(torch.autograd.Function):
         logz = torch.empty(n, dtype=torch.float32, device=logits.device)
         nll = torch.empty(n, dtype=torch.float32, device=logits.device)
         for r0 in range(0, n, _CrossEntropy.ROWS):
-            lf = logits[r0:r0 + _CrossEntropy.ROWS].float().masked_fill_(dead, -1e30)
+            lf = logits[r0:r0 + _CrossEntropy.ROWS].to(torch.float32, copy=True).masked_fill_(
+                dead, -1e30)
             lz = torch.logsumexp(lf, dim=-1)
             row = lz - torch.gather(lf, 1, gold_ix[r0:r0 + _CrossEntropy.ROWS])[:, 0]
             if z_loss:
@@ -396,7 +407,7 @@ class _CrossEntropy(torch.autograd.Function):
         for r0 in range(0, n, _CrossEntropy.ROWS):
             r1 = min(n, r0 + _CrossEntropy.ROWS)
             # softmax of the block, in place in one fp32 buffer
-            p = logits[r0:r1].float().masked_fill_(dead, -1e30)
+            p = logits[r0:r1].to(torch.float32, copy=True).masked_fill_(dead, -1e30)
             p.sub_(logz[r0:r1, None]).exp_()
             if ctx.z_loss:
                 p.mul_(1.0 + 2.0 * ctx.z_loss * logz[r0:r1, None])
@@ -410,14 +421,42 @@ def cross_entropy_loss(cfg: ModelConfig, logits: torch.Tensor, labels: torch.Ten
                        z_loss: float = 1e-4) -> torch.Tensor:
     """Mean next-token cross-entropy over the labels that are not -1, with
     the padded vocabulary masked out of the softmax and ``z_loss * logz^2``
-    added, as the reference's ``cross_entropy_loss``.  logits (B, S, V)."""
+    added, as the reference's ``cross_entropy_loss``.  logits (B, S, V).
+    For DTensor logits each rank takes its batch rows whole (vocabulary and
+    sequence gathered) and the mean is over every rank's labels."""
+    if is_dtensor(logits):
+        return _sharded_loss(cfg, logits, labels, float(z_loss))
     v = logits.shape[-1]
     return _CrossEntropy.apply(logits.reshape(-1, v), labels.reshape(-1).long(),
                                cfg.vocab_size, float(z_loss))
 
 
+def _sharded_loss(cfg: ModelConfig, logits, labels, z_loss: float):
+    """:func:`cross_entropy_loss` on each rank's batch rows (``local_map``):
+    the rank's sum of losses and its count of labels are partial sums over
+    the batch's mesh axes, and their ratio is the global mean."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+
+    from ..sharding import shard_map
+
+    mesh, v = logits.device_mesh, logits.shape[-1]
+    rows = tuple(pl if isinstance(pl, Shard) and pl.dim == 0 else Replicate()
+                 for pl in logits.placements)
+    part = tuple(Partial() if isinstance(pl, Shard) else Replicate() for pl in rows)
+
+    def local(lg, lb):
+        lb = lb.reshape(-1).long()
+        count = (lb >= 0).sum().float()
+        mean = _CrossEntropy.apply(lg.reshape(-1, v), lb, cfg.vocab_size, z_loss)
+        return mean * torch.clamp_min(count, 1.0), count
+
+    total, count = shard_map(local, mesh=mesh, in_specs=(rows, rows), out_specs=[part, part])(
+        logits, labels)
+    return total / torch.clamp_min(count.redistribute(mesh, [Replicate()] * mesh.ndim), 1.0)
+
+
 def prefill(cfg: ModelConfig, model: Decoder, tokens: torch.Tensor, *,
-            vis_embeds: torch.Tensor | None = None, max_len: int | None = None):
+            vis_embeds: torch.Tensor | None = None, max_len: int | None = None, rules=None):
     """Forward the prompt (its first positions replaced by ``vis_embeds``, if
     given) and build the decode cache.  Returns (last-position logits
     (B, padded_vocab), cache)."""
@@ -425,17 +464,17 @@ def prefill(cfg: ModelConfig, model: Decoder, tokens: torch.Tensor, *,
     max_len = max_len or s
     if max_len < s:
         raise ValueError(f"max_len {max_len} is shorter than the prompt ({s})")
-    x = _embed(cfg, model, tokens, vis_embeds)
+    x = shard(_embed(cfg, model, tokens, vis_embeds), ("batch", "seq", "embed"), rules)
     positions = torch.arange(s, device=tokens.device)
     cache = []
     for layer in model.layers:
-        x, entry = _layer(cfg, layer, x, positions, max_len)
+        x, entry = _layer(cfg, layer, x, positions, max_len, rules)
         cache.append(entry)
     return _logits(cfg, model, x[:, -1:])[:, 0], cache
 
 
 def decode_step(cfg: ModelConfig, model: Decoder, cache: list, tokens: torch.Tensor,
-                pos: int):
+                pos: int, *, rules=None):
     """One decode step: tokens (B, 1) at absolute position ``pos``.  Returns
     (logits (B, padded_vocab), the new cache); attention caches are updated in
     place."""
@@ -445,14 +484,14 @@ def decode_step(cfg: ModelConfig, model: Decoder, cache: list, tokens: torch.Ten
         h = apply_norm(cfg, layer, "ln1", x)
         if layer.kind in _ATTN:
             out, entry = decode_attention(cfg, layer.attn, h, entry, pos,
-                                          window=_window(cfg, layer.kind))
+                                          window=_window(cfg, layer.kind), rules=rules)
         elif layer.kind == "rec":
-            out, entry = blocks.rec_decode(cfg, layer.rec, h, entry)
+            out, entry = blocks.rec_decode(cfg, layer.rec, h, entry, rules)
         else:
-            out, entry = blocks.ssm_decode(cfg, layer.ssm, h, entry)
+            out, entry = blocks.ssm_decode(cfg, layer.ssm, h, entry, rules)
         x = x + out
         if layer.mlp is not None:
-            x = x + ffn(cfg, layer.mlp, apply_norm(cfg, layer, "ln2", x))
+            x = x + ffn(cfg, layer.mlp, apply_norm(cfg, layer, "ln2", x), rules)
         new_cache.append(entry)
     return _logits(cfg, model, x)[:, 0], new_cache
 

@@ -38,7 +38,8 @@ from ..configs.base import ModelConfig
 from . import blocks
 from .attention import attention, attn_defs, cross_decode_attention, decode_attention, \
     kv_cache_defs
-from .common import DefModule, ParamDef, tag
+from ..sharding import shard
+from .common import CacheDef, DefModule, ParamDef, embedding, tag
 from .decoder import _pad_cache, _zeros, apply_norm, check_supported, norm_defs, working_dtype
 
 __all__ = [
@@ -94,8 +95,10 @@ class EncDec(DefModule):
         dtype = working_dtype(cfg)
         device = resolve_device(device)
         d = cfg.d_model
-        super().__init__({"tok_emb": ParamDef((cfg.padded_vocab, d), scale=1.0),
-                          "pos_emb": ParamDef((MAX_DEC_POSITIONS, d), scale=0.02),
+        super().__init__({"tok_emb": ParamDef((cfg.padded_vocab, d), ("vocab", "embed"),
+                                              scale=1.0),
+                          "pos_emb": ParamDef((MAX_DEC_POSITIONS, d), (None, "embed"),
+                                              scale=0.02),
                           **norm_defs(cfg, "ln_enc_f"), **norm_defs(cfg, "ln_dec_f")},
                          dtype, device, master)
         self.cfg = cfg
@@ -123,19 +126,23 @@ def _run(regions: bool, fn, *args) -> torch.Tensor:
                                        preserve_rng_state=False)
 
 
-def _enc_layer(cfg: ModelConfig, layer: EncLayer, positions, x: torch.Tensor) -> torch.Tensor:
+def _enc_layer(cfg: ModelConfig, layer: EncLayer, positions, rules,
+               x: torch.Tensor) -> torch.Tensor:
     h = apply_norm(cfg, layer, "ln1", x)
-    x = x + attention(cfg, layer.attn, h, positions=positions, causal=False, rope=False)
-    return tag(x + blocks.mlp(cfg, layer.mlp, apply_norm(cfg, layer, "ln2", x)), "enc_resid")
+    x = x + attention(cfg, layer.attn, h, positions=positions, causal=False, rope=False,
+                      rules=rules)
+    return tag(x + blocks.mlp(cfg, layer.mlp, apply_norm(cfg, layer, "ln2", x), rules),
+               "enc_resid")
 
 
-def encdec_encode(cfg: ModelConfig, model: EncDec, frames: torch.Tensor) -> torch.Tensor:
+def encdec_encode(cfg: ModelConfig, model: EncDec, frames: torch.Tensor, *,
+                  rules=None) -> torch.Tensor:
     """frames (B, F, E), the stub frontend's output -> encoder states (B, F, E)."""
-    x = frames.to(working_dtype(cfg))
+    x = shard(frames.to(working_dtype(cfg)), ("batch", "seq", "embed"), rules)
     positions = torch.arange(x.shape[1], device=x.device)
     regions = _regions(cfg, model)
     for layer in model.enc_layers:
-        x = _run(regions, functools.partial(_enc_layer, cfg, layer, positions), x)
+        x = _run(regions, functools.partial(_enc_layer, cfg, layer, positions, rules), x)
     return apply_norm(cfg, model, "ln_enc_f", x)
 
 
@@ -148,23 +155,25 @@ def _embed(cfg: ModelConfig, model: EncDec, tokens: torch.Tensor, pos0: int) -> 
                          f"{n_pos} learned positions")
     # gathered from the stored tables, then cast (a training model scatters
     # the gradient into its fp32 masters), as decoder._embed
-    x = model.master("tok_emb")[tokens].to(working_dtype(cfg))
+    x = embedding(model.master("tok_emb"), tokens).to(working_dtype(cfg))
     return x + model.master("pos_emb")[pos0:pos0 + s].to(x.dtype)[None]
 
 
 def _dec_layer(cfg: ModelConfig, layer: DecLayer, positions, enc_positions,
                x: torch.Tensor, enc: torch.Tensor, entries: list | None = None,
-               max_len: int | None = None) -> torch.Tensor:
+               max_len: int | None = None, rules=None) -> torch.Tensor:
     """One decoder layer; with ``max_len`` it appends its cache entry to
     ``entries``."""
     out, (k, v) = attention(cfg, layer.self_attn, apply_norm(cfg, layer, "ln1", x),
-                            positions=positions, causal=True, rope=False, return_kv=True)
+                            positions=positions, causal=True, rope=False, return_kv=True,
+                            rules=rules)
     x = x + out
     out, (ck, cv) = attention(cfg, layer.cross_attn, apply_norm(cfg, layer, "ln_x", x),
                               positions=enc_positions, causal=False, rope=False,
-                              kv_x=enc, return_kv=True)
+                              kv_x=enc, return_kv=True, rules=rules)
     x = x + out
-    x = tag(x + blocks.mlp(cfg, layer.mlp, apply_norm(cfg, layer, "ln2", x)), "dec_resid")
+    x = tag(x + blocks.mlp(cfg, layer.mlp, apply_norm(cfg, layer, "ln2", x), rules),
+            "dec_resid")
     if max_len is not None:
         entries.append({"k": _pad_cache(k, max_len), "v": _pad_cache(v, max_len),
                         "cross_k": ck, "cross_v": cv})
@@ -172,7 +181,7 @@ def _dec_layer(cfg: ModelConfig, layer: DecLayer, positions, enc_positions,
 
 
 def _decoder(cfg: ModelConfig, model: EncDec, x: torch.Tensor, enc: torch.Tensor,
-             max_len: int | None):
+             max_len: int | None, rules=None):
     """The decoder stack over the whole sequence; with ``max_len`` also each
     layer's cache entry (self-attention keys and values padded to
     ``max_len`` slots, the cross-attention keys and values)."""
@@ -182,7 +191,8 @@ def _decoder(cfg: ModelConfig, model: EncDec, x: torch.Tensor, enc: torch.Tensor
     regions = max_len is None and _regions(cfg, model)
     for layer in model.dec_layers:
         x = _run(regions, functools.partial(_dec_layer, cfg, layer, positions, enc_positions,
-                                            entries=entries, max_len=max_len), x, enc)
+                                            entries=entries, max_len=max_len, rules=rules),
+                 x, enc)
     return x, entries
 
 
@@ -191,48 +201,53 @@ def _logits(cfg: ModelConfig, model: EncDec, x: torch.Tensor) -> torch.Tensor:
 
 
 def encdec_forward(cfg: ModelConfig, model: EncDec, tokens: torch.Tensor,
-                   frames: torch.Tensor) -> torch.Tensor:
+                   frames: torch.Tensor, *, rules=None) -> torch.Tensor:
     """Token logits (B, S, padded_vocab) of the decoder over ``tokens (B, S)``
     conditioned on ``frames (B, F, E)``."""
-    enc = encdec_encode(cfg, model, frames)
-    x, _ = _decoder(cfg, model, _embed(cfg, model, tokens, 0), enc, None)
-    return _logits(cfg, model, x)
+    enc = encdec_encode(cfg, model, frames, rules=rules)
+    x = shard(_embed(cfg, model, tokens, 0), ("batch", "seq", "embed"), rules)
+    x, _ = _decoder(cfg, model, x, enc, None, rules)
+    return shard(_logits(cfg, model, x), ("batch", "seq", "vocab"), rules)
 
 
 def encdec_prefill(cfg: ModelConfig, model: EncDec, tokens: torch.Tensor,
-                   frames: torch.Tensor, *, max_len: int | None = None):
+                   frames: torch.Tensor, *, max_len: int | None = None, rules=None):
     """Encode the frames, forward the decoder prompt, build the decode cache.
     Returns (last-position logits (B, padded_vocab), cache)."""
     s = tokens.shape[1]
     max_len = max_len or s
     if max_len < s:
         raise ValueError(f"max_len {max_len} is shorter than the prompt ({s})")
-    enc = encdec_encode(cfg, model, frames)
-    x, cache = _decoder(cfg, model, _embed(cfg, model, tokens, 0), enc, max_len)
+    enc = encdec_encode(cfg, model, frames, rules=rules)
+    x = shard(_embed(cfg, model, tokens, 0), ("batch", "seq", "embed"), rules)
+    x, cache = _decoder(cfg, model, x, enc, max_len, rules)
     return _logits(cfg, model, x[:, -1:])[:, 0], cache
 
 
 def encdec_decode_step(cfg: ModelConfig, model: EncDec, cache: list, tokens: torch.Tensor,
-                       pos: int):
+                       pos: int, *, rules=None):
     """One decode step: tokens (B, 1) at absolute position ``pos``.  Returns
     (logits (B, padded_vocab), the cache); the self-attention caches are
     updated in place, the cross-attention caches are read only."""
     x = _embed(cfg, model, tokens, pos)
     for layer, entry in zip(model.dec_layers, cache):
         h = apply_norm(cfg, layer, "ln1", x)
-        out, _ = decode_attention(cfg, layer.self_attn, h, entry, pos, rope=False)
+        out, self_kv = decode_attention(cfg, layer.self_attn, h, entry, pos, rope=False,
+                                        rules=rules)
+        entry.update(self_kv)
         x = x + out
         x = x + cross_decode_attention(cfg, layer.cross_attn, apply_norm(cfg, layer, "ln_x", x),
                                        entry["cross_k"], entry["cross_v"])
-        x = x + blocks.mlp(cfg, layer.mlp, apply_norm(cfg, layer, "ln2", x))
+        x = x + blocks.mlp(cfg, layer.mlp, apply_norm(cfg, layer, "ln2", x), rules)
     return _logits(cfg, model, x)[:, 0], cache
 
 
 def encdec_cache_defs(cfg: ModelConfig, batch: int, max_len: int) -> list[dict]:
     """Per decoder layer, name -> (shape, fp32?) of the decode cache."""
     cross = (batch, cfg.n_frames, cfg.n_kv_heads, cfg.resolved_head_dim)
+    axes = ("batch", None, "kv_heads", "head_dim")
     return [{**kv_cache_defs(cfg, batch, max_len),
-             "cross_k": (cross, False), "cross_v": (cross, False)}
+             "cross_k": CacheDef(cross, False, axes), "cross_v": CacheDef(cross, False, axes)}
             for _ in range(cfg.n_layers)]
 
 

@@ -9,6 +9,12 @@ over dicts of tensors (the reference's are functions over pytrees).
   the relative step size of the paper's section 8.
 * Global-norm clipping and decoupled weight decay in both.
 
+Parameters may be DTensors (``models.distribute_params``): the states are
+made with each parameter's placements, the gradients are brought to them
+first, the global norm sums every rank's shards (one all-reduce), AdamW
+updates each rank's local shard only, and Adafactor's factored statistics
+(means across a sharded dim) run as DTensor ops.
+
 ``apply(params, grads, state, step)`` returns ``(params, state, metrics)``
 like the reference's, but updates the parameters and the state in place, a
 parameter at a time (a step of a 2.7 B-parameter model would otherwise need
@@ -23,6 +29,8 @@ from typing import Any, Callable
 
 import torch
 
+from ..sharding.partitioning import is_dtensor
+
 __all__ = [
     "Optimizer", "adamw", "adafactor", "global_norm", "compress_decompress",
     "adafactor_factored",
@@ -34,12 +42,59 @@ def adafactor_factored(shape: tuple[int, ...], min_dim: int = 128) -> bool:
     return len(shape) >= 2 and shape[-1] >= min_dim and shape[-2] >= min_dim
 
 
+def _local(t):
+    """A DTensor's local shard; a plain tensor as it is."""
+    return t.to_local() if is_dtensor(t) else t
+
+
+def _match(t, like):
+    """``t`` with the placements of ``like`` (DTensors), else ``t``."""
+    if is_dtensor(t) and tuple(t.placements) != tuple(like.placements):
+        return t.redistribute(like.device_mesh, like.placements)
+    return t
+
+
+def _zeros(p, shape=None, dtype=torch.float32, drop: int | None = None):
+    """Zeros like ``p`` (its placements, for a DTensor), of ``shape`` with
+    dim ``drop`` of ``p`` dropped (Adafactor's factored slots)."""
+    if not is_dtensor(p):
+        return torch.zeros(p.shape if shape is None else shape, dtype=dtype, device=p.device)
+    if drop is None:
+        return torch.zeros_like(p, dtype=dtype)
+    from torch.distributed.tensor import Replicate, Shard
+    from torch.distributed.tensor import zeros as dzeros
+
+    drop %= p.ndim
+    pl = [Replicate() if isinstance(x, Shard) and x.dim == drop
+          else Shard(x.dim - 1) if isinstance(x, Shard) and x.dim > drop else x
+          for x in p.placements]
+    return dzeros(shape, dtype=dtype, device_mesh=p.device_mesh, placements=pl)
+
+
 def global_norm(tree: dict) -> torch.Tensor:
-    """sqrt of the sum of squares of every tensor of ``tree`` (fp32)."""
+    """sqrt of the sum of squares of every tensor of ``tree`` (fp32).  For
+    DTensors, each rank sums its shards' squares (a replicated shard over
+    its number of copies) and one all-reduce adds the ranks' sums; the
+    result is a plain tensor."""
     leaves = list(tree.values())
-    total = torch.zeros((), dtype=torch.float32, device=leaves[0].device)
+    total = torch.zeros((), dtype=torch.float32, device=_local(leaves[0]).device)
+    sharded, mesh = torch.zeros_like(total), None
     for leaf in leaves:
-        total = total + torch.sum(torch.square(leaf.float()))
+        if is_dtensor(leaf):
+            from torch.distributed.tensor import Replicate
+
+            copies = 1
+            for i, pl in enumerate(leaf.placements):
+                copies *= leaf.device_mesh.size(i) if isinstance(pl, Replicate) else 1
+            sharded = sharded + torch.sum(torch.square(leaf.to_local().float())) / copies
+            mesh = leaf.device_mesh
+        else:
+            total = total + torch.sum(torch.square(leaf.float()))
+    if mesh is not None:
+        from torch.distributed.tensor import DTensor, Partial
+
+        total = total + DTensor.from_local(sharded, mesh, [Partial()] * mesh.ndim,
+                                           run_check=False).full_tensor()
     return torch.sqrt(total)
 
 
@@ -91,30 +146,29 @@ def adamw(
     lr_fn = _lr_fn(lr)
 
     def init(params: dict) -> dict:
-        st = {"m": {k: torch.zeros(p.shape, dtype=state_dtype, device=p.device)
-                    for k, p in params.items()},
-              "v": {k: torch.zeros(p.shape, dtype=state_dtype, device=p.device)
-                    for k, p in params.items()}}
+        st = {"m": {k: _zeros(p, dtype=state_dtype) for k, p in params.items()},
+              "v": {k: _zeros(p, dtype=state_dtype) for k, p in params.items()}}
         if master_fp32:
             st["master"] = {k: p.detach().float().clone() for k, p in params.items()}
         if compression:
-            st["residual"] = {k: torch.zeros(p.shape, dtype=torch.float32, device=p.device)
-                              for k, p in params.items()}
+            st["residual"] = {k: _zeros(p) for k, p in params.items()}
         return st
 
     @torch.no_grad()
     def apply(params: dict, grads: dict, state: dict, step: int):
+        grads = {k: _match(grads[k], p) for k, p in params.items()}
         scale, gnorm = _clip_scale(grads, clip_norm)
         t = float(step) + 1.0
         c1, c2 = 1.0 - b1 ** t, 1.0 - b2 ** t
         lr_t = lr_fn(step)
         masters = state.get("master", params)
         for k, p in params.items():
-            gf = grads[k].float() * scale
+            p = _local(p)       # each rank updates its own shard
+            gf = _local(grads[k]).float() * scale
             if compression:
-                gf, state["residual"][k] = compress_decompress(gf, state["residual"][k],
-                                                               compression)
-            m, v, w = state["m"][k], state["v"][k], masters[k]
+                gf, residual = compress_decompress(gf, _local(state["residual"][k]), compression)
+                _local(state["residual"][k]).copy_(residual)
+            m, v, w = (_local(x) for x in (state["m"][k], state["v"][k], masters[k]))
             m_new = b1 * m.float() + (1 - b1) * gf
             v_new = b2 * v.float() + (1 - b2) * gf * gf
             step_v = (m_new / c1) / (torch.sqrt(v_new / c2) + eps) + weight_decay * w.float()
@@ -152,10 +206,9 @@ def adafactor(
     def init(params: dict) -> dict:
         def one(p):
             if factored(p):
-                return {"vr": torch.zeros(p.shape[:-1], dtype=torch.float32, device=p.device),
-                        "vc": torch.zeros(p.shape[:-2] + p.shape[-1:], dtype=torch.float32,
-                                          device=p.device)}
-            return {"v": torch.zeros(p.shape, dtype=torch.float32, device=p.device)}
+                return {"vr": _zeros(p, p.shape[:-1], drop=-1),
+                        "vc": _zeros(p, p.shape[:-2] + p.shape[-1:], drop=-2)}
+            return {"v": _zeros(p)}
 
         st: dict[str, Any] = {"slots": {k: one(p) for k, p in params.items()}}
         if master_fp32:
@@ -164,6 +217,7 @@ def adafactor(
 
     @torch.no_grad()
     def apply(params: dict, grads: dict, state: dict, step: int):
+        grads = {k: _match(grads[k], p) for k, p in params.items()}
         scale, gnorm = _clip_scale(grads, clip_norm)
         t = float(step) + 1.0
         beta2 = 1.0 - t ** -decay
@@ -179,12 +233,12 @@ def adafactor(
                 denom = torch.clamp_min(torch.mean(vr, dim=-1, keepdim=True), eps)
                 u = gf * torch.rsqrt(vr[..., None] / denom[..., None] + eps) \
                     * torch.rsqrt(vc[..., None, :] + eps)
-                slot["vr"].copy_(vr)
-                slot["vc"].copy_(vc)
+                slot["vr"].copy_(_match(vr, slot["vr"]))
+                slot["vc"].copy_(_match(vc, slot["vc"]))
             else:
                 v = beta2 * slot["v"] + (1 - beta2) * g2
                 u = gf * torch.rsqrt(v + eps)
-                slot["v"].copy_(v)
+                slot["v"].copy_(_match(v, slot["v"]))
             rms_u = torch.sqrt(torch.mean(torch.square(u)) + 1e-30)
             u = u / torch.clamp_min(rms_u / clip_threshold, 1.0)
             wf = w.float()
@@ -192,7 +246,7 @@ def adafactor(
             if relative_step:
                 rms_w = torch.sqrt(torch.mean(torch.square(wf)) + 1e-30)
                 alpha = lr_t * torch.clamp_min(rms_w, eps_scale)
-            w_new = wf - alpha * (u + weight_decay * wf)
+            w_new = _match(wf - alpha * (u + weight_decay * wf), p)
             if master_fp32:
                 w.copy_(w_new)
             p.copy_(w_new)

@@ -5,6 +5,7 @@ search round and the device engine, the device path's parity check and K1
 call, the launch counts it expects of each served arch, and its ``kernels``
 line."""
 import importlib.util
+import json
 import pathlib
 import subprocess
 import sys
@@ -1421,8 +1422,9 @@ def test_moe_check_reports_the_float32_readings_on_the_cpu(smoke):
     for what in ("routing_bf16", "routing_float32"):
         r = out[what]
         assert r["routings"] == routings
-        assert r["free_kernels_rel_err"] == r["pinned_kernels_rel_err"] == [0.0] * 3
-        assert r["free_kernels_swaps"] == r["pinned_kernels_swaps"] == 0
+        assert r["pinned_kernels_rel_err"] == [0.0] * 3
+        assert r["pinned_kernels_swaps"] == 0
+        assert not any(k.startswith("free_") for k in r)
         assert r["pinned_limit"] == smoke.YARDSTICK_FACTOR * max(r["pinned_tpu_order_rel_err"])
     assert 0.0 < max(out["routing_float32"]["pinned_tpu_order_rel_err"]) < 1e-4
 
@@ -1731,3 +1733,80 @@ def test_step1_gate_prints_an_ungated_reading_and_raises_a_gated_one(smoke, monk
     assert not out["within_fixed_limits"]
     with pytest.raises(AssertionError, match=r"x \(float32\) step 1 differs"):
         smoke.train_step1_gate(tr, torch.device("cpu"), 1e-2, 1e-3)
+
+
+def test_the_distributed_child_fails_without_a_gpu_and_the_phase_raises(smoke):
+    """``--distributed`` (the multi-device phase) refuses to run without a
+    card and prints no result; the parent's phase raises on its exit code."""
+    out = subprocess.run([sys.executable, str(ROOT / "chip_smoke.py"), "--distributed"],
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode != 0 and out.stdout == "" and "GPU" in out.stderr
+    with pytest.raises(AssertionError, match="multi-device phase failed"):
+        smoke.phase_distributed({}, {}, {})
+
+
+def test_dry_run_specs_cover_the_trained_configs_and_the_production_cell(smoke):
+    specs = smoke.calibration_specs()
+    assert set(specs) == {"train", "train_ssm", "train_moe", "train_encdec"}
+    assert smoke.PRODUCTION_DRY_RUN == {"arch": "llama3-405b", "cell": "train_4k",
+                                        "multi_pod": True}
+    assert specs["train_moe"] == {"arch": "granite-moe-1b-a400m", "cell": "train_1x4096",
+                                  "batch": 1, "seq": 4096, "multi_pod": False,
+                                  "mesh_shape": [1, 1], "plan": True}
+    assert (specs["train_encdec"]["batch"], specs["train_encdec"]["seq"]) == (16, 448)
+
+
+def test_sharded_train_on_the_cpu_equals_the_unsharded_step(smoke):
+    """(a) at the smoke size on a one-rank gloo (1, 1) mesh: every parameter
+    a DTensor, step 1 bit-equal to the unsharded step on the recorded expert
+    choice, then two finite sharded steps (the launch gate is the card's)."""
+    out = smoke.sharded_train(torch.device("cpu"), arch=smoke.DIST_ARCH, batch=2, seq=64,
+                              smoke=True)
+    assert out["backend"] == "gloo" and out["all_params_dtensors"]
+    assert out["step1_bit_equal"] and out["step1_routing_swaps"] == 0
+    assert out["step1_loss_rel_err"] == out["step1_grad_rel_err_max"] == 0.0
+    assert len(out["losses"]) == smoke.DIST_STEPS and all(np.isfinite(out["losses"]))
+    assert out["rules"]["params"]["embed"] == "data"
+    assert out["sample_placements"] == "(Replicate(), Replicate())"   # a mesh of one rank
+
+
+def test_the_dry_run_child_on_the_cpu(smoke):
+    """``--dry-run SPEC`` at the smoke size, under the planner's plan, on a
+    fake (1, 1) mesh: the record's keys as the last line, status ok."""
+    spec = {"arch": smoke.MOE_ARCH, "cell": "train_2x64", "batch": 2, "seq": 64,
+            "multi_pod": False, "mesh_shape": [1, 1], "plan": True, "smoke": True}
+    out = subprocess.run([sys.executable, str(ROOT / "chip_smoke.py"), "--dry-run",
+                          json.dumps(spec)], capture_output=True, text=True, timeout=300,
+                         cwd=ROOT)
+    assert out.returncode == 0, out.stderr[-3000:]
+    rec = json.loads(out.stdout.strip().splitlines()[-1])
+    assert rec["status"] == "ok" and rec["n_devices"] == 1
+    assert rec["mesh"] == {"data": 1, "model": 1}
+    assert rec["remat_policy"].startswith("Residency(")
+    assert rec["memory_analysis"]["peak_bytes"] >= rec["memory_analysis"][
+        "argument_size_in_bytes"] > 0
+    assert rec["cost_analysis"]["flops"] > 0
+    assert sum(rec["collectives"]["counts"].values()) == 0     # one rank: nothing crosses
+
+
+def test_calibration_holds_each_dry_run_beside_its_measured_step(smoke):
+    dry, trains = {}, {}
+    for i, (phase, arch, batch, seq) in enumerate(smoke.CALIBRATION):
+        dry[phase] = {"memory_analysis": {"peak_bytes": 2e9 * (i + 1),
+                                          "argument_size_in_bytes": 1e9},
+                      "cost_analysis": {"flops": 3e12, "bytes accessed": 5e11},
+                      "time_step_s": 10.0}
+        trains[phase] = {"max_memory_allocated_bytes": 4e9, "step_ms_steady": 100.0}
+    got = smoke.calibration(dry, trains)
+    assert list(got) == [c[0] for c in smoke.CALIBRATION]
+    assert got["train"]["peak_ratio"] == 0.5 and got["train_encdec"]["peak_ratio"] == 2.0
+    moe = got["train_moe"]
+    assert moe["train_model_flops"] == smoke.train_model_flops(
+        smoke_config(smoke.MOE_ARCH), smoke.TRAIN_BATCH, smoke.TRAIN_SEQ)
+    assert moe["flops_ratio"] == 3e12 / moe["train_model_flops"]
+
+
+def smoke_config(arch):
+    from repro_torch.configs import get_config
+
+    return get_config(arch)

@@ -241,6 +241,41 @@ def test_the_analysis_cli_leaves_jax_and_repro_unloaded():
     assert "LEAKED=\n" in out.stdout + "\n", out.stdout
 
 
+_PROBE_MULTI_DEVICE = """
+import dataclasses, sys, tempfile
+import repro_torch.sharding
+import repro_torch.sharding.partitioning
+import repro_torch.launch.mesh
+import repro_torch.launch.specs
+import repro_torch.launch.dryrun as dr
+import repro_torch.runtime.pipeline
+import repro_torch.kernels.fake
+from repro_torch.configs.base import ShapeCell
+from repro_torch.configs.registry import get_smoke_config
+dr.CELLS["t"] = ShapeCell("t", 32, 4, "train")
+rec = dr.run_cell("granite-moe-1b-a400m", "t", multi_pod=False, mesh_shape=(2, 2),
+                  out_dir=tempfile.mkdtemp(), force=True,
+                  cfg_override=get_smoke_config("granite-moe-1b-a400m"))
+assert rec["status"] == "ok", rec.get("error")
+bad = sorted(m for m in sys.modules
+             if m == "jax" or m.startswith("jax.") or m == "jaxlib"
+             or m == "repro" or m.startswith("repro."))
+print("LEAKED=" + ",".join(bad))
+"""
+
+
+def test_the_multi_device_layer_leaves_jax_and_repro_unloaded():
+    """This slice's modules (``sharding``, ``launch.mesh``, ``launch.specs``,
+    ``launch.dryrun``, ``runtime.pipeline``, ``kernels.fake``), imported and
+    run: a smoke dry-run train cell on a fake 2 x 2 mesh."""
+    out = subprocess.run(
+        [sys.executable, "-c", _PROBE_MULTI_DEVICE], capture_output=True, text=True,
+        env={"PYTHONPATH": str(ROOT / "src"), "PATH": "/usr/bin:/bin"},
+        timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert "LEAKED=\n" in out.stdout + "\n", out.stdout
+
+
 _FORBIDDEN = re.compile(
     r"^\s*(import\s+jax\b|from\s+jax\b|import\s+repro\b(?!_)|from\s+repro\b(?!_)"
     r"|from\s+repro\.)"
