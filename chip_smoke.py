@@ -59,7 +59,8 @@ every kernel against its plain PyTorch version on the card:
   K2 and K2 bwd run on each rank's shard through ``local_map``; the dry run
   (``launch/dryrun.py``) of each trained configuration held against its
   measured step, and of llama3-405b's ``train_4k`` on the 2 x 16 x 16
-  production mesh.
+  production mesh; the multi-rank cases on gloo ranks under the card's
+  torch, and the dry-run cells whose views folded a sharded dim there.
 
 Phases, one JSON line each:
 
@@ -89,11 +90,11 @@ Phases, one JSON line each:
                  and 32, N 32 and 64, G = H, 1 < G < H, T = 1), with h0,
                  d_skip and a nonzero dh_last and without, two bf16 calls at
                  the training shape bit-identical
-  main_path      the solve on the card (15 iterations), against the port's
+  main_path      the solve on the card (6 iterations), against the port's
                  NumPy backend, certified, with the host time of each phase of
                  the search round
   device_path    ``tabu_device`` at the same configuration: without Algorithm 3
-                 (cold, then three warm runs paired in alternating order with
+                 (cold, then two warm runs paired in alternating order with
                  NumPy runs) bit-identical to the NumPy ``tabu_multiwalk``
                  with no perturbation; with it, certified with capacity; the
                  replays run with every synchronising call an error, the time
@@ -153,7 +154,7 @@ Phases, one JSON line each:
                  cut under the profiler (its K1 launches = captured nodes x
                  rounds), every report certified and bit-identical to its
                  solo tabu_device solve (the solo loop timed cold and warm),
-                 the first 12 requests again under a seeded fault plan of
+                 the first 6 requests again under a seeded fault plan of
                  every kind with a watchdog (every request one terminal
                  state, survivors equal to their solo solves, no launch
                  failing but by an injected fault), and the table2 sweep on
@@ -203,10 +204,20 @@ Phases, one JSON line each:
                  (1, 1) mesh, its peak bytes and flops beside the measured
                  step's; (c) llama3-405b train_4k on the 2 x 16 x 16
                  production mesh, status ok, per-device bytes, flops and
-                 wire bytes.  The dry runs need no card: each runs in a
-                 process of its own (``--dry-run SPEC``), (b)'s beside the
-                 build and the kernels' gates (nothing timed), (c)'s beside
-                 the training children
+                 wire bytes; (d) multi_rank: 8 gloo ranks on this machine's
+                 CPU under its torch (``--multi-rank``, beside (a)), port
+                 against port: qwen2.5-14b's smoke train step under heads-TP
+                 (4 x 2) and q-sequence TP (1 x 8), llama3-405b's
+                 sequence-sharded decode (1 x 8) and the 4-stage pipeline,
+                 each sharded against unsharded within the gloo tests' gates
+                 (a check of the card's DTensor, not of the device path);
+                 (e) strict_fold_cells: the dry-run cells that folded a
+                 sharded dim (granite's 2-layer t cell on 4 x 2 and 2 x 2 x
+                 2, qwen2.5-14b train_4k on 16 x 16), status ok.  The dry
+                 runs need no card: each runs in a process of its own
+                 (``--dry-run SPEC``), (b)'s beside the build and the
+                 kernels' gates (nothing timed), (c)'s and (e)'s beside the
+                 training children
 
 then a ``{"kernels": [...]}`` line, the card's ``nvidia-smi`` line, and last
 ``{"ok": true, "device": {...}}``.  Any failure raises: the exit code is
@@ -217,6 +228,7 @@ from __future__ import annotations
 
 import collections
 import contextlib
+import dataclasses
 import functools
 import json
 import math
@@ -513,9 +525,9 @@ class HostTimers:
         return out
 
 
-# the main path's iterations: 15 (30 before the analysis_cli phase was
-# added; each of its two solves took ~62 s of the script's limit at 30)
-MAIN_PATH_ITERS = 15
+# the main path's iterations, cut as phases were added (each of its two
+# solves took ~62 s of the script's limit at 30 iterations)
+MAIN_PATH_ITERS = 6
 
 
 def phase_main_path():
@@ -649,7 +661,7 @@ def phase_device_path(device, tabu_multiwalk_wall: float):
     cold, cold_wall = parity_run("device")
     # warm pairs in alternating order, so that a drift of the host's speed
     # within the call falls on both engines
-    for order in (("device", "numpy"), ("numpy", "device"), ("device", "numpy")):
+    for order in (("device", "numpy"), ("numpy", "device")):
         for engine in order:
             walls[engine].append(parity_run(engine)[1])
     numpy_wall = statistics.median(walls["numpy"])
@@ -728,9 +740,9 @@ def phase_device_path(device, tabu_multiwalk_wall: float):
              "replayed, plus the eager first round of each capture; parity: "
              "device_multiwalk and the NumPy tabu_multiwalk on the same 8 greedy starts, "
              "built before the clock starts, every run held to the first NumPy run's "
-             "trajectory: NumPy, device cold, then three warm pairs in alternating order "
-             "(device numpy, numpy device, device numpy); walk_iters_per_s = walks x "
-             "iterations / median warm wall_s (the NumPy runs' over all four), speedup "
+             "trajectory: NumPy, device cold, then two warm pairs in alternating order "
+             "(device numpy, numpy device); walk_iters_per_s = walks x "
+             "iterations / median warm wall_s (the NumPy runs' over all three), speedup "
              "their ratio, speedup_by_pair each warm pair's; "
              "max_memory_allocated: peak over the parity runs (the captures) and this "
              "run; memory_reserved: the allocator's holding after it")
@@ -1161,7 +1173,7 @@ SERVE_PROFILE = ServeProfile(
 SERVE_MAX_WAIT = 0.05          # the reference's BatchPolicy(max_wait=0.05)
 # the fault lane: the trace's first requests again under a seeded plan of
 # every fault kind; the watchdog gives up on a launch before a hang ends
-FAULT_REQUESTS = 12
+FAULT_REQUESTS = 6
 # cuts of one request: the NumPy fallback's launches (0.5-1.8 s on a busy
 # host) stay inside the watchdog, so hangs are what is abandoned
 FAULT_PLAN = {"seed": 5, "rate": 0.3, "hang_seconds": 2.5, "skew_seconds": 0.1}
@@ -1759,7 +1771,7 @@ def phase_solve_service(device) -> dict:
              "profiled_cut: a request of the largest signature class again, a cut of its "
              "own through the service's engine under torch.profiler, its K1 and "
              "seq_cumsum launches equal to the launch's captured nodes x rounds; faults: "
-             "the first 12 requests under the plan with every kind, a watchdog shorter "
+             "the first 6 requests under the plan with every kind, a watchdog shorter "
              "than a hang, every request ending in one terminal state, every survivor "
              "equal to its solo solve on the backend that served it, every lane a device "
              "launch returned (abandoned ones included) equal to its solo tabu_device "
@@ -4449,14 +4461,17 @@ def dry_run_main(spec: str) -> int:
     a fake process group of the mesh's size and fake tensors).  ``SPEC`` is a
     JSON object: arch, cell (with batch and seq, a train cell of that shape),
     multi_pod, mesh_shape, plan (the planner's residency plan for one H100,
-    as the trainer takes it), smoke (the smoke config).  The record's keys
-    are the last line; the exit code is 0 when its status is ok."""
+    as the trainer takes it), smoke (the smoke config), layers (a depth).
+    The record's keys are the last line; the exit code is 0 when its status
+    is ok."""
     from repro_torch.configs import get_config, get_smoke_config
     from repro_torch.configs.base import ShapeCell
     from repro_torch.launch import dryrun as dr
 
     s = json.loads(spec)
     cfg = get_smoke_config(s["arch"]) if s.get("smoke") else get_config(s["arch"])
+    if s.get("layers"):
+        cfg = dataclasses.replace(cfg, n_layers=s["layers"])
     kw = {"cfg_override": cfg}
     if s.get("batch"):
         cell = ShapeCell(s["cell"], s["seq"], s["batch"], "train")
@@ -4667,6 +4682,250 @@ def distributed(device) -> dict:
             "phase_seconds": {"distributed": time.perf_counter() - t0}}
 
 
+# (d): the multi-rank semantics on the card's machine: gloo ranks on its CPU
+# with its torch, port against port (it has no JAX), each case sharded and
+# unsharded from the same parameters at the gloo tests' sizes and gates.
+# This holds the card's DTensor, not the device path.  (e): the dry-run
+# cells that stopped on the card's torch, beside the training children.
+MULTI_RANK_WORLD = 8
+MULTI_RANK_TIMEOUT = 300
+MULTI_RANK_TRAIN = (("heads_tp", (4, 2)), ("qseq_tp", (1, 8)))
+MULTI_RANK_GATES = {"loss_abs_err": 1e-3, "grad_norm_rel_err": 1e-3, "decode_rel_err": 2e-3,
+                    "pipeline_out_err": 1e-5, "pipeline_grad_err": 1e-4}
+FOLD_DRY_RUNS = {
+    "granite_t_4x2": {"arch": MOE_ARCH, "cell": "t", "batch": 8, "seq": 64, "layers": 2,
+                      "multi_pod": False, "mesh_shape": [4, 2]},
+    "granite_t_2x2x2": {"arch": MOE_ARCH, "cell": "t", "batch": 8, "seq": 64, "layers": 2,
+                        "multi_pod": True, "mesh_shape": [2, 2, 2]},
+    "qseq_production": {"arch": QWEN_ARCH, "cell": "train_4k", "multi_pod": False},
+}
+
+
+def multi_rank_train(shape: tuple) -> dict:
+    """qwen2.5-14b's smoke train step (batch 8 x 32, AdamW) unsharded, then
+    with DTensor parameters on a ("data", "model") mesh of ``shape``:
+    heads-TP where its 4 heads divide "model", else q-sequence TP."""
+    import torch
+
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import Decoder, distribute_params
+    from repro_torch.models.common import init_params_
+    from repro_torch.runtime import SyntheticLM, TrainState, adamw, make_train_step
+    from repro_torch.sharding import make_rules, set_mesh
+
+    cfg = get_smoke_config(QWEN_ARCH)
+    batch = SyntheticLM(cfg, batch=8, seq_len=32, seed=0).batch_at(0)
+
+    def step(model, rules=None):
+        params = dict(model.named_parameters())
+        opt = adamw(lr=1e-2)
+        _, m = make_train_step(cfg, opt, model, rules=rules)(
+            TrainState(params=params, opt_state=opt.init(params), step=0),
+            {k: torch.as_tensor(v) for k, v in batch.items()})
+        return float(m["loss"]), float(m["grad_norm"])
+
+    def model():
+        return init_params_(Decoder(cfg, device="cpu", master=True),
+                            torch.Generator().manual_seed(0))
+
+    loss0, norm0 = step(model())
+    heads = cfg.n_heads % shape[1] == 0
+    mesh = make_mesh(shape, ("data", "model"), device_type="cpu")
+    rules = make_rules(shard_heads=heads, qseq_tp=not heads, batch_axes=("data",))
+    set_mesh(mesh)
+    try:
+        sharded = distribute_params(model(), mesh, rules)
+        loss, norm = step(sharded, rules)
+        wq = dict(sharded.named_parameters())["layers.0.attn.wq"]
+    finally:
+        set_mesh(None)
+    return {"arch": QWEN_ARCH + " (smoke)", "mesh": list(shape),
+            "tp": "heads" if heads else "q-sequence", "seq_axis": rules.acts["seq"],
+            "wq_placements": str(wq.placements), "loss": loss, "unsharded_loss": loss0,
+            "loss_abs_err": abs(loss - loss0), "grad_norm": norm,
+            "unsharded_grad_norm": norm0, "grad_norm_rel_err": abs(norm - norm0) / norm0}
+
+
+def multi_rank_decode() -> dict:
+    """llama3-405b's smoke config: 16 decode steps with the KV cache sharded
+    along its sequence over "model" on a (1, 8) mesh, against the full
+    forward of the same tokens (max |error| over max |logit|)."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import Decoder, arch_decode_step, arch_forward, arch_init_cache
+    from repro_torch.models.common import init_params_
+    from repro_torch.sharding import make_rules, set_mesh
+    from repro_torch.sharding.partitioning import is_dtensor
+
+    cfg = get_smoke_config("llama3-405b")
+    model = init_params_(Decoder(cfg, device="cpu"), torch.Generator().manual_seed(0))
+    tokens = torch.as_tensor(np.random.default_rng(1).integers(0, cfg.vocab_size, (2, 16)))
+    with torch.no_grad():
+        full = arch_forward(cfg, model, {"tokens": tokens})
+    mesh = make_mesh((1, 8), ("data", "model"), device_type="cpu")
+    rules = make_rules(shard_heads=False, batch_axes=())
+    set_mesh(mesh)
+    try:
+        cache = arch_init_cache(cfg, tokens.shape[0], 32, device="cpu")
+        worst = 0.0
+        with torch.no_grad():
+            for t in range(tokens.shape[1]):
+                lg, cache = arch_decode_step(cfg, model, cache, tokens[:, t:t + 1], t,
+                                             rules=rules)
+                worst = max(worst, float((lg - full[:, t]).abs().max()))
+    finally:
+        set_mesh(None)
+    return {"arch": "llama3-405b (smoke)", "mesh": [1, 8], "steps": int(tokens.shape[1]),
+            "decode_rel_err": worst / float(full.abs().max()),
+            "cache_sharded": all(is_dtensor(c["k"]) and str(c["k"].placements)
+                                 == "(Replicate(), Shard(dim=1))" for c in cache)}
+
+
+def multi_rank_pipeline() -> dict:
+    """The 4-stage pipeline on a ("stage", "data") 4 x 2 mesh against the
+    stages applied in turn on one rank: outputs and the weights' gradients."""
+    import numpy as np
+    import torch
+
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.runtime.pipeline import pipeline_apply
+
+    n_stages, lps, d = 4, 2, 16
+    rng = np.random.default_rng(0)
+    w0 = (rng.standard_normal((n_stages, lps, d, d)) / np.sqrt(d)).astype(np.float32)
+    x = torch.tensor(rng.standard_normal((6, 4, d)).astype(np.float32))
+
+    def stage_fn(p, xx):
+        for i in range(lps):
+            xx = torch.tanh(xx @ p[i])
+        return xx
+
+    plain_w = torch.tensor(w0, requires_grad=True)
+    y = x
+    for s in range(n_stages):
+        y = stage_fn(plain_w[s], y)
+    (y ** 2).sum().backward()
+    w = torch.tensor(w0, requires_grad=True)
+    out = pipeline_apply(make_mesh((4, 2), ("stage", "data"), device_type="cpu"), w, x,
+                         stage_fn)
+    (out ** 2).sum().backward()
+    return {"stages": n_stages, "mesh": [4, 2],
+            "pipeline_out_err": float((out.detach() - y.detach()).abs().max()),
+            "pipeline_grad_err": float((w.grad - plain_w.grad).abs().max())}
+
+
+def multi_rank_main() -> int:
+    """``--multi-rank``: this process is rank ``RANK`` of a gloo group of
+    ``WORLD_SIZE`` CPU ranks on ``localhost:MASTER_PORT``; it runs (d)'s
+    cases in turn, and rank 0 prints their readings as its last line."""
+    import datetime
+    import os
+
+    import torch
+    import torch.distributed as dist
+
+    torch.set_num_threads(1)
+    rank = int(os.environ["RANK"])
+    dist.init_process_group("gloo", init_method="tcp://localhost:" + os.environ["MASTER_PORT"],
+                            rank=rank, world_size=int(os.environ["WORLD_SIZE"]),
+                            timeout=datetime.timedelta(seconds=MULTI_RANK_TIMEOUT))
+    try:
+        t0 = time.perf_counter()
+        out = {name: multi_rank_train(shape) for name, shape in MULTI_RANK_TRAIN}
+        out["seq_sharded_decode"] = multi_rank_decode()
+        out["pipeline"] = multi_rank_pipeline()
+        out["rank_seconds"] = time.perf_counter() - t0
+    finally:
+        dist.destroy_process_group()
+    if rank == 0:
+        print(json.dumps(out), flush=True)
+    return 0
+
+
+MULTI_RANK_LOGS = ROOT / "build" / "multi_rank"
+
+
+def start_multi_rank(world: int = MULTI_RANK_WORLD, logs: Path = MULTI_RANK_LOGS) -> dict:
+    """(d)'s ranks, each ``chip_smoke.py --multi-rank`` in a process of its
+    own, all started now; rank r's output goes to ``logs/rank{r}.out|err``."""
+    import os
+
+    port = free_port()
+    logs.mkdir(parents=True, exist_ok=True)
+    procs = {}
+    for r in range(world):
+        with open(logs / f"rank{r}.out", "w") as out, open(logs / f"rank{r}.err", "w") as err:
+            procs[r] = subprocess.Popen(
+                [sys.executable, str(Path(__file__).resolve()), "--multi-rank"], cwd=ROOT,
+                stdout=out, stderr=err,
+                env={**os.environ, "RANK": str(r), "WORLD_SIZE": str(world),
+                     "MASTER_PORT": str(port)})
+    return procs
+
+
+def collect_multi_rank(procs: dict, logs: Path = MULTI_RANK_LOGS) -> dict:
+    """Rank 0's readings once every rank has ended, held to (d)'s gates
+    (:func:`check_multi_rank`); raises if a rank failed."""
+    import torch
+
+    t0 = time.perf_counter()
+    try:
+        for proc in procs.values():
+            proc.wait(timeout=max(1.0, MULTI_RANK_TIMEOUT - (time.perf_counter() - t0)))
+    finally:
+        stop(procs)
+    bad = [r for r, p in procs.items() if p.returncode != 0]
+    if bad:
+        raise AssertionError(f"multi-rank: rank {bad[0]} failed (exit {procs[bad[0]].returncode})"
+                             f": {(logs / f'rank{bad[0]}.err').read_text()[-3000:]}")
+    lines = (logs / "rank0.out").read_text().strip().splitlines()
+    if not lines:
+        raise AssertionError("multi-rank: rank 0 printed no readings")
+    return {**check_multi_rank(json.loads(lines[-1])), "torch": torch.__version__,
+            "backend": "gloo", "world": len(procs), "seconds": time.perf_counter() - t0}
+
+
+def check_multi_rank(out: dict) -> dict:
+    """(d)'s readings with each gate's verdict; raises on any case outside
+    its gate, or a decode whose cache was not sharded."""
+    failed = []
+    for case, got in out.items():
+        if not isinstance(got, dict):
+            continue
+        for key, limit in MULTI_RANK_GATES.items():
+            if key in got and not got[key] < limit:     # a NaN fails too
+                failed.append(f"{case}: {key} {got[key]} (limit {limit})")
+    if not out.get("seq_sharded_decode", {}).get("cache_sharded"):
+        failed.append("seq_sharded_decode: the cache was not sharded along its sequence")
+    missing = {*dict(MULTI_RANK_TRAIN), "seq_sharded_decode", "pipeline"} - set(out)
+    if missing:
+        failed.append(f"cases missing: {sorted(missing)}")
+    if failed:
+        raise AssertionError("multi-rank: " + "; ".join(failed))
+    return {**out, "gates": MULTI_RANK_GATES,
+            "check": "the card's torch DTensor on gloo CPU ranks, port against port "
+                     "(sharded against unsharded from the same parameters); not the device "
+                     "path"}
+
+
+def per_device(rec: dict) -> dict:
+    """A dry run's record as (c) and (e) print it: per device (rank 0)."""
+    coll = rec["collectives"]
+    return {"arch": rec["arch"], "cell": rec["cell"], "mesh": rec["mesh"],
+            "n_devices": rec["n_devices"], "status": rec["status"],
+            "argument_bytes_per_device": rec["memory_analysis"]["argument_size_in_bytes"],
+            "peak_bytes_per_device": rec["memory_analysis"]["peak_bytes"],
+            "flops_per_device": rec["cost_analysis"]["flops"],
+            "bytes_accessed_per_device": rec["cost_analysis"]["bytes accessed"],
+            "wire_bytes_per_device": coll["total_wire_bytes"],
+            "collective_counts": coll["counts"], "wire_bytes_by_kind": coll["wire_bytes"],
+            "dry_run_seconds": rec["time_step_s"]}
+
+
 def calibration(dry: dict, trains: dict) -> dict:
     """(b): each trained configuration's dry run on the (1, 1) mesh against
     its measured step: reckoned peak bytes over the measured
@@ -4694,33 +4953,27 @@ def calibration(dry: dict, trains: dict) -> dict:
     return out
 
 
-def phase_distributed(trains: dict, calibration_runs: dict, production: dict) -> dict:
+def phase_distributed(trains: dict, calibration_runs: dict, beside: dict) -> dict:
     """The multi-device layer (``--distributed`` in a child process, after the
-    training phases): (a) the sharded train step, (b) the dry runs of the
-    trained configurations (``calibration_runs``, their records) held against
-    their measured steps, (c) the production-mesh cell, whose process
-    (``production``, from ``start_dry_runs``) is read here; printed as
-    ``distributed``."""
-    out = run_child("--distributed", "the multi-device phase")
+    training phases): (a) the sharded train step, with (d) the multi-rank
+    cases on gloo CPU ranks beside it, (b) the dry runs of the trained
+    configurations (``calibration_runs``, their records) held against their
+    measured steps, (c) the production-mesh cell and (e) the cells that
+    stopped on the card's torch, whose processes (``beside``, from
+    ``start_dry_runs``) are read here; printed as ``distributed``."""
+    ranks = start_multi_rank()
+    try:
+        out = run_child("--distributed", "the multi-device phase")
+        multi_rank = collect_multi_rank(ranks)
+    finally:
+        stop(ranks)
     t0 = time.perf_counter()
-    dry = {**calibration_runs, **collect_dry_runs(production)}
+    dry = {**calibration_runs, **collect_dry_runs(beside)}
     out["phase_seconds"]["production_wait"] = time.perf_counter() - t0
-    prod = dry["production"]
-    coll = prod["collectives"]
     line = {"sharded_train": out["sharded_train"], "calibration": calibration(dry, trains),
-            "production": {
-                "arch": prod["arch"], "cell": prod["cell"], "mesh": prod["mesh"],
-                "n_devices": prod["n_devices"], "status": prod["status"],
-                "argument_bytes_per_device": prod["memory_analysis"]["argument_size_in_bytes"],
-                "peak_bytes_per_device": prod["memory_analysis"]["peak_bytes"],
-                "flops_per_device": prod["cost_analysis"]["flops"],
-                "bytes_accessed_per_device": prod["cost_analysis"]["bytes accessed"],
-                "wire_bytes_per_device": coll["total_wire_bytes"],
-                "collective_counts": coll["counts"], "wire_bytes_by_kind": coll["wire_bytes"],
-                "dry_run_seconds": prod["time_step_s"]},
+            "production": per_device(dry["production"]), "multi_rank": multi_rank,
+            "strict_fold_cells": {name: per_device(dry[name]) for name in FOLD_DRY_RUNS},
             "dry_runs": dry}
-    if prod["status"] != "ok":
-        raise AssertionError(f"the production dry run: {prod.get('error')}")
     say("distributed", **line,
         note="sharded_train: granite at 1 x 4096 with DTensor parameters on a one-rank NCCL "
              "(1, 1) mesh under arch_rules, step 1 against the unsharded step on the "
@@ -4730,7 +4983,12 @@ def phase_distributed(trains: dict, calibration_runs: dict, production: dict) ->
              "plan, against the measured step (peak: MemTracker; flops: FlopCounterMode's "
              "formulas over the ops run, recomputation included; train_model_flops: 6 N "
              "per row plus the mixing); production: llama3-405b train_4k on a fake 2 x 16 x "
-             "16 mesh, per device (rank 0); bytes accessed are unfused")
+             "16 mesh, per device (rank 0); bytes accessed are unfused; multi_rank: gloo CPU "
+             "ranks under the card's torch, port against port, heads-TP 4 x 2, q-sequence "
+             "TP 1 x 8, the sequence-sharded decode 1 x 8, the 4-stage pipeline; "
+             "strict_fold_cells: the dry-run cells that folded a sharded dim (granite's t "
+             "cell, 2 layers, on 4 x 2 and 2 x 2 x 2; qwen2.5-14b train_4k on 16 x 16, "
+             "q-sequence TP), status ok")
     return {**out, "line": line}
 
 
@@ -4812,9 +5070,10 @@ def main() -> int:
     # launches), which the earlier phases' profiled gates and timings must
     # not meet
     train = timed("train", phase_train, device)
-    # (c)'s dry run needs no card and ~2.5 min of one CPU core: it runs beside
-    # the training children and is read in the distributed phase
-    production = start_dry_runs({"production": PRODUCTION_DRY_RUN})
+    # (c)'s and (e)'s dry runs need no card and a CPU core each (llama3-405b's
+    # ~1.5 min, qwen2.5-14b's ~1 min): they run beside the training children
+    # and are read in the distributed phase
+    production = start_dry_runs({"production": PRODUCTION_DRY_RUN, **FOLD_DRY_RUNS})
     try:
         # then mamba2-780m's training and the MoE, encoder-decoder and vision
         # serves, each in a process of its own, once this one has taken its last
@@ -4994,5 +5253,7 @@ CHILDREN = {"--slice-serves": slice_serves, "--train-ssm": train_ssm,
 if __name__ == "__main__":
     if len(sys.argv) == 3 and sys.argv[1] == "--dry-run":
         sys.exit(dry_run_main(sys.argv[2]))
+    if sys.argv[1:] == ["--multi-rank"]:
+        sys.exit(multi_rank_main())
     child = CHILDREN.get(sys.argv[1]) if len(sys.argv) == 2 else None
     sys.exit(child_main(child) if child is not None else main())

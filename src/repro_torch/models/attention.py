@@ -20,7 +20,9 @@ With DTensor activations (``rules`` given and a mesh set) the flash kernel
 runs on each rank's local shard (``local_map``): under heads-TP a rank hands
 it its q heads and the kv heads they read; under q-sequence TP its q rows,
 all keys and values, and ``q_offset`` at its first row.  Either way the
-rank's dK and dV are partial sums over "model".
+rank's dK and dV are partial sums over "model".  Under q-sequence TP the
+projections also run on each rank's rows, with the weights whole
+(``sharding.partitioning.product``): no view folds the split sequence.
 """
 from __future__ import annotations
 
@@ -29,7 +31,7 @@ import torch
 from ..configs.base import ModelConfig
 from ..kernels import ops
 from ..sharding import get_mesh, shard, shard_map
-from ..sharding.partitioning import group_slice, is_dtensor, local_start, split_grad
+from ..sharding.partitioning import group_slice, is_dtensor, local_start, product, split_grad
 from .common import CacheDef, ParamDef, apply_rope, tag
 
 __all__ = ["attn_defs", "attention", "decode_attention", "cross_decode_attention",
@@ -88,7 +90,7 @@ def _proj(x, w, heads: str, rules):
     flattened (H, D), constrained to its logical axes before the heads are
     split out (heads outer: a heads shard stays a plain shard, and a head
     count that does not divide a mesh axis is never split over it)."""
-    y = shard(x @ _flat(w, 1), ("batch", "seq", heads), rules)
+    y = shard(product(lambda a, b: a @ _flat(b, 1), x, w), ("batch", "seq", heads), rules)
     return y.unflatten(-1, w.shape[1:])
 
 
@@ -158,8 +160,8 @@ def attention(cfg: ModelConfig, p, x: torch.Tensor, *, positions: torch.Tensor,
     v = shard(v, ("batch", "seq", "kv_heads", None), rules)
     q, k, v = tag(q, "attn_q"), tag(k, "attn_kv"), tag(v, "attn_kv")
     out = tag(_flash(q, k, v, causal=causal, window=window), "attn_out")
-    y = shard(_out(cfg, p, out.flatten(2) @ _flat(p.wo, 0)),
-              ("batch", "seq", "embed"), rules)
+    y = product(lambda a, b: a @ _flat(b, 0), out.flatten(2), p.wo)
+    y = shard(_out(cfg, p, y), ("batch", "seq", "embed"), rules)
     return (y, (k, v)) if return_kv else y
 
 
@@ -189,18 +191,44 @@ def _scores(q: torch.Tensor, k_cache, v_cache, valid=None):
     return torch.einsum("bcgk,bkcd->bcgd", e, v_cache.float()), m, e.sum(dim=-1)
 
 
+def _normalised(q: torch.Tensor, o: torch.Tensor, s: torch.Tensor) -> torch.Tensor:
+    """``o`` normalised by ``s``, as q's heads: (B, H, HD) in q's type."""
+    b, _, h, hd = q.shape
+    return (o / s.clamp_min(1e-30)[..., None]).reshape(b, h, hd).to(q.dtype)
+
+
 def _project_out(cfg: ModelConfig, p, q: torch.Tensor, o: torch.Tensor, s: torch.Tensor):
     """Normalise ``o`` by ``s``, then the output projection -> (B, 1, E)."""
-    b, _, h, hd = q.shape
-    out = (o / s.clamp_min(1e-30)[..., None]).reshape(b, h, hd).to(q.dtype)
-    return _out(cfg, p, out.flatten(1) @ _flat(p.wo, 0))[:, None]
+    return _out(cfg, p, _normalised(q, o, s).flatten(1) @ _flat(p.wo, 0))[:, None]
 
 
 def _attend(cfg: ModelConfig, p, q: torch.Tensor, k_cache, v_cache, valid=None):
     """One query token per row over a whole cache: fp32 scores and softmax,
-    then the output projection -> (B, 1, E)."""
-    o, _, s = _scores(q, k_cache, v_cache, valid)
-    return _project_out(cfg, p, q, o, s)
+    then the output projection -> (B, 1, E).  For a DTensor ``q`` the
+    scores run on each rank's batch rows and heads (``local_map``: a rank's
+    heads read the kv heads of their groups, the cache gathered but for its
+    batch), so no view folds the heads into the batch."""
+    if not is_dtensor(q):
+        o, _, s = _scores(q, k_cache, v_cache, valid)
+        return _project_out(cfg, p, q, o, s)
+    from torch.distributed.tensor import Replicate, Shard
+
+    mesh, h, kvh = q.device_mesh, q.shape[2], k_cache.shape[2]
+    qp = tuple(pl if isinstance(pl, Shard) and pl.dim in (0, 2) else Replicate()
+               for pl in q.placements)
+    kvp = tuple(pl if isinstance(pl, Shard) and pl.dim == 0 else Replicate() for pl in qp)
+    outp = tuple(Shard(1) if isinstance(pl, Shard) and pl.dim == 2 else pl for pl in qp)
+
+    def local(ql, kl, vl):
+        if ql.shape[2] != h:
+            heads = group_slice(ql.shape[2], local_start(mesh, qp, 2, h), h, kvh)
+            kl, vl = kl[:, :, heads], vl[:, :, heads]
+        o, _, s = _scores(ql, kl, vl, valid)
+        return _normalised(ql, o, s)
+
+    out = shard_map(local, mesh=mesh, in_specs=(qp, kvp, kvp), out_specs=outp)(
+        q, k_cache, v_cache)
+    return _out(cfg, p, out.flatten(1) @ _flat(p.wo, 0))[:, None]
 
 
 def _seq_sharded(s_max: int) -> bool:

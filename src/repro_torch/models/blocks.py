@@ -17,8 +17,8 @@ import torch.nn.functional as F
 from ..configs.base import ModelConfig
 from ..kernels import ops
 from ..sharding import shard, shard_map
-from ..sharding.partitioning import (group_slice, is_dtensor, like, local_start, placements_of,
-                                      split_grad)
+from ..sharding.partitioning import (group_slice, is_dtensor, like, local_start, matmul,
+                                      on_rows, placements_of, split_grad)
 from .common import CacheDef, ParamDef, activation, gelu_tanh, recompute, tag
 
 __all__ = [
@@ -52,12 +52,12 @@ def mlp(cfg: ModelConfig, p, x: torch.Tensor, rules=None) -> torch.Tensor:
     """The dense MLP: act(x wg) * (x wi + bi) for a GLU, else act(x wi + bi),
     then wo (+ bo); the biases where the config has them."""
     act = activation(cfg.act)
-    g = x @ p.wg if cfg.glu else None
-    u = x @ p.wi
+    g = matmul(x, p.wg) if cfg.glu else None
+    u = matmul(x, p.wi)
     if cfg.mlp_bias:
         u = u + p.bi
     h = tag(shard(_hidden(act, g, u), ("batch", "seq", "ff"), rules), "mlp_hidden")
-    y = h @ p.wo
+    y = matmul(h, p.wo)
     return shard(y + p.bo if cfg.mlp_bias else y, ("batch", "seq", "embed"), rules)
 
 
@@ -74,8 +74,12 @@ def moe_defs(cfg: ModelConfig) -> dict[str, ParamDef]:
 
 def moe_route(cfg: ModelConfig, p, x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     """The fp32 router logits (B, S, E) and each token's top ``top_k``
-    expert ids (B, S, k), the largest logit first."""
-    logits = x.float() @ p.router
+    expert ids (B, S, k), the largest logit first.  For a DTensor ``x`` on
+    each rank's rows with the router whole (``on_rows``): DTensor would
+    otherwise split the logits, or their gradient from the dispatch, along
+    the sequence, which a product over the rows folds."""
+    xf = x.float()
+    logits = on_rows(torch.matmul, xf, p.router) if is_dtensor(xf) else xf @ p.router
     return logits, torch.topk(logits, cfg.top_k, dim=-1).indices
 
 
@@ -157,7 +161,8 @@ def _causal_conv(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
 
 
 def _rglru(u, a_param, ig, ag, h0, rules):
-    """K3; for DTensors, channel-parallel on each rank's ``lru`` shard."""
+    """K3; for DTensors, channel-parallel on each rank's ``lru`` shard (a
+    plain ``h0``, a prefill's zero state, is split as the rules place it)."""
     if not is_dtensor(u):
         return ops.rglru_scan(u, a_param, ig, ag, h0, name="rec_out")
     mesh = u.device_mesh
@@ -167,20 +172,21 @@ def _rglru(u, a_param, ig, ag, h0, rules):
     return shard_map(lambda *t: ops.rglru_scan(*t, name="rec_out"), mesh=mesh, in_specs=specs,
                      out_specs=[seq, row],
                      in_grad_specs=tuple(None if sp is None else split_grad(sp, seq)
-                                         for sp in specs))(u, a_param, ig, ag, h0)
+                                         for sp in specs))(u, a_param, ig, ag,
+                                                           None if h0 is None else like(h0, u))
 
 
 def rec_block(cfg: ModelConfig, p, x: torch.Tensor, rules=None, state: dict | None = None):
     """Griffin recurrent block: (linear -> GeLU gate) * (linear -> conv ->
     RG-LRU) -> out.  With ``state`` ({"h": (B, W) fp32, "conv": (B, CW-1, W)})
     also returns the next state."""
-    gate = gelu_tanh(x @ p.wy)
-    u = shard(x @ p.wx, ("batch", "seq", "lru"), rules)
+    gate = gelu_tanh(matmul(x, p.wy))
+    u = shard(matmul(x, p.wx), ("batch", "seq", "lru"), rules)
     u, new_conv = _causal_conv(u, p.conv_w, p.conv_b, None if state is None else state["conv"])
-    ig = torch.sigmoid(u @ p.w_input_gate + p.b_input_gate)
-    ag = torch.sigmoid(u @ p.w_a_gate + p.b_a_gate)
+    ig = torch.sigmoid(matmul(u, p.w_input_gate) + p.b_input_gate)
+    ag = torch.sigmoid(matmul(u, p.w_a_gate) + p.b_a_gate)
     y, h_last = _rglru(u, p.a_param, ig, ag, None if state is None else state["h"], rules)
-    out = shard((tag(y, "rec_out") * gate) @ p.wo, ("batch", "seq", "embed"), rules)
+    out = shard(matmul(tag(y, "rec_out") * gate, p.wo), ("batch", "seq", "embed"), rules)
     return out, (None if state is None else {"h": h_last, "conv": new_conv})
 
 
@@ -219,7 +225,7 @@ def ssm_defs(cfg: ModelConfig) -> dict[str, ParamDef]:
 def _ssd(x, dt, a_log, b_mat, c_mat, d_skip, h0, rules):
     """K4; for DTensors, head-parallel on each rank's ``ssm_inner`` shard (a
     rank's heads read the B / C groups of their heads, whose gradients are
-    then partial sums)."""
+    then partial sums; a plain ``h0`` is split as the rules place it)."""
     if not is_dtensor(x):
         return ops.ssd_chunked(x, dt, a_log, b_mat, c_mat, d_skip, h0, name="ssm_out")
     mesh = x.device_mesh
@@ -238,7 +244,8 @@ def _ssd(x, dt, a_log, b_mat, c_mat, d_skip, h0, rules):
              None if h0 is None else hh)
     grads = tuple(None if sp is None else split_grad(sp, hx) for sp in specs)
     return shard_map(local, mesh=mesh, in_specs=specs, out_specs=[hx, hh],
-                     in_grad_specs=grads)(x, dt, a_log, b_mat, c_mat, d_skip, h0)
+                     in_grad_specs=grads)(x, dt, a_log, b_mat, c_mat, d_skip,
+                                          None if h0 is None else like(h0, x))
 
 
 def ssm_block(cfg: ModelConfig, p, x: torch.Tensor, rules=None, state: dict | None = None):
@@ -249,19 +256,19 @@ def ssm_block(cfg: ModelConfig, p, x: torch.Tensor, rules=None, state: dict | No
     b, t, _ = x.shape
     di, g, n, nh, hp = cfg.d_inner, cfg.ssm_groups, cfg.ssm_state, cfg.n_ssm_heads, \
         cfg.ssm_head_dim
-    z = x @ p.wz
-    xbc = torch.cat([x @ p.wx, x @ p.wB, x @ p.wC], dim=-1)
+    z = matmul(x, p.wz)
+    xbc = torch.cat([matmul(x, p.wx), matmul(x, p.wB), matmul(x, p.wC)], dim=-1)
     xbc, new_conv = _causal_conv(xbc, p.conv_w, p.conv_b, None if state is None else state["conv"])
     xbc = F.silu(xbc)
     xin, bmat, cmat = torch.split(xbc, [di, g * n, g * n], dim=-1)
-    dt = F.softplus((x @ p.wdt).float() + p.dt_bias)
+    dt = F.softplus(matmul(x, p.wdt).float() + p.dt_bias)
     y, h_last = _ssd(xin.reshape(b, t, nh, hp), dt, p.a_log, bmat.reshape(b, t, g, n),
                      cmat.reshape(b, t, g, n), p.d_skip, None if state is None else state["h"],
                      rules)
     # gated RMSNorm (mamba2), in fp32
     yf = tag(y.reshape(b, t, di), "ssm_out").float() * F.silu(z.float())
     yf = yf * torch.rsqrt(torch.mean(yf * yf, dim=-1, keepdim=True) + 1e-6) * p.norm_w
-    out = shard(yf.to(x.dtype) @ p.wo, ("batch", "seq", "embed"), rules)
+    out = shard(matmul(yf.to(x.dtype), p.wo), ("batch", "seq", "embed"), rules)
     return out, (None if state is None else {"h": h_last, "conv": new_conv})
 
 

@@ -37,7 +37,7 @@ from torch import nn
 from .._device import resolve_device
 from ..configs.base import ModelConfig
 from ..sharding import shard
-from ..sharding.partitioning import is_dtensor
+from ..sharding.partitioning import is_dtensor, product
 from . import blocks, remat
 from .attention import attention, attn_defs, decode_attention, kv_cache_defs
 from .common import DefModule, ParamDef, embedding, layer_norm, recompute, rms_norm, tag
@@ -177,13 +177,18 @@ def _embed(cfg: ModelConfig, model: Decoder, tokens: torch.Tensor,
     return x
 
 
+def _tied(x: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
+    return torch.einsum("bse,ve->bsv", x, table)
+
+
+def _untied(x: torch.Tensor, head: torch.Tensor) -> torch.Tensor:
+    return torch.einsum("bse,ev->bsv", x, head)
+
+
 def _logits(cfg: ModelConfig, model: Decoder, x: torch.Tensor, rules=None) -> torch.Tensor:
     x = apply_norm(cfg, model, "ln_f", x)
-    if cfg.tie_embeddings:
-        logits = torch.einsum("bse,ve->bsv", x, model.tok_emb)
-    else:
-        logits = torch.einsum("bse,ev->bsv", x, model.lm_head)
-    return shard(logits, ("batch", "seq", "vocab"), rules)
+    f, w = (_tied, model.tok_emb) if cfg.tie_embeddings else (_untied, model.lm_head)
+    return shard(product(f, x, w), ("batch", "seq", "vocab"), rules)
 
 
 def _ring_from_full(k: torch.Tensor, window: int) -> torch.Tensor:
@@ -422,8 +427,9 @@ def cross_entropy_loss(cfg: ModelConfig, logits: torch.Tensor, labels: torch.Ten
     """Mean next-token cross-entropy over the labels that are not -1, with
     the padded vocabulary masked out of the softmax and ``z_loss * logz^2``
     added, as the reference's ``cross_entropy_loss``.  logits (B, S, V).
-    For DTensor logits each rank takes its batch rows whole (vocabulary and
-    sequence gathered) and the mean is over every rank's labels."""
+    For DTensor logits each rank takes its rows (its batch and sequence
+    shards, the vocabulary gathered) and the mean is over every rank's
+    labels."""
     if is_dtensor(logits):
         return _sharded_loss(cfg, logits, labels, float(z_loss))
     v = logits.shape[-1]
@@ -432,15 +438,16 @@ def cross_entropy_loss(cfg: ModelConfig, logits: torch.Tensor, labels: torch.Ten
 
 
 def _sharded_loss(cfg: ModelConfig, logits, labels, z_loss: float):
-    """:func:`cross_entropy_loss` on each rank's batch rows (``local_map``):
-    the rank's sum of losses and its count of labels are partial sums over
-    the batch's mesh axes, and their ratio is the global mean."""
+    """:func:`cross_entropy_loss` on each rank's rows (``local_map``): its
+    batch and sequence shards, so q-sequence TP's logits stay split.  The
+    rank's sum of losses and its count of labels are partial sums over the
+    mesh axes that split the rows, and their ratio is the global mean."""
     from torch.distributed.tensor import Partial, Replicate, Shard
 
     from ..sharding import shard_map
 
     mesh, v = logits.device_mesh, logits.shape[-1]
-    rows = tuple(pl if isinstance(pl, Shard) and pl.dim == 0 else Replicate()
+    rows = tuple(pl if isinstance(pl, Shard) and pl.dim < 2 else Replicate()
                  for pl in logits.placements)
     part = tuple(Partial() if isinstance(pl, Shard) else Replicate() for pl in rows)
 

@@ -39,8 +39,10 @@ from . import blocks
 from .attention import attention, attn_defs, cross_decode_attention, decode_attention, \
     kv_cache_defs
 from ..sharding import shard
+from ..sharding.partitioning import product
 from .common import CacheDef, DefModule, ParamDef, embedding, tag
-from .decoder import _pad_cache, _zeros, apply_norm, check_supported, norm_defs, working_dtype
+from .decoder import (_pad_cache, _tied, _zeros, apply_norm, check_supported, norm_defs,
+                      working_dtype)
 
 __all__ = [
     "EncDec",
@@ -197,7 +199,7 @@ def _decoder(cfg: ModelConfig, model: EncDec, x: torch.Tensor, enc: torch.Tensor
 
 
 def _logits(cfg: ModelConfig, model: EncDec, x: torch.Tensor) -> torch.Tensor:
-    return torch.einsum("bse,ve->bsv", apply_norm(cfg, model, "ln_dec_f", x), model.tok_emb)
+    return product(_tied, apply_norm(cfg, model, "ln_dec_f", x), model.tok_emb)
 
 
 def encdec_forward(cfg: ModelConfig, model: EncDec, tokens: torch.Tensor,

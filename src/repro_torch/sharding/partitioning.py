@@ -23,6 +23,12 @@ placements through ``models.common.placements``: :func:`shard` is
 ``DTensor.redistribute`` to them (the reference's
 ``with_sharding_constraint``), and :func:`shard_map` is ``local_map``, which
 hands a function each rank's local shards.
+
+No view of a DTensor folds a sharded dim into a dim before it: torch 2.13
+tracks such a dim as a ``_StridedShard``, torch 2.11 refuses the view.  A
+product over the rows of an activation split along its sequence (q-sequence
+TP) folds (batch, seq) into one row dim, so :func:`product` runs it on
+each rank's rows instead.
 """
 from __future__ import annotations
 
@@ -34,7 +40,8 @@ import torch
 __all__ = [
     "ShardingRules", "make_rules", "shard", "shard_map", "set_mesh", "get_mesh",
     "param_rules", "activation_rules", "spec_of", "placements_of", "is_dtensor", "active",
-    "like", "local_start", "local_shape", "group_slice", "split_grad",
+    "like", "local_start", "local_shape", "group_slice", "split_grad", "rows_split",
+    "on_rows", "unsplit_grad", "product", "matmul",
 ]
 
 _MESH = None
@@ -275,3 +282,74 @@ def split_grad(place: tuple, split: tuple) -> tuple:
 
     return tuple(Partial() if isinstance(p, Replicate) and isinstance(s, Shard) else p
                  for p, s in zip(place, split))
+
+
+def rows_split(x) -> bool:
+    """Whether ``x`` is a DTensor split along a dim after its first and
+    before its last (q-sequence TP's sequence): a product over its rows
+    would fold that dim into the first."""
+    from torch.distributed.tensor import Shard
+
+    return is_dtensor(x) and any(isinstance(p, Shard) and 0 < p.dim < x.ndim - 1
+                                 for p in x.placements)
+
+
+def on_rows(f, x, *ws):
+    """``f(x, *ws)`` on each rank's rows of the DTensor ``x`` (``local_map``):
+    ``x`` keeps its shards of every dim but the last (gathered there), each
+    ``w`` comes whole, and the output is placed as ``x``'s rows.  The ``w``
+    gradients are partial sums over the mesh dims that split the rows
+    (:func:`split_grad`), brought to the weights' placements by autograd.
+    Nothing is folded, forward or backward: a gradient that arrives split
+    otherwise is brought to ``x``'s rows first."""
+    from torch.distributed.tensor import Replicate, Shard
+
+    mesh = x.device_mesh
+    rows = tuple(p if isinstance(p, Shard) and p.dim < x.ndim - 1 else Replicate()
+                 for p in x.placements)
+    whole = (Replicate(),) * mesh.ndim
+    return shard_map(f, mesh=mesh, in_specs=(rows,) + (whole,) * len(ws), out_specs=rows,
+                     in_grad_specs=(rows,) + (split_grad(whole, rows),) * len(ws))(x, *ws)
+
+
+class _UnsplitGrad(torch.autograd.Function):
+    """The identity, whose backward brings a gradient split along a row dim
+    (:func:`rows_split`) to the forward's placements on those mesh dims (a
+    shard of another dim, else replicated) before the op that made the
+    forward's value takes it."""
+
+    @staticmethod
+    def forward(ctx, y):
+        ctx.placements = tuple(y.placements)
+        return y.view_as(y)
+
+    @staticmethod
+    def backward(ctx, g):
+        if not rows_split(g):
+            return g
+        from torch.distributed.tensor import Replicate, Shard
+
+        want = [p if not (isinstance(p, Shard) and 0 < p.dim < g.ndim - 1)
+                else (f if isinstance(f, (Shard, Replicate)) else Replicate())
+                for p, f in zip(g.placements, ctx.placements)]
+        return g.redistribute(g.device_mesh, want)
+
+
+def unsplit_grad(y: torch.Tensor) -> torch.Tensor:
+    """``y``, whose gradient reaches the op that made it split along no row
+    dim (DTensor may hand a product's output gradient back split along the
+    sequence, which the product's backward would fold).  A plain tensor
+    passes as it is."""
+    return _UnsplitGrad.apply(y) if is_dtensor(y) else y
+
+
+def product(f, x: torch.Tensor, *ws: torch.Tensor) -> torch.Tensor:
+    """``f(x, *ws)``, a product over the rows of ``x``: on each rank's rows
+    (:func:`on_rows`) where ``x`` is split inside them (:func:`rows_split`),
+    else with its gradient brought to no row split (:func:`unsplit_grad`)."""
+    return on_rows(f, x, *ws) if rows_split(x) else unsplit_grad(f(x, *ws))
+
+
+def matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``x @ w`` as a :func:`product`."""
+    return product(torch.matmul, x, w)

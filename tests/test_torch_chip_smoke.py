@@ -4,6 +4,7 @@ computes (K1 to K4, seq_cumsum), the host-phase timers it wraps around the
 search round and the device engine, the device path's parity check and K1
 call, the launch counts it expects of each served arch, and its ``kernels``
 line."""
+import copy
 import importlib.util
 import json
 import pathlib
@@ -1810,3 +1811,80 @@ def smoke_config(arch):
     from repro_torch.configs import get_config
 
     return get_config(arch)
+
+
+def test_multi_rank_on_gloo_ranks_holds_each_case_to_its_gate(smoke, tmp_path):
+    """(d) on 8 gloo ranks of this CPU, as the card's machine runs it under
+    its torch: each case sharded against unsharded from the same parameters,
+    within the gloo tests' gates."""
+    out = smoke.collect_multi_rank(smoke.start_multi_rank(logs=tmp_path), logs=tmp_path)
+    assert out["backend"] == "gloo" and out["world"] == 8 and out["torch"] == torch.__version__
+    assert out["gates"] == smoke.MULTI_RANK_GATES and "not the device path" in out["check"]
+    assert (out["heads_tp"]["tp"], out["heads_tp"]["mesh"]) == ("heads", [4, 2])
+    assert (out["qseq_tp"]["tp"], out["qseq_tp"]["mesh"]) == ("q-sequence", [1, 8])
+    assert out["qseq_tp"]["seq_axis"] == "model" and out["heads_tp"]["seq_axis"] is None
+    assert out["seq_sharded_decode"]["cache_sharded"] and out["seq_sharded_decode"]["steps"] == 16
+    for case in ("heads_tp", "qseq_tp", "seq_sharded_decode", "pipeline"):
+        read = {k: v for k, v in out[case].items() if k in smoke.MULTI_RANK_GATES}
+        assert read and all(v < smoke.MULTI_RANK_GATES[k] for k, v in read.items()), case
+
+
+def _multi_rank_readings():
+    return {"heads_tp": {"loss_abs_err": 0.0, "grad_norm_rel_err": 1e-7},
+            "qseq_tp": {"loss_abs_err": 5e-7, "grad_norm_rel_err": 0.0},
+            "seq_sharded_decode": {"decode_rel_err": 6e-7, "cache_sharded": True},
+            "pipeline": {"pipeline_out_err": 0.0, "pipeline_grad_err": 1.4e-6},
+            "rank_seconds": 12.0}
+
+
+@pytest.mark.parametrize("case, key, value", [
+    ("qseq_tp", "loss_abs_err", 2e-3), ("heads_tp", "grad_norm_rel_err", float("nan")),
+    ("seq_sharded_decode", "decode_rel_err", 3e-3), ("seq_sharded_decode", "cache_sharded", False),
+    ("pipeline", "pipeline_grad_err", 2e-4)])
+def test_a_multi_rank_case_outside_its_gate_fails_the_phase(smoke, case, key, value):
+    assert smoke.check_multi_rank(_multi_rank_readings())["gates"] == smoke.MULTI_RANK_GATES
+    bad = copy.deepcopy(_multi_rank_readings())
+    bad[case][key] = value
+    with pytest.raises(AssertionError, match=case):
+        smoke.check_multi_rank(bad)
+
+
+def test_a_missing_case_or_a_failed_rank_fails_the_multi_rank_wait(smoke, tmp_path):
+    readings = _multi_rank_readings()
+    del readings["pipeline"]
+    with pytest.raises(AssertionError, match="cases missing.*pipeline"):
+        smoke.check_multi_rank(readings)
+    (tmp_path / "rank1.err").write_text("the rank's error")
+    procs = {0: subprocess.Popen([sys.executable, "-c", "pass"]),
+             1: subprocess.Popen([sys.executable, "-c", "import sys; sys.exit(3)"])}
+    with pytest.raises(AssertionError, match="rank 1 failed.*the rank's error"):
+        smoke.collect_multi_rank(procs, logs=tmp_path)
+
+
+def test_strict_fold_dry_runs_run_beside_training_and_print_per_device(smoke):
+    """(e): the cells that stopped on the card's torch; granite's t cell on 4
+    x 2 run here as a ``--dry-run`` child, read as the phase reads it."""
+    specs = smoke.FOLD_DRY_RUNS
+    assert specs["qseq_production"] == {"arch": "qwen2.5-14b", "cell": "train_4k",
+                                        "multi_pod": False}
+    assert [specs[k]["mesh_shape"] for k in ("granite_t_4x2", "granite_t_2x2x2")] == \
+        [[4, 2], [2, 2, 2]]
+    rec = smoke.collect_dry_runs(smoke.start_dry_runs(
+        {"granite_t_4x2": specs["granite_t_4x2"]}))["granite_t_4x2"]
+    line = smoke.per_device(rec)
+    assert line["status"] == "ok" and line["n_devices"] == 8
+    assert line["mesh"] == {"data": 4, "model": 2} and line["cell"] == "t"
+    assert set(line) == {"arch", "cell", "mesh", "n_devices", "status",
+                         "argument_bytes_per_device", "peak_bytes_per_device",
+                         "flops_per_device", "bytes_accessed_per_device",
+                         "wire_bytes_per_device", "collective_counts", "wire_bytes_by_kind",
+                         "dry_run_seconds"}
+    assert line["peak_bytes_per_device"] >= line["argument_bytes_per_device"] > 0
+    assert line["wire_bytes_per_device"] > 0
+
+
+def test_a_failing_dry_run_fails_the_phase(smoke):
+    procs = smoke.start_dry_runs({"bad": {"arch": "no-such-arch", "cell": "train_4k",
+                                          "multi_pod": False}})
+    with pytest.raises(AssertionError, match="dry run bad failed"):
+        smoke.collect_dry_runs(procs)

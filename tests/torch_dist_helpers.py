@@ -1,7 +1,13 @@
 """Multi-rank runs for the port's distributed tests: a gloo process group of
 N CPU ranks on ``localhost``, each rank a subprocess that imports the port
 only, and the reference's multi-device runs in a subprocess with 8 host
-devices (the device count is fixed before JAX starts)."""
+devices (the device count is fixed before JAX starts).
+
+:func:`strict_fold` emulates the view rule of torch 2.11's DTensor, where
+a view that flattens a sharded dim into another raises (torch 2.13 tracks
+such a dim as a ``_StridedShard``): ``run_ranks(..., strict_fold=1)`` and
+:data:`STRICT_FOLD_PRELUDE` turn it on in a subprocess."""
+import contextlib
 import json
 import os
 import socket
@@ -11,6 +17,79 @@ import tempfile
 import textwrap
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+TESTS = os.path.dirname(os.path.abspath(__file__))
+
+FOLD_ERROR = "Attempted to flatten multiple dimensions, with dimension"
+
+
+def _flattens(spec):
+    """The ``Flatten`` commands in one output dim's rule (nested in splits)."""
+    from torch.distributed.tensor._ops._view_ops import Flatten, Split
+
+    if isinstance(spec, Flatten):
+        yield spec
+        for d in spec.input_dims:
+            yield from _flattens(d)
+    elif isinstance(spec, Split):
+        yield from _flattens(spec.input_dim)
+
+
+def install_strict_fold():
+    """Have DTensor's view ops (``view``, ``_unsafe_view``, the squeezes:
+    the strict ones) raise as torch 2.11's do where a ``Flatten`` takes a
+    dim that is ``Shard`` on some mesh dim and is not the fold's leading
+    dim.  Sharding propagation is cached by signature, so the propagator's
+    caches (Python's, and the C++ dispatch's where torch has one) are
+    cleared.  Returns the function that undoes it."""
+    import torch
+    from torch.distributed.tensor import DTensor, Shard
+    from torch.distributed.tensor._ops import _view_ops
+
+    inner = _view_ops.propagate_shape_and_sharding
+    python_cache = DTensor._op_dispatcher.sharding_propagator.propagate_op_sharding
+
+    def clear():
+        python_cache.cache_clear()
+        getattr(torch._C, "_clear_DTensor_sharding_propagator_cache", lambda: None)()
+
+    def checked(placements, shape, rule, mesh_sizes, strict_view=False):
+        if strict_view:
+            for cmd in rule:
+                for fl in _flattens(cmd):
+                    for d in fl.input_dims[1:]:
+                        if any(type(p) is Shard and p.dim == d.input_dim for p in placements):
+                            raise RuntimeError(
+                                f"{FOLD_ERROR} {d.input_dim} being sharded. It cannot be "
+                                "performed without redistribution, which is disallowed "
+                                "by the current operator.")
+        return inner(placements, shape, rule, mesh_sizes, strict_view)
+
+    def undo():
+        _view_ops.propagate_shape_and_sharding = inner
+        clear()
+
+    _view_ops.propagate_shape_and_sharding = checked
+    clear()
+    return undo
+
+
+@contextlib.contextmanager
+def strict_fold():
+    """:func:`install_strict_fold` for the block."""
+    undo = install_strict_fold()
+    try:
+        yield
+    finally:
+        undo()
+
+
+# a subprocess's first lines: the emulation on for the rest of the process
+STRICT_FOLD_PRELUDE = f"""
+import sys
+sys.path.insert(0, {TESTS!r})
+import torch_dist_helpers
+torch_dist_helpers.install_strict_fold()
+"""
 
 _RANK_PRELUDE = """
 import json, os, sys
@@ -46,11 +125,14 @@ def _result(out: str):
     return json.loads(lines[-1][len("RESULT "):])
 
 
-def run_ranks(body: str, world: int = 8, timeout: int = 120, **env_extra):
+def run_ranks(body: str, world: int = 8, timeout: int = 120, strict_fold: int = 0,
+              **env_extra):
     """Run ``body`` on ``world`` gloo ranks (``RANK``, ``WORLD``, ``result()``
     and ``dist`` in scope, the process group made) and return what rank 0
-    passed to ``result``."""
-    script = _RANK_PRELUDE + textwrap.dedent(body) + "\ndist.destroy_process_group()\n"
+    passed to ``result``; with ``strict_fold`` under torch 2.11's view rule
+    (:func:`strict_fold`)."""
+    script = ((STRICT_FOLD_PRELUDE if strict_fold else "") + _RANK_PRELUDE
+              + textwrap.dedent(body) + "\ndist.destroy_process_group()\n")
     port = _free_port()
     with tempfile.NamedTemporaryFile("w", suffix=".py", delete=False) as f:
         f.write(script)

@@ -3,14 +3,18 @@
     git archive <parent commit> | tar -x -C build/parent
     python tools/child_ab.py train-moe --parent build/parent [--out ab.json]
     python tools/child_ab.py train-ssm --beside production [--out ab.json]
+    python tools/child_ab.py train-ssm --beside training
 
 With ``--parent`` the child (``chip_smoke.py --train-moe``, ...) runs from
 the parent checkout, this checkout, this checkout, the parent, each checkout's
-kernels built first from its own sources.  With ``--beside NAME`` it runs in
-this checkout alone, with one of ``chip_smoke.py``'s dry runs (``production``:
-llama3-405b ``train_4k`` on 2 x 16 x 16; or a trained configuration's name,
-``train_moe`` ...) in a process beside it, beside it again, then alone; the
-dry run is started just before the child and ended with it.  Each run prints
+kernels built first from its own sources.  With ``--beside NAMES`` it runs in
+this checkout alone, with ``chip_smoke.py``'s dry runs ``NAMES`` (comma-
+separated: ``production``, llama3-405b ``train_4k`` on 2 x 16 x 16; a name of
+``FOLD_DRY_RUNS``, such as ``qseq_production``; a trained configuration's
+name, ``train_moe`` ...; or ``training``, every dry run the script runs
+beside the training children) each in a process beside it, beside it again,
+then alone; the dry runs are started just before the child and ended with
+it.  Each run prints
 one JSON line of its headline readings (``--out`` keeps every phase line):
 its checkout, whether a dry run ran beside it, each phase's steady step, the
 profiled step's busy time and idle share.  Needs an NVIDIA GPU.
@@ -31,28 +35,34 @@ def build(root: str) -> None:
                    cwd=root)
 
 
-def dry_run_spec(name: str) -> str:
-    """The JSON spec of ``chip_smoke.py``'s dry run ``name``."""
-    code = ("import json, sys, chip_smoke as s; n = sys.argv[1]; print(json.dumps("
-            "s.PRODUCTION_DRY_RUN if n == 'production' else s.calibration_specs()[n]))")
-    return subprocess.run([sys.executable, "-c", code, name], capture_output=True, text=True,
-                          check=True, cwd=ROOT).stdout.strip()
+def dry_run_specs(names: str) -> list:
+    """The JSON specs of ``chip_smoke.py``'s dry runs ``names``."""
+    code = ("import json, sys, chip_smoke as s\n"
+            "named = {'production': s.PRODUCTION_DRY_RUN, **s.FOLD_DRY_RUNS,"
+            " **s.calibration_specs()}\n"
+            "training = ['production', *s.FOLD_DRY_RUNS]\n"
+            "names = [m for n in sys.argv[1].split(',')"
+            " for m in (training if n == 'training' else [n])]\n"
+            "print(json.dumps([named[n] for n in names]))")
+    out = subprocess.run([sys.executable, "-c", code, names], capture_output=True, text=True,
+                         check=True, cwd=ROOT).stdout
+    return [json.dumps(spec) for spec in json.loads(out)]
 
 
-def run(root: str, flag: str, beside: str | None) -> dict:
-    """The child ``flag`` from ``root``, with the dry run ``beside`` (a spec)
-    in a process beside it if given; its phase lines."""
+def run(root: str, flag: str, beside: list) -> dict:
+    """The child ``flag`` from ``root``, with the dry runs ``beside`` (specs)
+    each in a process beside it; its phase lines."""
     env = {**os.environ, "PYTHONPATH": os.path.join(root, "src")}
     script = os.path.join(root, "chip_smoke.py")
-    side = None if beside is None else subprocess.Popen(
-        [sys.executable, script, "--dry-run", beside], cwd=root, env=env,
-        stdout=subprocess.DEVNULL, stderr=subprocess.DEVNULL)
+    sides = [subprocess.Popen([sys.executable, script, "--dry-run", spec], cwd=root, env=env,
+                              stdout=subprocess.DEVNULL, stderr=subprocess.DEVNULL)
+             for spec in beside]
     try:
         proc = subprocess.run([sys.executable, script, flag], capture_output=True, text=True,
                               cwd=root, env=env, timeout=900)
     finally:
-        if side is not None:
-            side_alive = side.poll() is None
+        sides_alive = [side.poll() is None for side in sides]
+        for side in sides:
             side.kill()
             side.wait()
     phases = []
@@ -64,8 +74,8 @@ def run(root: str, flag: str, beside: str | None) -> dict:
         if isinstance(rec, dict) and "phase" in rec:
             phases.append(rec)
     out = {"exit": proc.returncode, "phases": phases}
-    if side is not None:
-        out["dry_run_alive_at_child_end"] = side_alive
+    if sides:
+        out["dry_runs_alive_at_child_end"] = sides_alive
     if proc.returncode != 0:
         out["error"] = proc.stderr[-2000:]
     return out
@@ -89,16 +99,17 @@ def main() -> int:
     ap.add_argument("child", help="the child, e.g. train-moe (chip_smoke.py --train-moe)")
     which = ap.add_mutually_exclusive_group(required=True)
     which.add_argument("--parent", help="a checkout of the commit to compare with")
-    which.add_argument("--beside", help="a dry run of chip_smoke.py to run beside the child")
+    which.add_argument("--beside", help="dry runs of chip_smoke.py to run beside the child "
+                       "(comma-separated names, or 'training')")
     ap.add_argument("--out", default=None, help="also write the records here (JSON)")
     args = ap.parse_args()
     flag = "--" + args.child
     if args.parent:
         trees = {"parent": os.path.abspath(args.parent), "change": ROOT}
-        turns = [(name, trees[name], None) for name in ("parent", "change", "change", "parent")]
+        turns = [(name, trees[name], []) for name in ("parent", "change", "change", "parent")]
     else:
-        spec = dry_run_spec(args.beside)
-        turns = [("change", ROOT, s) for s in (None, spec, spec, None)]
+        specs = dry_run_specs(args.beside)
+        turns = [("change", ROOT, s) for s in ([], specs, specs, [])]
     for root in {root for _, root, _ in turns}:
         build(root)
     out = []
