@@ -28,6 +28,7 @@ import time
 import numpy as np
 import torch
 
+from .. import tracing
 from .._device import resolve_device
 from ..configs.base import ModelConfig
 from ..configs.registry import ARCH_IDS, get_config, get_smoke_config
@@ -88,7 +89,9 @@ def serve(cfg: ModelConfig, model, batch: dict, gen: int, *,
           device: str | torch.device = "cuda") -> ServeResult:
     """Prefill ``batch`` (``tokens (B, P)``, and ``frames`` or ``vis_embeds``
     where the arch takes them), then ``gen - 1`` decode steps; the first
-    generated token is the prefill's greedy pick, as in the reference."""
+    generated token is the prefill's greedy pick, as in the reference.
+    Under a profiler the call is the unit ``repro.serve.request``
+    (:mod:`..tracing`), which counts the allocator's ``cudaMalloc`` calls."""
     if gen < 1:
         raise ValueError(f"gen must be >= 1, got {gen}")
     dev = resolve_device(device)
@@ -100,19 +103,20 @@ def serve(cfg: ModelConfig, model, batch: dict, gen: int, *,
         if dev.type == "cuda":
             torch.cuda.synchronize(dev)
 
-    sync()
-    t0 = time.perf_counter()
-    logits, cache = prefill(model, batch)
-    tok = next_token(cfg, logits)[:, None]
-    sync()
-    t_prefill = time.perf_counter() - t0
-    out = [tok]
-    t0 = time.perf_counter()
-    for i in range(gen - 1):
-        tok, cache = step(model, cache, tok, plen + i, generator)
-        out.append(tok)
-    sync()
-    t_decode = time.perf_counter() - t0
+    with tracing.unit("serve.request", dev):
+        sync()
+        t0 = time.perf_counter()
+        logits, cache = prefill(model, batch)
+        tok = next_token(cfg, logits)[:, None]
+        sync()
+        t_prefill = time.perf_counter() - t0
+        out = [tok]
+        t0 = time.perf_counter()
+        for i in range(gen - 1):
+            tok, cache = step(model, cache, tok, plen + i, generator)
+            out.append(tok)
+        sync()
+        t_decode = time.perf_counter() - t0
     return ServeResult(ids=torch.cat(out, dim=1).cpu().numpy(), prefill_s=t_prefill,
                        decode_s=t_decode, steps=gen - 1)
 

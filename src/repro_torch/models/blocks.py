@@ -14,6 +14,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from .. import tracing
 from ..configs.base import ModelConfig
 from ..kernels import ops
 from ..sharding import shard, shard_map
@@ -106,7 +107,23 @@ def moe(cfg: ModelConfig, p, x: torch.Tensor, rules=None) -> torch.Tensor:
     (E, N, F)``, N = B S, the tokens broadcast over the experts), so no
     sharded dim is flattened inside another (DTensor would track such a dim
     as a strided shard); its backward builds the (E, N, D) gradient of the
-    broadcast, which the einsum does not."""
+    broadcast, which the einsum does not.
+
+    Under a profiler the block is the span ``repro.moe``, forward and
+    backward (:mod:`..tracing`), and counts the token-expert pairs routed
+    (``moe.pairs_routed``, B S k) and computed (``moe.pairs_computed``,
+    B S E: the dense dispatch runs every expert)."""
+    with tracing.span("moe") as sp:
+        x = sp.grad_input(x)
+        b, s, d = x.shape
+        tracing.count("moe.pairs_routed", b * s * cfg.top_k)
+        tracing.count("moe.pairs_computed", b * s * cfg.n_experts)
+        logits, out = _moe(cfg, p, x, rules)
+        return sp.grad_output(out, logits)
+
+
+def _moe(cfg: ModelConfig, p, x: torch.Tensor, rules=None):
+    """:func:`moe`'s body: the router's logits and the block's output."""
     act = activation(cfg.act)
     b, s, d = x.shape
     logits, top_i = moe_route(cfg, p, x)
@@ -117,8 +134,8 @@ def moe(cfg: ModelConfig, p, x: torch.Tensor, rules=None) -> torch.Tensor:
         u = torch.einsum("bse,xef->bsxf", x, p.wi)
         h = tag(_hidden(act, g, u), "moe_hidden")                  # (B, S, E, F)
         y = torch.einsum("bsxf,xfd->bsxd", h, p.wo)
-        return shard(torch.einsum("bsxd,bsx->bsd", y, comb.to(x.dtype)),
-                     ("batch", "seq", "embed"), rules)
+        return logits, shard(torch.einsum("bsxd,bsx->bsd", y, comb.to(x.dtype)),
+                             ("batch", "seq", "embed"), rules)
     xn = x.reshape(b * s, d).expand(cfg.n_experts, b * s, d)
     g = torch.bmm(xn, p.wg) if cfg.glu else None
     u = torch.bmm(xn, p.wi)
@@ -126,7 +143,7 @@ def moe(cfg: ModelConfig, p, x: torch.Tensor, rules=None) -> torch.Tensor:
             "moe_hidden")                                          # (E, N, F)
     y = torch.bmm(h, p.wo)                                         # (E, N, D)
     out = torch.einsum("xnd,nx->nd", y, comb.to(x.dtype).reshape(b * s, -1))
-    return shard(out.reshape(b, s, d), ("batch", "seq", "embed"), rules)
+    return logits, shard(out.reshape(b, s, d), ("batch", "seq", "embed"), rules)
 
 
 def rec_defs(cfg: ModelConfig) -> dict[str, ParamDef]:

@@ -36,6 +36,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from .. import tracing
+
 __all__ = [
     "ParamDef",
     "CacheDef",
@@ -234,20 +236,22 @@ def init_params_(model: nn.Module, gen: torch.Generator) -> nn.Module:
 
 
 def rms_norm(x: torch.Tensor, weight: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
-    xf = x.float()
-    var = torch.mean(xf * xf, dim=-1, keepdim=True)
-    return ((xf * torch.rsqrt(var + eps)) * weight.float()).to(x.dtype)
+    with tracing.span("norm"):
+        xf = x.float()
+        var = torch.mean(xf * xf, dim=-1, keepdim=True)
+        return ((xf * torch.rsqrt(var + eps)) * weight.float()).to(x.dtype)
 
 
 def layer_norm(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
                eps: float = 1e-5) -> torch.Tensor:
     """LayerNorm over the last axis with its statistics in fp32 (the
     reference's ``layer_norm``)."""
-    xf = x.float()
-    mu = torch.mean(xf, dim=-1, keepdim=True)
-    var = torch.mean(torch.square(xf - mu), dim=-1, keepdim=True)
-    y = (xf - mu) * torch.rsqrt(var + eps)
-    return (y * weight.float() + bias.float()).to(x.dtype)
+    with tracing.span("norm"):
+        xf = x.float()
+        mu = torch.mean(xf, dim=-1, keepdim=True)
+        var = torch.mean(torch.square(xf - mu), dim=-1, keepdim=True)
+        y = (xf - mu) * torch.rsqrt(var + eps)
+        return (y * weight.float() + bias.float()).to(x.dtype)
 
 
 def rope_table(positions: torch.Tensor, head_dim: int, theta: float):
@@ -261,15 +265,15 @@ def rope_table(positions: torch.Tensor, head_dim: int, theta: float):
 
 def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.Tensor:
     """x: (B, S, H, D); positions: (S,) absolute token positions."""
-    d = x.shape[-1]
-    cos, sin = rope_table(positions, d, theta)
-    cos, sin = cos[None, :, None, :], sin[None, :, None, :]
     from ..sharding.partitioning import like   # a DTensor x: replicated tables
 
-    cos, sin = like(cos, x), like(sin, x)
-    xf1, xf2 = x[..., : d // 2].float(), x[..., d // 2:].float()
-    out = torch.cat([xf1 * cos - xf2 * sin, xf2 * cos + xf1 * sin], dim=-1)
-    return out.to(x.dtype)
+    with tracing.span("rope"):
+        d = x.shape[-1]
+        cos, sin = rope_table(positions, d, theta)
+        cos, sin = like(cos[None, :, None, :], x), like(sin[None, :, None, :], x)
+        xf1, xf2 = x[..., : d // 2].float(), x[..., d // 2:].float()
+        out = torch.cat([xf1 * cos - xf2 * sin, xf2 * cos + xf1 * sin], dim=-1)
+        return out.to(x.dtype)
 
 
 def gelu_tanh(x: torch.Tensor) -> torch.Tensor:

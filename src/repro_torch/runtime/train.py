@@ -19,6 +19,7 @@ from typing import Any
 import numpy as np
 import torch
 
+from .. import tracing
 from ..configs.base import ModelConfig
 from ..models import arch_forward, cross_entropy_loss
 from ..models.common import placements
@@ -83,7 +84,9 @@ def make_train_step(
     """``train_step(state, batch) -> (state, metrics)`` for ``model`` (whose
     parameters are ``state.params``); metrics hold ``loss`` and
     ``grad_norm`` (0-d tensors on the model's device) and ``lr``.  With
-    ``rules`` (and a mesh set) the step runs sharded."""
+    ``rules`` (and a mesh set) the step runs sharded.  Under a profiler the
+    step is the unit ``repro.train.step`` (:mod:`..tracing`), its phases the
+    spans ``repro.train.forward``, ``.backward`` and ``.optimizer``."""
     first = next(model.parameters())
     device = (first.to_local() if is_dtensor(first) else first).device
 
@@ -93,19 +96,22 @@ def make_train_step(
         return cross_entropy_loss(cfg, logits, batch["labels"], z_loss=z_loss)
 
     def train_step(state: TrainState, batch: dict):
-        with active(rules):
+        with tracing.unit("train.step", device), active(rules):
             batch = batch_to(batch, device)
             if rules is not None and get_mesh() is not None:
                 batch = shard_batch(batch, get_mesh(), rules)
             for p in state.params.values():
                 p.grad = None
-            loss = loss_fn(batch)
-            loss.backward()
+            with tracing.span("train.forward"):
+                loss = loss_fn(batch)
+            with tracing.span("train.backward"):
+                loss.backward()
             if remat_policy is not None:
                 remat_policy.clear()
             grads = {k: p.grad for k, p in state.params.items()}
-            params, opt_state, opt_metrics = optimizer.apply(state.params, grads,
-                                                             state.opt_state, state.step)
+            with tracing.span("train.optimizer"):
+                params, opt_state, opt_metrics = optimizer.apply(state.params, grads,
+                                                                 state.opt_state, state.step)
             for p in params.values():
                 p.grad = None
         metrics = {"loss": _plain(loss.detach()), **opt_metrics}

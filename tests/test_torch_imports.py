@@ -289,9 +289,18 @@ def _sources():
     return files
 
 
+# the tracer's span names (``repro.moe`` ...) are labels in a profiler's
+# trace, not a module: the one line that spells their prefix is spared
+_SPARED = {PORT / "tracing.py": 'PREFIX = "repro."\n'}
+
+
 def test_no_port_source_imports_jax_or_repro():
     for path in _sources():
-        hit = _FORBIDDEN.search(path.read_text())
+        text = path.read_text()
+        if path in _SPARED:
+            assert text.count(_SPARED[path]) == 1, path
+            text = text.replace(_SPARED[path], "")
+        hit = _FORBIDDEN.search(text)
         assert hit is None, f"{path}: {hit.group(0).strip()!r}"
 
 
