@@ -2144,6 +2144,13 @@ FLASH_BWD_WHISPER = {
     "decoder self": (ENCDEC_TRAIN_BATCH, ENCDEC_TRAIN_SEQ, ENCDEC_TRAIN_SEQ, 16, 16, 64, True,
                      None, 0),
     "cross": (ENCDEC_TRAIN_BATCH, ENCDEC_TRAIN_SEQ, 1500, 16, 16, 64, False, None, 0)}
+# the MoE's sparse dispatch at granite-moe-1b-a400m's benchmarked training
+# step (tokens = 2 x 4096, top 8 of 32 experts, d_model 1024, d_ff 512): each
+# wrapper within MOE_KERNEL_LIMIT (max |diff| / max |plain|) of its plain
+# version in float32 on the same bf16 inputs, about five bf16 roundings of
+# the largest output (a wrong row, expert or tile reads of order 1)
+MOE_TIMING_SHAPE = (2 * 4096, 8, 32, 1024, 512)
+MOE_KERNEL_LIMIT = 1e-2
 # K2's backward against its plain version: the reference's gradient test
 # shapes (tests/test_kernels.py::test_flash_xla_custom_vjp_grads: 2 x 512, 4
 # heads over 2, d 32, windows None and 128), ragged shapes, rows that see no
@@ -2742,22 +2749,25 @@ def model_kernel_wrappers() -> dict:
     from repro_torch.kernels import ssd
 
     return {"flash_attention": fa.flash_attention, "rglru_scan": rg.rglru_scan,
-            "ssd_chunked": ssd.ssd_chunked}
+            "ssd_chunked": ssd.ssd_chunked, **moe_wrappers(backward=False)}
 
 
 def expected_launches(cfg, gen: int) -> dict:
     """Kernel launches of one serve of ``gen`` tokens: K2 once per attention
     layer, sliding-window or global (prefill only; decode reads the cache in
     PyTorch), K3 and K4 once per recurrent / SSM layer at the prefill and at
-    each of the gen - 1 steps.  An encoder-decoder: K2 once per encoder layer
-    and twice per decoder layer (self- and cross-attention), all at the
-    prefill."""
+    each of the gen - 1 steps, and a MoE's sparse dispatch forward
+    (``moe_launches``) once per layer at each of those.  An
+    encoder-decoder: K2 once per encoder layer and twice per decoder layer
+    (self- and cross-attention), all at the prefill."""
+    moe = {k: v for k, v in moe_launches(cfg, 0 if cfg.encoder_layers else cfg.n_layers * gen,
+                                         0).items() if k in moe_wrappers(backward=False)}
     if cfg.encoder_layers:
         return {"flash_attention": cfg.encoder_layers + 2 * cfg.n_layers, "rglru_scan": 0,
-                "ssd_chunked": 0}
+                "ssd_chunked": 0, **moe}
     return {"flash_attention": cfg.kinds.count("attn_local") + cfg.kinds.count("attn"),
             "rglru_scan": cfg.kinds.count("rec") * gen,
-            "ssd_chunked": cfg.kinds.count("ssm") * gen}
+            "ssd_chunked": cfg.kinds.count("ssm") * gen, **moe}
 
 
 def serve_prompt_len(cfg) -> int:
@@ -2819,11 +2829,32 @@ def tpu_order_attention(q, k, v, *, causal: bool = True, window=None, q_offset: 
 
 
 @contextlib.contextmanager
+def dense_moe():
+    """The MoE blocks on the dense dispatch (the reference's einsums) where
+    they would take the sparse one's kernels (for the comparison only: the
+    port itself has no such route)."""
+    from repro_torch.models import blocks
+
+    orig = blocks.moe_branch
+
+    def branch(cfg, p, x):
+        got = orig(cfg, p, x)
+        return "dense" if got == "sparse" else got
+
+    blocks.moe_branch = branch
+    try:
+        yield
+    finally:
+        blocks.moe_branch = orig
+
+
+@contextlib.contextmanager
 def plain_kernels(ssd_chunk: int | None = None, flash=None):
-    """The model path with K2, K3 and K4 replaced by their plain versions (for
-    the comparison only: the port itself has no such route); the plain SSD
-    runs at ``ssd_chunk`` steps per chunk if given, else at the kernel's, and
-    attention through ``flash`` if given, else the plain version."""
+    """The model path with K2, K3 and K4 replaced by their plain versions and
+    the MoE on its dense dispatch (``dense_moe``; for the comparison only:
+    the port itself has no such route); the plain SSD runs at ``ssd_chunk``
+    steps per chunk if given, else at the kernel's, and attention through
+    ``flash`` if given, else the plain version."""
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import ops
     from repro_torch.kernels import rglru as rg
@@ -2835,7 +2866,8 @@ def plain_kernels(ssd_chunk: int | None = None, flash=None):
     ops.flash_attention, ops.rglru_scan, ops.ssd_chunked = \
         flash or fa.flash_attention_torch, rg.rglru_scan_torch, plain_ssd
     try:
-        yield
+        with dense_moe():
+            yield
     finally:
         ops.flash_attention, ops.rglru_scan, ops.ssd_chunked = orig
 
@@ -3127,7 +3159,8 @@ def memory_reckoning(cfg, model) -> dict:
     the scores, their masked copy and the exponentials) and, for a MoE, the
     dense dispatch's (B, S, E, D) expert outputs in the working type; the
     teacher-forced peak on the plain versions is reckoned as weights + cache
-    + three score blocks."""
+    + three score blocks.  A MoE's sparse dispatch holds at most the gathered
+    rows (B S k, D) and the gate and up products (B S k, 2F) at once."""
     import math
 
     from repro_torch.models import arch_cache_defs
@@ -3143,7 +3176,10 @@ def memory_reckoning(cfg, model) -> dict:
     out = {"weights_bytes": weights, "decode_cache_bytes": cache,
            "plain_attention_score_block_bytes": block,
            "teacher_forced_plain_peak_bytes": weights + cache + 3 * block}
-    if cfg.n_experts:
+    if sparse_moe(cfg):
+        out["moe_dispatch_bytes"] = SERVE_BATCH * plen * cfg.top_k * (
+            cfg.d_model + 2 * cfg.d_ff) * itemsize
+    elif cfg.n_experts:
         out["moe_dispatch_bytes"] = SERVE_BATCH * plen * cfg.n_experts * cfg.d_model * itemsize
     return out
 
@@ -3438,9 +3474,253 @@ def flash_timing(shape, device, seed: int) -> dict:
             "library_max_abs_diff": lib_err, "shape": list(shape), "dtype": "bfloat16"}
 
 
+def _library_ms(*calls) -> dict:
+    """The first of ``calls`` (PyTorch's ``torch._grouped_mm`` on one layout
+    of its operands, made before the timing) that runs: its ms, or the
+    error of each."""
+    errors = []
+    for name, fn in calls:
+        try:
+            fn()
+        except (RuntimeError, TypeError, ValueError, AttributeError) as e:
+            errors.append(f"{name}: {type(e).__name__}: {e}"[:300])
+            continue
+        return {"library_ms": cuda_median_ms(fn, reps=20, warmup=3), "library": name}
+    return {"library_ms": None, "library": None, "library_errors": errors}
+
+
+def moe_dispatch_timing(device) -> dict:
+    """The sparse dispatch's wrappers at ``MOE_TIMING_SHAPE`` (random router
+    logits): each held against its plain version first (the order, the
+    gather and its sum bit-equal; the rest within ``MOE_KERNEL_LIMIT``), then
+    ms (events, median of 20 wrapper calls) beside bound_ms, plain_ms (3
+    calls) and library_ms (``torch._grouped_mm``, PyTorch's grouped product,
+    for the grouped products); the dense dispatch's einsums at the same
+    shape; the grouped products at each tile of ``GEMM_TILES``; one MoE block
+    forward and backward on each dispatch (its peak beyond its inputs, and
+    its host time at 2 x 16 tokens, where the card waits on the host); and,
+    with the routing fixed, each bf16 dispatch's output and gradients
+    against the dense dispatch in float32."""
+    import torch
+
+    from repro_torch.kernels import moe_dispatch as md
+
+    n, k, e, d, f = MOE_TIMING_SHAPE
+    r = n * k
+    gen = torch.Generator(device=device).manual_seed(23)
+    top_i = torch.topk(randn(gen, (n, e), device), k, -1).indices
+    order = md.moe_order(top_i, e)
+    off, rop, tok = order.offsets, order.row_of_pair, order.token_of_row
+
+    def bf(*shape, scale=1.0):
+        return (scale * randn(gen, shape, device)).to(torch.bfloat16)
+
+    x, xs, h, y, dy, dout = bf(n, d), bf(r, d), bf(r, f), bf(r, d), bf(r, d), bf(n, d)
+    gu, dgu = bf(r, 2 * f, scale=2.0), bf(r, 2 * f)
+    gate = torch.softmax(randn(gen, (n, k), device), -1)
+    wg, wi = bf(e, d, f, scale=d ** -0.5), bf(e, d, f, scale=d ** -0.5)
+    wo = bf(e, f, d, scale=f ** -0.5)
+    wgi, wgi_t, wo_t = torch.cat([wg, wi], 2), torch.cat([wg.mT, wi.mT], 1), wo.mT
+    ends = off[1:]
+
+    def lib(a, b):
+        """``torch._grouped_mm`` of a (R, K) and b (E, K, N), b as given and
+        K-contiguous."""
+        b_k = b.transpose(1, 2).contiguous().transpose(1, 2)
+        return _library_ms(("b as given", lambda: torch._grouped_mm(a, b, offs=ends)),
+                           ("b K-contiguous", lambda: torch._grouped_mm(a, b_k, offs=ends)))
+
+    def lib_wgrad(a, g):
+        a_t = a.t().contiguous()
+        return _library_ms(("a^T strided", lambda: torch._grouped_mm(a.t(), g, offs=ends)),
+                           ("a^T contiguous", lambda: torch._grouped_mm(a_t, g, offs=ends)))
+
+    b2 = 2
+    f32 = [t.float() for t in (xs, h, dgu, dy, wg, wi, wo)]
+    cases = [  # name, kernel, plain, check, operations, bytes, library
+        ("moe_order", lambda: md.moe_order(top_i, e), lambda: md.moe_order_torch(top_i, e),
+         "equal", 0, 8 * r + 2 * r + 4 * 3 * r, None),
+        ("moe_permute", lambda: md.moe_permute(x, order),
+         lambda: md.moe_permute_torch(x, tok), "equal", 0, b2 * (n * d + r * d) + 4 * r, None),
+        ("moe_permute_bwd", lambda: md.moe_permute_bwd(xs, rop),
+         lambda: md.moe_permute_bwd_torch(xs, rop), "equal", r * d,
+         b2 * (r * d + n * d) + 4 * r, None),
+        ("grouped_mm gate-up", lambda: md.grouped_mm(xs, wg, off, wi),
+         lambda: md.grouped_mm_torch(f32[0], f32[4], off, f32[5]), "limit", 2 * r * d * 2 * f,
+         b2 * (r * d + e * d * 2 * f + r * 2 * f), lambda: lib(xs, wgi)),
+        ("grouped_mm down", lambda: md.grouped_mm(h, wo, off),
+         lambda: md.grouped_mm_torch(f32[1], f32[6], off), "limit", 2 * r * f * d,
+         b2 * (r * f + e * f * d + r * d), lambda: lib(h, wo)),
+        ("grouped_mm gate-up dx", lambda: md._launch_grouped_mm(dgu, off, wg.mT, wi.mT, "k"),
+         lambda: md.grouped_mm_torch(f32[2], torch.cat([f32[4].mT, f32[5].mT], 1), off),
+         "limit", 2 * r * d * 2 * f, b2 * (r * d + e * d * 2 * f + r * 2 * f),
+         lambda: lib(dgu, wgi_t)),
+        ("grouped_mm down dh", lambda: md._launch_grouped_mm(dy, off, wo.mT),
+         lambda: md.grouped_mm_torch(f32[3], f32[6].mT, off), "limit", 2 * r * f * d,
+         b2 * (r * f + e * f * d + r * d), lambda: lib(dy, wo_t)),
+        ("grouped_mm_wgrad gate-up", lambda: md.grouped_mm_wgrad(xs, dgu, off, f),
+         lambda: md.grouped_mm_wgrad_torch(f32[0], f32[2], off).split(f, 2), "limit",
+         2 * r * d * 2 * f,
+         b2 * (r * d + e * d * 2 * f + r * 2 * f), lambda: lib_wgrad(xs, dgu)),
+        ("grouped_mm_wgrad down", lambda: md.grouped_mm_wgrad(h, dy, off),
+         lambda: md.grouped_mm_wgrad_torch(f32[1], f32[3], off), "limit", 2 * r * f * d,
+         b2 * (r * f + e * f * d + r * d), lambda: lib_wgrad(h, dy)),
+        ("moe_swiglu", lambda: md.moe_swiglu(gu), lambda: md.moe_swiglu_torch(gu.float()),
+         "limit", 5 * r * f, b2 * 3 * r * f, None),
+        ("moe_swiglu_bwd", lambda: md.moe_swiglu_bwd(gu, h),
+         lambda: md.moe_swiglu_bwd_torch(gu.float(), h.float()), "limit", 10 * r * f,
+         b2 * 5 * r * f, None),
+        ("moe_combine", lambda: md.moe_combine(y, gate, order),
+         lambda: md.moe_combine_torch(y.float(), gate, rop), "limit", 2 * r * d,
+         b2 * (r * d + n * d) + 8 * r, None),
+        ("moe_combine_bwd", lambda: md.moe_combine_bwd(dout, y, gate, rop),
+         lambda: md.moe_combine_bwd_torch(dout.float(), y.float(), gate, rop), "limit",
+         4 * r * d, b2 * (n * d + 2 * r * d) + 12 * r, None),
+    ]
+    out = {}
+    for name, fn, plain, check, ops, nbytes, library in cases:
+        got, want = fn(), plain()
+        got = got if isinstance(got, tuple) else (got,)
+        want = want if isinstance(want, tuple) else (want,)
+        if check == "equal":
+            worst = 0.0 if all(torch.equal(a, b) for a, b in zip(got, want)) else math.inf
+        else:
+            worst = max(float((a.float() - b.float()).abs().max()
+                              / b.float().abs().max().clamp_min(1e-30))
+                        for a, b in zip(got, want))
+        limit = 0.0 if check == "equal" else MOE_KERNEL_LIMIT
+        if not worst <= limit:
+            raise AssertionError(f"MoE dispatch {name} differs from its plain version by "
+                                 f"{worst:.3g} of max |plain| (limit {limit})")
+        del got, want
+        t_ops = ops / PEAK_FLOPS["bfloat16"] * 1e3
+        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+        ms = cuda_median_ms(fn, reps=20, warmup=3)
+        out[name] = {"ms": ms, "bound_ms": max(t_ops, t_bytes),
+                     "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+                     "operations": ops, "bytes": nbytes, "rel_err_vs_plain": worst,
+                     "limit": limit, "plain_ms": cuda_median_ms(plain, reps=3, warmup=1),
+                     **(library() if library is not None else {"library_ms": None})}
+        if ops and out[name]["bound_by"] == "operations":
+            out[name]["achieved_tflops"] = ops / ms * 1e-9
+    del f32
+    xd, hd = x.reshape(2, n // 2, d), bf(2, n // 2, e, f)
+    out["dense einsum gate+up"] = {"ms": cuda_median_ms(
+        lambda: (torch.einsum("bse,xef->bsxf", xd, wg), torch.einsum("bse,xef->bsxf", xd, wi)),
+        reps=5, warmup=1)}
+    out["dense einsum down"] = {"ms": cuda_median_ms(
+        lambda: torch.einsum("bsxf,xfd->bsxd", hd, wo), reps=5, warmup=1)}
+    del hd
+    rows = [lambda: md.grouped_mm(xs, wg, off, wi), lambda: md.grouped_mm(h, wo, off),
+            lambda: md._launch_grouped_mm(dgu, off, wg.mT, wi.mT, "k"),
+            lambda: md._launch_grouped_mm(dy, off, wo.mT)]
+    grads = [lambda: md.grouped_mm_wgrad(xs, dgu, off, f), lambda: md.grouped_mm_wgrad(h, dy, off)]
+    keep, tiles = (md.MM_TILE, md.WGRAD_TILE), {}
+    try:
+        for tile, what in md.GEMM_TILES.items():
+            md.MM_TILE = md.WGRAD_TILE = tile
+            tiles[what] = {"rows_ms": [cuda_median_ms(fn, reps=20, warmup=3) for fn in rows],
+                           "wgrad_ms": [cuda_median_ms(fn, reps=20, warmup=3) for fn in grads]}
+    finally:
+        md.MM_TILE, md.WGRAD_TILE = keep
+    out["tiles"] = {"chosen": {"MM_TILE": md.GEMM_TILES[keep[0]],
+                               "WGRAD_TILE": md.GEMM_TILES[keep[1]]}, **tiles}
+    del x, xs, h, y, dy, dout, gu, dgu, wgi, wgi_t, rows, grads
+    torch.cuda.empty_cache()
+    out["block"] = moe_block_readings(device)
+    return out
+
+
+def moe_block_readings(device) -> dict:
+    """One granite MoE block (fp32 masters, bf16 work) at 2 x 4096 tokens on
+    each dispatch: forward and backward ms, forward ms, the peak beyond its
+    inputs, and host ms a call at 2 x 16 tokens; then, on one fixed routing
+    (the float32 run's), the output and the gradients of x, the router and
+    each expert weight of each bf16 dispatch against the dense dispatch in
+    float32 (max |diff| / max |float32|): the rounding each bf16 path adds."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import Decoder, blocks, init_params_
+
+    n, _, _, d, _ = MOE_TIMING_SHAPE
+    cfg = dataclasses.replace(get_config(MOE_ARCH), n_layers=1)
+    mlps = {}
+    for dtype in ("bfloat16", "float32"):
+        c = dataclasses.replace(cfg, dtype=dtype)
+        mlps[dtype] = (c, init_params_(Decoder(c, device=device, master=True),
+                                      torch.Generator(device=device).manual_seed(0)).layers[0].mlp)
+    gen = torch.Generator(device=device).manual_seed(1)
+    x32, dy32 = randn(gen, (2, n // 2, d), device), randn(gen, (2, n // 2, d), device)
+    x = x32.to(torch.bfloat16).requires_grad_()
+    dy = dy32.to(torch.bfloat16)
+    c16, mlp = mlps["bfloat16"]
+    out = {}
+    for branch in ("sparse", "dense"):
+        def step():
+            _, o = blocks._moe(c16, mlp, x, None, branch)
+            o.backward(dy)
+
+        def fwd():
+            with torch.no_grad():
+                blocks._moe(c16, mlp, x, None, branch)
+
+        torch.cuda.reset_peak_memory_stats(device)
+        base = torch.cuda.memory_allocated(device)
+        row = {"fwd_bwd_ms": cuda_median_ms(step, reps=5, warmup=1),
+               "fwd_ms": cuda_median_ms(fwd, reps=5, warmup=1),
+               "peak_beyond_inputs_bytes": torch.cuda.max_memory_allocated(device) - base}
+        xh = x[:, :16].detach().clone().requires_grad_()
+        dyh = dy[:, :16]
+        for name, grad in (("host_fwd_ms", False), ("host_fwd_bwd_ms", True)):
+            def call():
+                with torch.set_grad_enabled(grad):
+                    _, o = blocks._moe(c16, mlp, xh, None, branch)
+                if grad:
+                    o.backward(dyh)
+
+            for _ in range(3):
+                call()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(50):
+                call()
+            torch.cuda.synchronize()
+            row[name] = (time.perf_counter() - t0) * 1e3 / 50
+        out[branch] = row
+    for p in mlp.parameters():
+        p.grad = None
+    # the rounding: every run on the float32 run's expert choice
+    c32, mlp32 = mlps["float32"]
+    fixed = blocks.moe_route(c32, mlp32, x32)[1]
+    orig = blocks.moe_route
+    runs = {}
+    try:
+        blocks.moe_route = lambda cfg, p, xx: (orig(cfg, p, xx)[0], fixed)
+        for name, c, m, xx, g, branch in (("float32", c32, mlp32, x32, dy32, "dense"),
+                                          ("bf16 dense", c16, mlp, x, dy, "dense"),
+                                          ("bf16 sparse", c16, mlp, x, dy, "sparse")):
+            xx = xx.detach().requires_grad_()
+            params = dict(m.named_parameters())
+            _, o = blocks._moe(c, m, xx, None, branch)
+            grads = torch.autograd.grad(o, [xx, *params.values()], g)
+            runs[name] = {"out": o.detach().float(),
+                          **{k: v.float() for k, v in zip(["x", *params], grads)}}
+    finally:
+        blocks.moe_route = orig
+    ref = runs.pop("float32")
+    out["rel_err_vs_float32_dense"] = {
+        name: {k: float((v - ref[k]).abs().max() / ref[k].abs().max().clamp_min(1e-30))
+               for k, v in got.items()} for name, got in runs.items()}
+    return out
+
+
 def phase_model_timing(device):
-    """K2, K3 and K4 at the serving shapes and the backwards of K2, K3 and
-    K4 at the training shape: kernel, plain version, bound, library."""
+    """K2, K3 and K4 at the serving shapes, the backwards of K2, K3 and K4
+    at the training shape and the MoE's sparse dispatch at granite's
+    (``moe_dispatch_timing``): kernel, plain version, bound, library."""
     import torch
 
     from repro_torch.kernels import rglru as rg
@@ -3497,6 +3777,7 @@ def phase_model_timing(device):
     s_dec_plain = cuda_median_ms(lambda: ssd.ssd_chunked_torch(*dec), reps=20, warmup=3)
     s_dec_bound = ssd_bound(dec[0], dec[3], dec[5], dec[6], chunk=ssd.CHUNK)
     out = {
+        "moe_dispatch_" + MOE_ARCH: moe_dispatch_timing(device),
         "flash_attention_bwd": flash_bwd_timing(device, seed=13),
         "flash_attention_bwd_" + MOE_ARCH: flash_bwd_timing(device, seed=19,
                                                             shape=FLASH_BWD_GRANITE),
@@ -3562,7 +3843,8 @@ def phase_model_timing(device):
              "of the plain backward, library_ms (K2 bwd) the backward of "
              "scaled_dot_product_attention through autograd at the same shape; K2 bwd's "
              "kernel_operations is the design's 14 D a visible pair (S and dP in both "
-             "passes), achieved_tflops those over ms")
+             "passes), achieved_tflops those over ms; moe_dispatch: moe_dispatch_timing "
+             "(each wrapper's check against its plain version, then its timing)")
     return out
 
 
@@ -3865,10 +4147,11 @@ class _YardstickFlash:
 @contextlib.contextmanager
 def plain_training(yardstick: bool = False):
     """The training path with K2, K3 and K4 (forward and backward) replaced
-    by their plain versions (for the comparison only: the port has no such
-    route); ``yardstick``: attention summed in another order
-    (``_YardstickFlash``) and the SSD's forward and backward at
-    ``YARDSTICK_CHUNK`` steps a chunk."""
+    by their plain versions and the MoE on its dense dispatch
+    (``dense_moe``; for the comparison only: the port has no such route);
+    ``yardstick``: attention summed in another order (``_YardstickFlash``)
+    and the SSD's forward and backward at ``YARDSTICK_CHUNK`` steps a
+    chunk."""
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import ops
     from repro_torch.kernels import rglru as rg
@@ -3883,9 +4166,44 @@ def plain_training(yardstick: bool = False):
     ops.ssd_chunked = functools.partial(ssd.ssd_chunked_torch_grad, chunk=YARDSTICK_CHUNK) \
         if yardstick else ssd.ssd_chunked_torch_grad
     try:
-        yield
+        with dense_moe():
+            yield
     finally:
         ops.flash_attention, ops.rglru_scan, ops.ssd_chunked = orig
+
+
+def moe_wrappers(backward: bool = True) -> dict:
+    """The MoE's sparse-dispatch kernel wrappers by name (the forward's, and
+    the backward's with ``backward``); each counts its launches."""
+    from repro_torch.kernels import moe_dispatch as md
+
+    names = ["moe_order", "moe_permute", "grouped_mm", "moe_swiglu", "moe_combine"]
+    if backward:
+        names += ["moe_permute_bwd", "grouped_mm_wgrad", "moe_swiglu_bwd", "moe_combine_bwd"]
+    return {name: getattr(md, name) for name in names}
+
+
+def sparse_moe(cfg) -> bool:
+    """Whether ``cfg``'s MoE blocks take the sparse dispatch on the card
+    (``models.blocks.moe_branch`` of a plain bf16 CUDA tensor)."""
+    from repro_torch.models import blocks
+
+    return bool(cfg.n_experts) and blocks.sparse_experts(cfg) and cfg.dtype == "bfloat16"
+
+
+def moe_launches(cfg, forwards: int, backwards: int) -> dict:
+    """The sparse dispatch's launches for ``forwards`` runs of MoE blocks'
+    forwards and ``backwards`` of their backwards: the order, the gather, the
+    two grouped products, SwiGLU and the combine a forward; the two row
+    products again, the two weight gradients and the other backwards a
+    backward."""
+    if not sparse_moe(cfg):
+        forwards = backwards = 0
+    return {"moe_order": forwards, "moe_permute": forwards,
+            "grouped_mm": 2 * forwards + 2 * backwards, "moe_swiglu": forwards,
+            "moe_combine": forwards, "moe_permute_bwd": backwards,
+            "grouped_mm_wgrad": 2 * backwards, "moe_swiglu_bwd": backwards,
+            "moe_combine_bwd": backwards}
 
 
 def train_wrappers() -> dict:
@@ -3898,20 +4216,26 @@ def train_wrappers() -> dict:
     return {"flash_attention": fa.flash_attention, "flash_attention_bwd": fa.flash_attention_bwd,
             "rglru_scan": rg.rglru_scan, "rglru_scan_bwd": rg.rglru_scan_bwd,
             "ssd_chunked": ssd.ssd_chunked, "ssd_chunked_bwd": ssd.ssd_chunked_bwd,
-            "schedule_dp": sdp.sweep}
+            **moe_wrappers(), "schedule_dp": sdp.sweep}
 
 
 def expected_train_launches(cfg, scan_group, policy) -> dict:
     """Kernel launches of one training step: K2, K3 and K4 forward once per
     call of the first forward plus once per replay the plan implies (none
     for a held class; ``models.decoder.kernel_forwards``), and their
-    backwards once per call of the first forward (``kernel_calls``)."""
-    from repro_torch.models.decoder import kernel_calls, kernel_forwards
+    backwards once per call of the first forward (``kernel_calls``); the
+    MoE's sparse dispatch (``moe_launches``) forward in every layer's first
+    forward and each of its replays (the plan holds none of its outputs),
+    backward once a layer."""
+    from repro_torch.models.decoder import kernel_calls, kernel_forwards, layer_replays
 
     fwd, calls = kernel_forwards(cfg, scan_group, policy), kernel_calls(cfg)
+    moe_layers = 0 if cfg.encoder_layers else cfg.n_layers
+    replays = sum(layer_replays(cfg, scan_group, policy)) if moe_layers else 0
     return {"flash_attention": fwd["attn_out"], "flash_attention_bwd": calls["attn_out"],
             "rglru_scan": fwd["rec_out"], "rglru_scan_bwd": calls["rec_out"],
-            "ssd_chunked": fwd["ssm_out"], "ssd_chunked_bwd": calls["ssm_out"]}
+            "ssd_chunked": fwd["ssm_out"], "ssd_chunked_bwd": calls["ssm_out"],
+            **moe_launches(cfg, moe_layers + replays, moe_layers)}
 
 
 def train_memory_reckoning(cfg, plan, batch: int = TRAIN_BATCH, seq: int = TRAIN_SEQ,
@@ -3921,10 +4245,13 @@ def train_memory_reckoning(cfg, plan, batch: int = TRAIN_BATCH, seq: int = TRAIN
     the model's own count, else ``cfg.param_count()``), the bf16 casts of
     the weights autograd keeps (2 B), the logits with their gradient (bf16)
     and one fp32 block of the loss, and the activations: the planner's named
-    classes for a decoder, where a MoE holds its dense dispatch instead of
-    the planner's top-k ``moe_hidden`` (per layer g, u and the hidden
-    (B, S, E, F) and the experts' outputs (B, S, E, D), bf16; the planner's
-    figure is printed beside it); for an encoder-decoder, whose layers all
+    classes for a decoder, where a MoE holds what its dispatch saves instead
+    of the planner's top-k ``moe_hidden`` (the sparse dispatch, per layer:
+    the gathered rows (B S k, D), the gate and up products (B S k, 2F), the
+    hidden (B S k, F) and the experts' outputs (B S k, D), bf16, and two
+    int32 indices a row; the dense one: g, u and the hidden (B, S, E, F) and
+    the experts' outputs (B, S, E, D), bf16; the planner's figure is printed
+    beside it); for an encoder-decoder, whose layers all
     run in recompute regions, each layer's input and the largest layer's
     working set (the encoder's: q, k, v, the output and the norms' outputs
     (B, F, D), the MLP's pre-activation and hidden (B, F, d_ff), bf16, and the
@@ -3951,7 +4278,11 @@ def train_memory_reckoning(cfg, plan, batch: int = TRAIN_BATCH, seq: int = TRAIN
                             n_data_shards=1, n_model_shards=1, hw=H100)
         acts = sum(sum(lc.act_bytes.values()) for lc in costs)
         planner_moe = sum(lc.act_bytes.get("moe_hidden", 0) for lc in costs)
-        if cfg.n_experts:
+        if sparse_moe(cfg):
+            out["moe_sparse_dispatch_bytes"] = cfg.n_layers * tokens * cfg.top_k * (
+                2 * (2 * cfg.d_model + 3 * cfg.d_ff) + 2 * 4)
+            acts -= planner_moe
+        elif cfg.n_experts:
             out["moe_dense_dispatch_bytes"] = \
                 cfg.n_layers * 2 * tokens * cfg.n_experts * (3 * cfg.d_ff + cfg.d_model)
             acts -= planner_moe
@@ -4211,8 +4542,8 @@ def train_model_flops(cfg, batch: int = TRAIN_BATCH, seq: int = TRAIN_SEQ) -> in
 
 
 def moe_block_ms(cfg, model, device, batch: int, seq: int) -> float:
-    """One MoE block's forward and backward (router, dense dispatch, the
-    weights' casts) at the training shape on the first layer's weights,
+    """One MoE block's forward and backward (router, dispatch, the weights'
+    casts) at the training shape on the first layer's weights,
     median of 5 event-timed calls; the gradients it leaves are dropped."""
     import torch
 
@@ -4315,7 +4646,8 @@ def phase_train(device, arch: str = TRAIN_ARCH, phase: str = "train",
             "share_of_step": cfg.n_layers * block_ms / (steady * 1e3),
             "share_of_profiled_busy": cfg.n_layers * block_ms / profile["device_busy_ms"]
             if profile.get("device_busy_ms") else None,
-            "dense_over_active_expert_flops": cfg.n_experts / cfg.top_k}
+            "computed_over_routed_expert_flops":
+                1.0 if sparse_moe(cfg) else cfg.n_experts / cfg.top_k}
     if cfg.encoder_layers:
         extra["frames_per_s"] = batch * cfg.n_frames / steady
         extra["frames"] = cfg.n_frames
@@ -4356,8 +4688,9 @@ def phase_train(device, arch: str = TRAIN_ARCH, phase: str = "train",
              "(train_model_flops): 6 per parameter per row that multiplies it (a MoE's "
              "active parameters; an encoder-decoder's encoder over its frames) plus the "
              "attention scores (4 D per visible pair) or the SSD's chunked form, x3 for "
-             "the backward; memory_reckoned: train_memory_reckoning (a MoE's dense "
-             "dispatch in place of the planner's top-k moe_hidden); moe: one MoE block's "
+             "the backward; memory_reckoned: train_memory_reckoning (what a MoE's "
+             "dispatch saves in place of the planner's top-k moe_hidden); moe: one MoE "
+             "block's "
              "forward and backward at the training shape, event-timed, x layers against "
              "the steady step and the profiled step's busy time; step1_gate: "
              "train_step1_gate (gated false where step1_float32_gate, the same step "

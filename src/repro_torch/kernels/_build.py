@@ -37,6 +37,7 @@ KERNEL_SOURCES = {
     "ssd": "ssd.cu",
     "flash_attention_bwd": "flash_attention_bwd.cu",
     "ssd_bwd": "ssd_bwd.cu",
+    "moe_dispatch": "moe_dispatch.cu",
 }
 
 _loaded: dict[str, ctypes.CDLL] = {}

@@ -10,7 +10,9 @@ attributes.
 from __future__ import annotations
 
 from .flash_attention import flash_attention
+from .moe_dispatch import grouped_mm, moe_combine, moe_order, moe_permute, moe_swiglu
 from .rglru import rglru_scan
 from .ssd import ssd_chunked
 
-__all__ = ["flash_attention", "rglru_scan", "ssd_chunked"]
+__all__ = ["flash_attention", "grouped_mm", "moe_combine", "moe_order", "moe_permute",
+           "moe_swiglu", "rglru_scan", "ssd_chunked"]

@@ -17,6 +17,7 @@ import torch.nn.functional as F
 from .. import tracing
 from ..configs.base import ModelConfig
 from ..kernels import ops
+from ..kernels.fake import is_fake
 from ..sharding import shard, shard_map
 from ..sharding.partitioning import (group_slice, is_dtensor, like, local_start, matmul,
                                       on_rows, placements_of, split_grad)
@@ -24,7 +25,7 @@ from .common import CacheDef, ParamDef, activation, gelu_tanh, recompute, tag
 
 __all__ = [
     "mlp_defs", "mlp",
-    "moe_defs", "moe_route", "moe",
+    "moe_defs", "moe_route", "moe_branch", "sparse_experts", "moe",
     "rec_defs", "rec_block", "rec_decode", "rec_cache_defs",
     "ssm_defs", "ssm_block", "ssm_decode", "ssm_cache_defs",
 ]
@@ -94,42 +95,76 @@ def _unsplit(x: torch.Tensor, *weights: torch.Tensor) -> bool:
             and all(pl.is_replicate() for w in weights for pl in w.placements))
 
 
-def moe(cfg: ModelConfig, p, x: torch.Tensor, rules=None) -> torch.Tensor:
-    """Top-k routed MoE with the reference's dense dispatch: fp32 router
-    logits, a softmax over each token's top ``top_k``, and every expert run
-    on every token, its output weighted by the token's routing mass for it
-    (zero outside the top k).  Equal in value to a sparse dispatch.
+def sparse_experts(cfg: ModelConfig) -> bool:
+    """Whether ``cfg``'s experts are the ones the sparse dispatch runs:
+    SwiGLU (a gated MLP with SiLU)."""
+    return cfg.glu and cfg.act == "silu"
 
-    Where no dim of the experts' products is split (:func:`_unsplit`: plain
-    tensors, a mesh of one rank) they are one einsum per weight, each a
-    single GEMM forward and backward.  Otherwise the experts run as one
-    batched product per weight over the tokens (``(E, N, D) @ (E, D, F) ->
-    (E, N, F)``, N = B S, the tokens broadcast over the experts), so no
-    sharded dim is flattened inside another (DTensor would track such a dim
-    as a strided shard); its backward builds the (E, N, D) gradient of the
-    broadcast, which the einsum does not.
+
+def moe_branch(cfg: ModelConfig, p, x: torch.Tensor) -> str:
+    """Which dispatch :func:`moe` runs on ``x``: ``"sparse"`` for a plain
+    (not DTensor, not fake) CUDA bf16 tensor into SwiGLU experts, the
+    kernels' route; ``"bmm"`` for a DTensor whose experts' products would
+    flatten a split dim (:func:`_unsplit`); ``"dense"`` (one einsum per
+    weight) for the rest: CPU tensors, other types, fake tensors, other
+    experts, DTensors that flatten none."""
+    if is_dtensor(x):
+        weights = (p.wi, p.wo, *((p.wg,) if cfg.glu else ()))
+        return "dense" if _unsplit(x, *weights) else "bmm"
+    if x.is_cuda and x.dtype == torch.bfloat16 and not is_fake(x) and sparse_experts(cfg):
+        return "sparse"
+    return "dense"
+
+
+def moe(cfg: ModelConfig, p, x: torch.Tensor, rules=None) -> torch.Tensor:
+    """Top-k routed MoE: fp32 router logits, a softmax over each token's top
+    ``top_k``, and each expert's output weighted by the token's routing mass
+    for it.  Three dispatches of equal value (:func:`moe_branch`):
+
+    * ``sparse`` (CUDA bf16, SwiGLU experts): the pairs sorted by expert,
+      each token's rows gathered, each expert's products run on its own rows
+      (the gate and up products as one), and each token's ``k`` rows combined
+      (:mod:`..kernels.moe_dispatch`): ``B S k`` rows, ``(B S k, .)``
+      activations, no value read back to the host.
+    * ``dense`` (the reference's dense dispatch: CPU tensors, the other
+      types, fake tensors, other experts, DTensors that flatten no split
+      dim): every expert run on every token, zero weight outside the top k,
+      one einsum per weight, each a single GEMM forward and backward.
+    * ``bmm`` (DTensors otherwise): the experts as one batched product per
+      weight over the tokens (``(E, N, D) @ (E, D, F) -> (E, N, F)``, N =
+      B S, the tokens broadcast over the experts), so no sharded dim is
+      flattened inside another (DTensor would track such a dim as a strided
+      shard); its backward builds the (E, N, D) gradient of the broadcast,
+      which the einsum does not.
 
     Under a profiler the block is the span ``repro.moe``, forward and
     backward (:mod:`..tracing`), and counts the token-expert pairs routed
-    (``moe.pairs_routed``, B S k) and computed (``moe.pairs_computed``,
-    B S E: the dense dispatch runs every expert)."""
+    (``moe.pairs_routed``, B S k) and computed (``moe.pairs_computed``: B S k
+    on the sparse dispatch, B S E on the dense ones, which run every
+    expert)."""
     with tracing.span("moe") as sp:
         x = sp.grad_input(x)
         b, s, d = x.shape
+        branch = moe_branch(cfg, p, x)
         tracing.count("moe.pairs_routed", b * s * cfg.top_k)
-        tracing.count("moe.pairs_computed", b * s * cfg.n_experts)
-        logits, out = _moe(cfg, p, x, rules)
+        tracing.count("moe.pairs_computed",
+                      b * s * (cfg.top_k if branch == "sparse" else cfg.n_experts))
+        logits, out = _moe(cfg, p, x, rules, branch)
         return sp.grad_output(out, logits)
 
 
-def _moe(cfg: ModelConfig, p, x: torch.Tensor, rules=None):
-    """:func:`moe`'s body: the router's logits and the block's output."""
+def _moe(cfg: ModelConfig, p, x: torch.Tensor, rules=None, branch: str | None = None):
+    """:func:`moe`'s body on ``branch`` (default :func:`moe_branch`'s): the
+    router's logits and the block's output."""
+    branch = branch or moe_branch(cfg, p, x)
     act = activation(cfg.act)
     b, s, d = x.shape
     logits, top_i = moe_route(cfg, p, x)
     gate = torch.softmax(logits.gather(-1, top_i), dim=-1)
+    if branch == "sparse":
+        return logits, _moe_sparse(cfg, p, x, top_i, gate, rules)
     comb = torch.zeros_like(logits).scatter(-1, top_i, gate)
-    if _unsplit(x, p.wi, p.wo, *((p.wg,) if cfg.glu else ())):
+    if branch == "dense":
         g = torch.einsum("bse,xef->bsxf", x, p.wg) if cfg.glu else None
         u = torch.einsum("bse,xef->bsxf", x, p.wi)
         h = tag(_hidden(act, g, u), "moe_hidden")                  # (B, S, E, F)
@@ -144,6 +179,26 @@ def _moe(cfg: ModelConfig, p, x: torch.Tensor, rules=None):
     y = torch.bmm(h, p.wo)                                         # (E, N, D)
     out = torch.einsum("xnd,nx->nd", y, comb.to(x.dtype).reshape(b * s, -1))
     return logits, shard(out.reshape(b, s, d), ("batch", "seq", "embed"), rules)
+
+
+def _moe_sparse(cfg: ModelConfig, p, x: torch.Tensor, top_i: torch.Tensor,
+                gate: torch.Tensor, rules=None) -> torch.Tensor:
+    """The sparse dispatch of :func:`moe` (SwiGLU experts) on ``x (B, S,
+    D)``, its top-k ids and fp32 gates ``(B, S, k)``: the gate and up
+    products as one (``[wg | wi]``, the weights read where they are), SwiGLU
+    as one op.  The ops route by device, so on the CPU it runs their plain
+    versions."""
+    if not sparse_experts(cfg):
+        raise ValueError(f"the sparse dispatch runs SwiGLU experts, not {cfg.act} "
+                         f"(glu={cfg.glu})")
+    b, s, d = x.shape
+    order = ops.moe_order(top_i.reshape(b * s, cfg.top_k), cfg.n_experts)
+    xs = ops.moe_permute(x.reshape(b * s, d), order)                # (N k, D)
+    gu = ops.grouped_mm(xs, p.wg, order.offsets, p.wi)              # (N k, 2F)
+    h = tag(ops.moe_swiglu(gu), "moe_hidden")                      # (N k, F)
+    y = ops.grouped_mm(h, p.wo, order.offsets)                     # (N k, D)
+    out = ops.moe_combine(y, gate.reshape(b * s, cfg.top_k), order)
+    return shard(out.reshape(b, s, d), ("batch", "seq", "embed"), rules)
 
 
 def rec_defs(cfg: ModelConfig) -> dict[str, ParamDef]:

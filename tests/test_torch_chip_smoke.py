@@ -5,6 +5,7 @@ search round and the device engine, the device path's parity check and K1
 call, the launch counts it expects of each served arch, and its ``kernels``
 line."""
 import copy
+import dataclasses
 import importlib.util
 import json
 import pathlib
@@ -13,6 +14,7 @@ import sys
 import time
 
 import numpy as np
+
 import pytest
 import torch
 
@@ -495,17 +497,30 @@ def test_ssd_bound_of_a_decode_step_is_the_state(smoke):
     assert ragged["tpu_operations"] == 2 * sum(per)
 
 
+# the MoE's sparse-dispatch wrappers, forward and backward, none launched
+NO_MOE_FWD = dict.fromkeys(["moe_order", "moe_permute", "grouped_mm", "moe_swiglu",
+                            "moe_combine"], 0)
+NO_MOE = {**NO_MOE_FWD, **dict.fromkeys(["moe_permute_bwd", "grouped_mm_wgrad",
+                                         "moe_swiglu_bwd", "moe_combine_bwd"], 0)}
+
+
 @pytest.mark.parametrize("arch,want", [
     ("recurrentgemma-2b", {"flash_attention": 8, "rglru_scan": 18 * 32, "ssd_chunked": 0}),
     ("mamba2-780m", {"flash_attention": 0, "rglru_scan": 0, "ssd_chunked": 48 * 32}),
     ("qwen2.5-14b", {"flash_attention": 48, "rglru_scan": 0, "ssd_chunked": 0}),
-    ("granite-moe-1b-a400m", {"flash_attention": 24, "rglru_scan": 0, "ssd_chunked": 0}),
+    # the sparse dispatch's forward in each of 24 layers at the prefill and
+    # at each of the 31 decode steps: two grouped products each
+    ("granite-moe-1b-a400m", {"flash_attention": 24, "rglru_scan": 0, "ssd_chunked": 0,
+                              "moe_order": 24 * 32, "moe_permute": 24 * 32,
+                              "grouped_mm": 2 * 24 * 32, "moe_swiglu": 24 * 32,
+                              "moe_combine": 24 * 32}),
     # 24 encoder layers, then 24 decoder layers' self- and cross-attention
     ("whisper-medium", {"flash_attention": 72, "rglru_scan": 0, "ssd_chunked": 0}),
     ("internvl2-26b", {"flash_attention": 48, "rglru_scan": 0, "ssd_chunked": 0})])
 def test_expected_launches_of_each_served_arch(smoke, arch, want):
     from repro_torch.configs import get_config
 
+    want = {**NO_MOE_FWD, **want}
     assert smoke.expected_launches(get_config(arch), smoke.SERVE_GEN) == want
     assert set(smoke.model_kernel_wrappers()) == set(want)
 
@@ -733,7 +748,8 @@ def test_memory_reckoning_of_the_slice_serves(smoke):
     of 128): 3.25 GB; the plain attention's fp32 score block 4 x 48 heads x
     1024 x 4096 x 4 bytes = 3.2 GB.  whisper-medium: the decoder's self cache
     at 448 slots and the cross cache of 1500 frames, 16 heads of 64.
-    granite-moe-1b-a400m: the dense dispatch's (4, 4096, 32, 1024) bf16."""
+    granite-moe-1b-a400m: the sparse dispatch's gathered rows and gate and
+    up products, (4 x 4096 x 8, 1024) each, bf16."""
     import types
 
     from repro_torch.configs import get_config
@@ -748,7 +764,7 @@ def test_memory_reckoning_of_the_slice_serves(smoke):
     enc = smoke.memory_reckoning(get_config(smoke.ENCDEC_ARCH), fake)
     assert enc["decode_cache_bytes"] == 24 * 2 * 4 * (448 + 1500) * 16 * 64 * 2
     moe = smoke.memory_reckoning(get_config(smoke.MOE_ARCH), fake)
-    assert moe["moe_dispatch_bytes"] == 4 * 4096 * 32 * 1024 * 2
+    assert moe["moe_dispatch_bytes"] == 4 * 4096 * 8 * (1024 + 2 * 512) * 2
     assert "moe_dispatch_bytes" not in vlm
 
 
@@ -1277,7 +1293,7 @@ def test_expected_train_launches_follow_the_plan(smoke):
     keep_all = Residency(tuple(classes_of(cfg)))
     assert smoke.expected_train_launches(cfg, 1, keep_all) == {
         "flash_attention": 8, "flash_attention_bwd": 8, "rglru_scan": 18,
-        "rglru_scan_bwd": 18, "ssd_chunked": 0, "ssd_chunked_bwd": 0}
+        "rglru_scan_bwd": 18, "ssd_chunked": 0, "ssd_chunked_bwd": 0, **NO_MOE}
     got = smoke.expected_train_launches(cfg, 1, Residency(("rec_out",)))
     assert got["flash_attention"] == 8 * 3 and got["rglru_scan"] == 18
     got = smoke.expected_train_launches(cfg, 1, None)
@@ -1294,7 +1310,7 @@ def test_expected_train_launches_of_mamba2(smoke):
     cfg = get_config("mamba2-780m")
     assert smoke.expected_train_launches(cfg, 6, Residency(tuple(classes_of(cfg)))) == {
         "flash_attention": 0, "flash_attention_bwd": 0, "rglru_scan": 0, "rglru_scan_bwd": 0,
-        "ssd_chunked": 48, "ssd_chunked_bwd": 48}
+        "ssd_chunked": 48, "ssd_chunked_bwd": 48, **NO_MOE}
     assert smoke.expected_train_launches(cfg, 6, Residency(("ssm_out",)))["ssd_chunked"] == 48
     assert smoke.expected_train_launches(cfg, 6, None)["ssd_chunked"] == 48 * 3
 
@@ -1580,7 +1596,7 @@ def test_expected_train_launches_of_whisper(smoke):
 
     cfg = get_config("whisper-medium")
     want = {"flash_attention": 144, "flash_attention_bwd": 72, "rglru_scan": 0,
-            "rglru_scan_bwd": 0, "ssd_chunked": 0, "ssd_chunked_bwd": 0}
+            "rglru_scan_bwd": 0, "ssd_chunked": 0, "ssd_chunked_bwd": 0, **NO_MOE}
     assert smoke.expected_train_launches(cfg, 2, Residency(tuple(classes_of(cfg)))) == want
     assert smoke.expected_train_launches(cfg, 2, None) == want
 
@@ -1601,12 +1617,15 @@ def test_expected_train_launches_of_granite(smoke):
 
 
 def test_train_memory_reckoning_of_granite_holds_the_dense_dispatch(smoke):
-    """Per layer g, u and the hidden (1, 4096, 32, 512) bf16 at 134 MB each
-    and the experts' outputs (1, 4096, 32, 1024) at 268 MB: 0.67 GB a layer,
-    16.1 GB over 24, where the planner's top-k moe_hidden is 0.8 GB."""
+    """Granite with GELU experts, which take the dense dispatch on the card
+    too: per layer g, u and the hidden (1, 4096, 32, 512) bf16 at 134 MB
+    each and the experts' outputs (1, 4096, 32, 1024) at 268 MB: 0.67 GB a
+    layer, 16.1 GB over 24, where the planner's top-k moe_hidden is 0.8 GB."""
+    import dataclasses
+
     from repro_torch.configs import get_config
 
-    cfg = get_config("granite-moe-1b-a400m")
+    cfg = dataclasses.replace(get_config("granite-moe-1b-a400m"), act="gelu")
     r = smoke.train_memory_reckoning(cfg, None)
     per_layer = 3 * 4096 * 32 * 512 * 2 + 4096 * 32 * 1024 * 2
     assert per_layer == 671_088_640 and r["moe_dense_dispatch_bytes"] == 24 * per_layer
@@ -1615,6 +1634,66 @@ def test_train_memory_reckoning_of_granite_holds_the_dense_dispatch(smoke):
     assert r["total_bytes"] == sum(v for k, v in r.items()
                                    if k not in ("total_bytes", "planner_moe_hidden_bytes"))
     assert 40e9 < r["total_bytes"] < 45e9
+
+
+def test_train_memory_reckoning_of_granite_holds_the_sparse_dispatch(smoke):
+    """Per layer the sparse dispatch's saved rows, 1 x 4096 x 8 of them: the
+    gathered rows and the experts' outputs (d_model 1024), the gate and up
+    products (2 x 512) and the hidden (512), bf16, and two int32 indices:
+    235 MB a layer, 5.6 GB over 24, in place of the dense dispatch's 16.1 GB."""
+    from repro_torch.configs import get_config
+
+    cfg = get_config("granite-moe-1b-a400m")
+    r = smoke.train_memory_reckoning(cfg, None)
+    per_layer = 4096 * 8 * (2 * (2 * 1024 + 3 * 512) + 8)
+    assert per_layer == 235_143_168 and r["moe_sparse_dispatch_bytes"] == 24 * per_layer
+    assert "moe_dense_dispatch_bytes" not in r
+    dense = smoke.train_memory_reckoning(dataclasses.replace(cfg, act="gelu"), None)
+    assert r["total_bytes"] == dense["total_bytes"] - dense["moe_dense_dispatch_bytes"] \
+        + 24 * per_layer
+
+
+def test_expected_train_launches_of_granite_count_the_sparse_dispatch(smoke):
+    """granite's 24 MoE blocks on the sparse dispatch: the order, the gather,
+    SwiGLU and the combine once a forward, the grouped products twice a
+    forward and twice a backward, the weight gradients twice a backward;
+    recomputing, each layer's forward runs again in its replay."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.remat import Residency, classes_of
+
+    cfg = get_config("granite-moe-1b-a400m")
+    got = smoke.expected_train_launches(cfg, 1, Residency(tuple(classes_of(cfg))))
+    assert {k: got[k] for k in NO_MOE} == {
+        "moe_order": 24, "moe_permute": 24, "grouped_mm": 96, "moe_swiglu": 24,
+        "moe_combine": 24, "moe_permute_bwd": 24, "grouped_mm_wgrad": 48,
+        "moe_swiglu_bwd": 24, "moe_combine_bwd": 24}
+    got = smoke.expected_train_launches(cfg, 1, Residency(("attn_out",)))
+    assert got["moe_order"] == 48 and got["grouped_mm"] == 2 * 48 + 2 * 24
+    assert got["grouped_mm_wgrad"] == 48 and got["moe_combine_bwd"] == 24
+    # the float32 copy takes the dense dispatch
+    f32 = smoke.expected_train_launches(dataclasses.replace(cfg, dtype="float32"), 1, None)
+    assert {k: f32[k] for k in NO_MOE} == NO_MOE
+    assert set(smoke.train_wrappers()) == set(got) | {"schedule_dp"}
+
+
+def test_plain_versions_take_the_dense_dispatch(smoke):
+    """``plain_kernels`` and ``plain_training`` send a MoE block that would
+    take the sparse dispatch's kernels to the dense one, and leave the
+    others' branch alone."""
+    from repro_torch.models import blocks
+
+    calls = []
+    orig = blocks.moe_branch
+    blocks.moe_branch = lambda cfg, p, x: calls.append(x) or x
+    try:
+        for ctx in (smoke.plain_kernels(), smoke.plain_training(),
+                    smoke.plain_training(yardstick=True)):
+            with ctx:
+                assert [blocks.moe_branch(None, None, b) for b in ("sparse", "dense", "bmm")] \
+                    == ["dense", "dense", "bmm"]
+            assert blocks.moe_branch(None, None, "sparse") == "sparse"
+    finally:
+        blocks.moe_branch = orig
 
 
 def test_train_memory_reckoning_of_whisper(smoke):
@@ -1672,7 +1751,8 @@ def test_moe_train_phase_on_the_cpu(smoke, monkeypatch, capsys):
     assert line["step1_gate"]["loss_rel_err"] == 0.0 and line["step1_gate"]["gated"]
     assert line["step1_float32_gate"] is None
     assert line["moe"]["block_fwd_bwd_ms"] == 1.0 and line["moe"]["layers"] == 4
-    assert line["moe"]["dense_over_active_expert_flops"] == 2
+    # the CPU's float32 smoke config takes the dense dispatch: 4 experts, top 2
+    assert line["moe"]["computed_over_routed_expert_flops"] == 2
     assert "moe_dense_dispatch_bytes" in line["memory_reckoned"]
     assert len(line["losses"]) == 2 and line["recovery"]["losses_bit_identical"]
     assert out["phase_seconds"]["rehearsal"] > 0
